@@ -1,0 +1,21 @@
+"""Self-supervised smoothness loss (NCHW).
+
+Counterpart of :func:`sndepth_tpu.losses.photometric.smooth_loss`
+(reference `models/loss_functions.py:8-24`), always through the
+fused smoothness kernel (:mod:`sndepth_tpu_torch.kernels.smooth_loss`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sndepth_tpu_torch.kernels.smooth_loss import smooth_loss_fused
+
+
+def smooth_loss(depth: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
+    """Edge-aware first-order smoothness of depth (N, 1, H, W) under image
+    (N, 3, H, W): depth gradients are down-weighted where the image has
+    strong gradients. Differentiable in ``depth`` only."""
+    return smooth_loss_fused(depth.float().contiguous(),
+                             image.float().contiguous())
+
