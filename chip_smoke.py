@@ -1,22 +1,39 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Drives GeoNet stage-1 training of ``sndepth_tpu_torch`` (DispNetS +
-PoseNet at full width, 128x416, 3-frame snippets) through the kernels
-written for Hopper, and fails unless every phase passes:
+Drives GeoNet training of ``sndepth_tpu_torch`` at full width (DispNetS,
+PoseNet and, in stage 2, FlowNet at the reference channel counts, 128x416,
+3-frame snippets, 4 scales) through the kernels written for Hopper, and
+fails unless every phase passes:
 
-  env       card name and power limit (nvidia-smi), torch and CUDA versions
-  build     nvcc builds the CUDA kernels; the Triton kernel compiles
-  photo     K1 (pair photo loss, CUDA) against its plain version at B=4,
-            ns=2 on all 4 scales (rigid-flow and wild out-of-image
-            coordinates); then both timed with CUDA events at B=4 and B=128
-  smooth    K2 (smoothness, Triton) the same way, N = 3B
-  step      one float32 train step at 128x416, B=2, from the same seeded
-            weights on the CPU (plain versions) and on the GPU (kernels)
-  train     the CLI for 20 steps (bf16, B=4, synthetic stream): finite,
-            descending loss, 4 launches of each kernel per step; then a
-            short B=128 run for frames/sec; then the step alone on a batch
-            already on the card, at B=4 and B=128
+  env        card name and power limit (nvidia-smi), torch and CUDA versions
+  build      one nvcc per CUDA source, all started together; the Triton
+             kernel compiles
+  photo      K1 (pair photo loss, CUDA) against its plain version at B=4,
+             ns=2 on all 4 scales (rigid-flow and wild out-of-image
+             coordinates); then both timed with CUDA events at B=4 and B=128
+  smooth     K2 (smoothness, Triton) the same way, N = 3B
+  warp       K5 (bilinear gather, both modes, with tangents) and K6 (its
+             splat) against their plain versions at the stage-2 shapes, with
+             small, rigid-flow-like and wild coordinates
+  dssim      K7 (DSSIM map and its adjoint) against autograd through the
+             plain version
+  photo_modes  K3 (one direction) and K4 (weighted pair) of the photo kernel
+             against their plain versions on all 4 scales
+  kernel_times  every kernel at the shapes one stage-2 step at B=32 gives
+             it: kernel, plain version, library call where there is one,
+             and the least time the card could take (bytes over 3.35 TB/s
+             against operations over 67 TFLOP/s float32)
+  step, step_flow  one float32 train step at 128x416, B=2, from the same
+             seeded weights on the CPU (plain versions) and on the GPU
+             (kernels), stage 1 and stage 2
+  train      stage 1 through the CLI (bf16, B=4, synthetic stream): finite,
+             descending loss, 4 launches of K1 and K2 per step; a short
+             B=128 run for frames/sec; the step alone on a batch already on
+             the card
+  train_flow  stage 2 through ``train_geonet`` and through the benchmark
+             CLI's ``flow`` family (bf16, B=32): finite loss and every
+             kernel's launches per step as the code path predicts
 
 Each phase prints one JSON line; the full report goes to
 ``chiprun_out/chip_smoke_report.json``. The last lines are the kernels
@@ -38,12 +55,32 @@ WORK_DIR = os.path.join(ROOT, "build", "chip_smoke")
 DEV = "cuda"
 SCALES = ((128, 416), (64, 208), (32, 104), (16, 52))
 ALPHA = 0.85
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
+FP32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+FLOW_BATCH = 32                 # the flow family's batch; n = 2 * 32 pairs
+# Launches one stage-2 train step makes (2 sources, 4 scales): K1 on scales
+# 1-3; K2 on 4 depth pyramids and 2 channels x 2 directions x 4 scales of
+# flow; K3 on scale 0; K4 on 4 scales; K5 for 2 image warps and 2 x 4 warps
+# of a flow by a flow; K6 for the 8 warped flows; K7 for 2 error maps,
+# forward and backward.
+FLOW_STEP_LAUNCHES = {"photo_pair": 3, "smooth": 20, "photo_single": 1,
+                      "photo_pair_weighted": 4, "warp_gather": 10,
+                      "warp_splat": 8, "dssim_fwd": 2, "dssim_bwd": 2}
 REPORT: dict = {}
 
 
+def write_report() -> None:
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_report.json"), "w") as f:
+        json.dump(REPORT, f, indent=1)
+
+
 def emit(phase: str, **record) -> None:
+    """Print the phase's record and add it to the report on disk, so that a
+    run that fails later still leaves what it measured."""
     REPORT[phase] = record
     print(json.dumps({"phase": phase, **record}), flush=True)
+    write_report()
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -77,23 +114,50 @@ def phase_env() -> str:
     return smi
 
 
+CUDA_SOURCES = ("photo_pair.cu", "warp.cu", "dssim.cu")
+
+
 def phase_build() -> None:
     import torch
     from sndepth_tpu_torch.kernels import build
     from sndepth_tpu_torch.kernels import smooth_loss as K2
     t0 = time.perf_counter()
-    _, report = build.compile_source("photo_pair.cu")
+    built = build.compile_sources(list(CUDA_SOURCES))
     t_nvcc = time.perf_counter() - t0
-    build.load_library("photo_pair.cu")
+    for source in CUDA_SOURCES:
+        build.load_library(source)
     t0 = time.perf_counter()
     K2._launch(torch.ones(3, 1, 16, 52, device=DEV),
                torch.zeros(3, 3, 16, 52, device=DEV))
     torch.cuda.synchronize()
     t_triton = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in report.splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {source: [ln.strip() for ln in report.splitlines()
+                      if "registers" in ln or "spill" in ln]
+             for source, (_, report) in built.items()}
     emit("build", nvcc_s=round(t_nvcc, 2), triton_s=round(t_triton, 2),
          ptxas=ptxas)
+
+
+def _counters() -> dict:
+    """The launch counter of every kernel wrapper, by kernel name."""
+    from sndepth_tpu_torch.kernels import dssim as K7
+    from sndepth_tpu_torch.kernels import photo_loss as K1
+    from sndepth_tpu_torch.kernels import smooth_loss as K2
+    from sndepth_tpu_torch.kernels import warp as K5
+    return {"photo_pair": K1.photo_pair_sums, "smooth": K2.smooth_sums,
+            "photo_single": K1.photo_sums,
+            "photo_pair_weighted": K1.photo_pair_weighted_sums,
+            "warp_gather": K5.warp_gather, "warp_splat": K5.warp_splat,
+            "dssim_fwd": K7.dssim_forward, "dssim_bwd": K7.dssim_backward}
+
+
+def reset_launches() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
 
 
 def _pyramid_inputs(b: int, seed: int):
@@ -235,14 +299,375 @@ def phase_smooth() -> dict:
     return {"max_abs_err": max_err, "timings": timings}
 
 
-def phase_step() -> None:
-    """One float32 step from the same seeded weights on CPU and GPU."""
+def _pair_inputs(nb: int, seed: int, gen):
+    """Stage-2 style inputs of n = 2 * nb (target, source) pairs per scale:
+    tgt, src (n, 3, h, w) and forward/backward coords (n, 2, h, w) from
+    seeded rigid flows."""
+    from sndepth_tpu_torch.ops.warp import pixel_grid
+    batch, pyr = _pyramid_inputs(nb, seed)
+    out = []
+    for s, (h, w) in enumerate(SCALES):
+        v = pyr[s].reshape(nb, 3, 3, h, w)
+        tgt = v[:, :1].expand(nb, 2, 3, h, w).reshape(-1, 3, h, w).contiguous()
+        src = v[:, 1:].reshape(-1, 3, h, w).contiguous()
+        # The seeded depths reach 0.1, which throws single pixels thousands
+        # of pixels out; flows are held to 60 pixels, beyond which an
+        # edge_zero tap's weights (up to the distance squared) only measure
+        # float32 cancellation.
+        grid = pixel_grid(h, w, device=DEV)
+        cf, cb = ((grid + (c.reshape(-1, 2, h, w) - grid).clamp(-60.0, 60.0))
+                  .contiguous() for c in _coords(
+                      nb, 2, h, w, batch["intrinsics"], s, gen, False))
+        out.append((tgt, src, cf, cb))
+    return out
+
+
+def _wild(like, gen):
+    """Coordinates up to 60 pixels off the grid, far outside the image."""
+    import torch
+    from sndepth_tpu_torch.ops.warp import pixel_grid
+    h, w = like.shape[2:]
+    return (pixel_grid(h, w, device=DEV)
+            + (torch.rand(like.shape, generator=gen) * 120 - 60).to(DEV))
+
+
+def _assert_finite(name: str, *tensors) -> None:
+    import torch
+    for t in tensors:
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{name}: non-finite values")
+
+
+def phase_warp() -> dict:
+    """K5 and K6 against their plain versions at the stage-2 shapes."""
+    import torch
+    from sndepth_tpu_torch.kernels import warp as K5
+    from sndepth_tpu_torch.ops.warp import pixel_grid
+    gen = torch.Generator().manual_seed(3)
+    pairs = _pair_inputs(FLOW_BATCH, 21, gen)
+    tgt0, src0, cf0, cb0 = pairs[0]
+    small = (pixel_grid(*SCALES[0], device=DEV)
+             + (torch.rand(cf0.shape, generator=gen) * 3 - 1.5).to(DEV))
+    cases = [("image_small_flow", src0, small), ("image_rigid", src0, cf0),
+             ("image_wild", src0, _wild(cf0, gen)),
+             # a target plane of another size than the source plane
+             ("image_half_size_target", src0, pairs[1][2] * 2.0)]
+    for s, (_, _, cf, cb) in enumerate(pairs):
+        h, w = SCALES[s]
+        grid = pixel_grid(h, w, device=DEV)
+        # a flow warped by a flow, as the consistency masks do
+        cases.append((f"flow_scale{s}", (cb - grid).contiguous(), cf))
+    cases.append(("flow_small_flow", src0[:, :2].contiguous(), small))
+    checks, gather_err, splat_err, far_err = [], 0.0, 0.0, 0.0
+    for name, imgs, coords in cases:
+        g = torch.randn(imgs.shape[0], imgs.shape[1], *coords.shape[2:],
+                        generator=gen).to(DEV)
+        for mode in K5.MODES:
+            got = K5.warp_gather(imgs, coords, mode, True)
+            want = K5.warp_gather_reference(imgs, coords, mode, True)
+            torch.cuda.synchronize()
+            _assert_finite(f"K5 {name} {mode}", *got)
+            # The kernel repeats the plain version's arithmetic step by step
+            # (no fused multiply-add), so only the last bits may differ.
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+            err5 = max(_max_err(a, b) for a, b in zip(got, want))
+            hs, ws = imgs.shape[2:]
+            d_k = K5.warp_splat(coords, g, hs, ws, mode)
+            d_p = K5.warp_splat_reference(coords, g, hs, ws, mode)
+            d_64 = K5.warp_splat_reference(coords.double(), g.double(), hs,
+                                           ws, mode)
+            torch.cuda.synchronize()
+            _assert_finite(f"K6 {name} {mode}", d_k)
+            # Atomic adds sum in an order that changes from run to run, in
+            # the kernel and in index_add_ alike; where clamped far-out taps
+            # pile onto a border pixel the terms are large and cancel. The
+            # kernel may be off the float32 plain version by a few times
+            # what that version is off a float64 evaluation.
+            err6 = _max_err(d_k, d_p)
+            tol6 = 1e-5 + 4.0 * _max_err(d_p.double(), d_64)
+            if err6 > tol6:
+                raise AssertionError(f"K6 {name} {mode}: {err6} > {tol6}")
+            # Far-out edge_zero taps weigh up to the distance squared (3600
+            # here): their error measures float32 cancellation and is kept
+            # apart from that of the cases whose weights stay near [0, 1],
+            # as the training step's do.
+            w_max = max(float(w.abs().max())
+                        for w in K5._taps(coords, hs, ws, mode)[1])
+            far = w_max > 4.0
+            checks.append({"case": name, "mode": mode, "gather_err": err5,
+                           "splat_err": err6, "splat_tol": tol6,
+                           "max_tap_weight": w_max, "far_out": far})
+            gather_err = max(gather_err, err5)
+            if far:
+                far_err = max(far_err, err6)
+            else:
+                splat_err = max(splat_err, err6)
+    # The autograd function around both kernels against autograd through
+    # the plain sampler: gradients to the warped planes and to the
+    # coordinates. Two bounded planes and small flows, so that neither far-out
+    # taps nor large values leave cancelling terms for the rounding to show in.
+    imgs, coords = src0[:, :2].contiguous(), small
+    cot = torch.randn(imgs.shape, generator=gen).to(DEV)
+    grads = []
+    for fn in (K5.bilinear_sample, K5.sampler_reference):
+        i = imgs.clone().requires_grad_(True)
+        c = coords.clone().requires_grad_(True)
+        (fn(i, c, "edge_zero") * cot).sum().backward()
+        grads.append((i.grad, c.grad))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    emit("warp", checks=checks, splat_far_out_max_abs_err=far_err)
+    return {"warp_gather": gather_err, "warp_splat": splat_err}
+
+
+def phase_dssim() -> dict:
+    """K7 forward and backward against autograd through the plain version."""
+    import torch
+    from sndepth_tpu_torch.kernels import dssim as K7
+    from sndepth_tpu_torch.kernels import warp as K5
+    gen = torch.Generator().manual_seed(4)
+    tgt0, src0, cf0, _ = _pair_inputs(FLOW_BATCH, 22, gen)[0]
+    warped = K5.warp_gather_reference(src0, cf0, "edge_zero", False)[0]
+    checks, fwd_err, bwd_err = [], 0.0, 0.0
+    for name, x, y in (("warped", tgt0, warped), ("frames", tgt0, src0),
+                       ("equal_windows_tie", tgt0, tgt0.clone()),
+                       ("saturated", tgt0, -tgt0)):
+        g = torch.randn(x.shape, generator=gen).to(DEV)
+        out = K7.dssim_forward(x, y)
+        dx, dy = K7.dssim_backward(x, y, g)
+        only_dy = K7.dssim_backward(x, y, g, need_dx=False)
+        x_ = x.clone().requires_grad_(True)
+        y_ = y.clone().requires_grad_(True)
+        ref = K7.dssim_reference(x_, y_)
+        rx, ry = torch.autograd.grad(ref, (x_, y_), g)
+        torch.cuda.synchronize()
+        _assert_finite(f"K7 {name}", out, dx, dy)
+        # The map: pools sum in another order than avg_pool2d, and SSIM
+        # divides by small denominators. The adjoint: the tolerance of the
+        # photo kernel, whose adjoint is the same algebra.
+        torch.testing.assert_close(out, ref.detach(), atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(dx, rx, atol=2e-4, rtol=1e-3)
+        torch.testing.assert_close(dy, ry, atol=2e-4, rtol=1e-3)
+        if only_dy[0] is not None or not torch.equal(only_dy[1], dy):
+            raise AssertionError("K7 backward with one side skipped differs")
+        checks.append({"case": name, "map_err": _max_err(out, ref.detach()),
+                       "grad_err": max(_max_err(dx, rx), _max_err(dy, ry))})
+        fwd_err = max(fwd_err, checks[-1]["map_err"])
+        bwd_err = max(bwd_err, checks[-1]["grad_err"])
+    emit("dssim", checks=checks)
+    return {"dssim_fwd": fwd_err, "dssim_bwd": bwd_err}
+
+
+def phase_photo_modes() -> dict:
+    """K3 and K4 against their plain versions on the four scales; K3 run in
+    both directions equals K1."""
+    import torch
+    from sndepth_tpu_torch.kernels import photo_loss as K1
+    gen = torch.Generator().manual_seed(5)
+    tol = dict(atol=2e-4, rtol=1e-3)   # as K1 against its plain version
+    checks, err3, err4 = [], 0.0, 0.0
+    for s, (tgt, src, cf, cb) in enumerate(_pair_inputs(FLOW_BATCH, 23, gen)):
+        for wild in (False, True):
+            if wild:
+                cf, cb = _wild(cf, gen), _wild(cb, gen)
+            # K3 as the stage-2 step calls it: the backward direction.
+            l3, d3 = K1.photo_sums(src, tgt, cb, ALPHA)
+            p3, q3 = K1.photo_sums_reference(src, tgt, cb, ALPHA)
+            # K4 with masks as weights (the step's are these over a count:
+            # unnormalised here so that the tolerance bites).
+            wf, wb = ((torch.randint(0, 3, (tgt.shape[0], 1, *tgt.shape[2:]),
+                                     generator=gen) * 0.5).to(DEV)
+                      for _ in range(2))
+            args = (tgt, src[:, None], cf[:, None].contiguous(),
+                    cb[:, None].contiguous())
+            l4, df4, db4 = K1.photo_pair_weighted_sums(*args, wf, wb, ALPHA)
+            p4, qf4, qb4 = K1.photo_pair_sums_reference(*args, ALPHA, wf, wb)
+            l1, df1, db1 = K1.photo_pair_sums(*args, ALPHA)
+            l3f, d3f = K1.photo_sums(tgt, src, cf.contiguous(), ALPHA)
+            torch.cuda.synchronize()
+            _assert_finite(f"K3/K4 scale {s}", d3, df4, db4)
+            torch.testing.assert_close(d3, q3, **tol)
+            torch.testing.assert_close(df4, qf4, **tol)
+            torch.testing.assert_close(db4, qb4, **tol)
+            rel = {"k3": abs(float(l3) - float(p3)) / abs(float(p3)),
+                   "k4": abs(float(l4) - float(p4)) / abs(float(p4)),
+                   "k3+k3_vs_k1": abs(float(l3) + float(l3f) - float(l1))
+                   / abs(float(l1))}
+            if max(rel.values()) > 1e-5:
+                raise AssertionError(f"photo modes, scale {s}: losses {rel}")
+            if not (torch.equal(d3f, df1[:, 0]) and torch.equal(d3, db1[:, 0])):
+                raise AssertionError("K3 gradients differ from K1's")
+            e3 = _max_err(d3, q3)
+            e4 = max(_max_err(df4, qf4), _max_err(db4, qb4))
+            checks.append({"hw": list(SCALES[s]), "wild": wild,
+                           "k3_grad_err": e3, "k4_grad_err": e4,
+                           "loss_rel_err": rel})
+            err3, err4 = max(err3, e3), max(err4, e4)
+    emit("photo_modes", checks=checks)
+    return {"photo_single": err3, "photo_pair_weighted": err4}
+
+
+# Operations per element, counted from the kernels' arithmetic: the photo
+# kernel's taps, pools, SSIM terms, adjoint pools and contraction per pixel,
+# direction and source over 3 channels; the DSSIM map's 9-tap sums and
+# algebra, and its adjoint's four more pools, per pixel and channel.
+PHOTO_FLOPS, DSSIM_FWD_FLOPS, DSSIM_BWD_FLOPS, SMOOTH_FLOPS = 600, 100, 170, 40
+
+
+def _bound(n_bytes: float, flops: float) -> dict:
+    """The least time (ms) the card could take: each input read once and
+    each output written once at the memory rate, against the operations at
+    the float32 rate."""
+    return {"bytes": n_bytes, "flops": flops,
+            "bytes_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "flops_ms": flops / FP32_FLOPS_PER_S * 1e3}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_kernel_times() -> dict:
+    """Every kernel once at each distinct shape that one stage-2 step at
+    B = FLOW_BATCH gives it, beside its plain version, its bound and, where
+    one PyTorch call computes the same function, that call."""
+    import torch
+    import torch.nn.functional as F
+    from sndepth_tpu_torch.kernels import dssim as K7
+    from sndepth_tpu_torch.kernels import photo_loss as K1
+    from sndepth_tpu_torch.kernels import smooth_loss as K2
+    from sndepth_tpu_torch.kernels import warp as K5
+    from sndepth_tpu_torch.ops.warp import pixel_grid
+    gen = torch.Generator().manual_seed(6)
+    nb = FLOW_BATCH
+    batch, pyr = _pyramid_inputs(nb, seed=31)
+    pairs = _pair_inputs(nb, 31, gen)
+    rows: dict[str, list] = {name: [] for name in FLOW_STEP_LAUNCHES}
+
+    def add(name, label, kernel, plain, bound, library=None):
+        rows[name].append({
+            "shape": label, "ms": time_ms(kernel, 10),
+            "plain_ms": time_ms(plain, 5), **bound,
+            "library_ms": None if library is None else time_ms(library, 10)})
+
+    def gather_case(imgs, coords, label):
+        b, c, hs, ws = imgs.shape
+        npix = coords.shape[2] * coords.shape[3]
+        out = torch.empty(b, c, *coords.shape[2:], device=DEV)
+        # grid_sample computes the zero_pad mode from normalised
+        # coordinates, without tangents; the grid is formed outside the
+        # timed call.
+        norm = torch.stack([coords[:, 0] * (2.0 / (ws - 1)) - 1.0,
+                            coords[:, 1] * (2.0 / (hs - 1)) - 1.0], -1)
+        add("warp_gather", label,
+            lambda: K5.warp_gather(imgs, coords, "edge_zero", True),
+            lambda: K5.warp_gather_reference(imgs, coords, "edge_zero", True),
+            _bound(_nbytes(imgs, coords, out) + 2 * _nbytes(out),
+                   b * npix * (20 + 19 * c)),
+            lambda: F.grid_sample(imgs, norm, mode="bilinear",
+                                  padding_mode="zeros", align_corners=True))
+        rows["warp_gather"][-1]["zero_pad_no_tangents_ms"] = time_ms(
+            lambda: K5.warp_gather(imgs, coords, "zero_pad", False), 10)
+
+    def splat_case(imgs, coords, label):
+        b, c, hs, ws = imgs.shape
+        g = torch.randn(b, c, *coords.shape[2:], generator=gen).to(DEV)
+        idx, (wx0, wx1, wy0, wy1), _ = K5._taps(coords, hs, ws, "edge_zero")
+        base = (torch.arange(b, device=DEV) * (hs * ws))[:, None]
+        index = torch.cat([(i + base).reshape(-1) for i in idx])
+        values = torch.cat([(w * g).permute(0, 2, 3, 1).reshape(-1, c)
+                            for w in (wx0 * wy0, wx0 * wy1, wx1 * wy0,
+                                      wx1 * wy1)])
+        out = torch.zeros(b * hs * ws, c, device=DEV)
+        # One index_add_ of the four taps' weighted cotangents, indices and
+        # values formed outside the timed call.
+        add("warp_splat", label,
+            lambda: K5.warp_splat(coords, g, hs, ws, "edge_zero"),
+            lambda: K5.warp_splat_reference(coords, g, hs, ws, "edge_zero"),
+            _bound(_nbytes(coords, g, imgs), b * g[0, 0].numel() * (20 + 8 * c)),
+            lambda: out.index_add_(0, index, values))
+
+    for s, (h, w) in enumerate(SCALES):
+        tgt, src, cf, cb = pairs[s]
+        n, hw = tgt.shape[0], h * w
+        label = f"{n}x{h}x{w}"
+        if s == 0:
+            # K3, the image warps and the error maps run on scale 0 only.
+            add("photo_single", label,
+                lambda: K1.photo_sums(src, tgt, cb, ALPHA),
+                lambda: K1.photo_sums_reference(src, tgt, cb, ALPHA),
+                _bound(_nbytes(tgt, src, cb, cb), PHOTO_FLOPS * n * hw))
+            gather_case(src, cf, f"{n}x3x{h}x{w}")
+            warped = K5.warp_gather_reference(src, cf, "edge_zero", False)[0]
+            g = torch.randn(tgt.shape, generator=gen).to(DEV)
+            add("dssim_fwd", f"{n}x3x{h}x{w}",
+                lambda: K7.dssim_forward(tgt, warped),
+                lambda: K7.dssim_reference(tgt, warped),
+                _bound(_nbytes(tgt, warped, g), DSSIM_FWD_FLOPS * 3 * n * hw))
+            # As the step calls it: the target frame wants no gradient.
+            add("dssim_bwd", f"{n}x3x{h}x{w}",
+                lambda: K7.dssim_backward(tgt, warped, g, need_dx=False),
+                lambda: K7.dssim_backward_reference(tgt, warped, g, False,
+                                                    True),
+                _bound(_nbytes(tgt, warped, g, g),
+                       DSSIM_BWD_FLOPS * 3 * n * hw))
+        else:
+            v = pyr[s].reshape(nb, 3, 3, h, w)
+            t1, s1 = v[:, 0].contiguous(), v[:, 1:].contiguous()
+            c1f = cf.reshape(nb, 2, 2, h, w)
+            c1b = cb.reshape(nb, 2, 2, h, w)
+            add("photo_pair", f"{nb}x2x{h}x{w}",
+                lambda: K1.photo_pair_sums(t1, s1, c1f, c1b, ALPHA),
+                lambda: K1.photo_pair_sums_reference(t1, s1, c1f, c1b, ALPHA),
+                _bound(_nbytes(t1, s1, c1f, c1b, c1f, c1b),
+                       PHOTO_FLOPS * 2 * n * hw))
+        wf, wb = (torch.rand(n, 1, h, w, generator=gen).to(DEV)
+                  for _ in range(2))
+        a4 = (tgt, src[:, None], cf[:, None].contiguous(),
+              cb[:, None].contiguous())
+        add("photo_pair_weighted", label,
+            lambda: K1.photo_pair_weighted_sums(*a4, wf, wb, ALPHA),
+            lambda: K1.photo_pair_sums_reference(*a4, ALPHA, wf, wb),
+            _bound(_nbytes(tgt, src, cf, cb, cf, cb, wf, wb),
+                   (PHOTO_FLOPS + 2) * 2 * n * hw))
+        flow = (cb - pixel_grid(h, w, device=DEV)).contiguous()
+        gather_case(flow, cf, f"{n}x2x{h}x{w}")
+        splat_case(flow, cf, f"{n}x2x{h}x{w}")
+        # K2 on the depth pyramid (3 views a sample) and on one flow channel.
+        for planes, img in ((nb * 3, pyr[s].contiguous()), (n, tgt)):
+            depth = (torch.rand(planes, 1, h, w, generator=gen) * 10
+                     + 0.1).to(DEV)
+            add("smooth", f"{planes}x{h}x{w}",
+                lambda: K2.smooth_sums(depth, img),
+                lambda: K2.smooth_sums_reference(depth, img),
+                _bound(_nbytes(depth, img, depth, depth),
+                       SMOOTH_FLOPS * planes * hw))
+    totals = {}
+    for name, shapes in rows.items():
+        t_bytes = sum(r["bytes_ms"] for r in shapes)
+        t_flops = sum(r["flops_ms"] for r in shapes)
+        lib = [r["library_ms"] for r in shapes]
+        totals[name] = {
+            "ms": sum(r["ms"] for r in shapes),
+            "plain_ms": sum(r["plain_ms"] for r in shapes),
+            "bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "library_ms": None if None in lib else sum(lib)}
+    emit("kernel_times", batch=nb, shapes=rows, totals=totals)
+    return totals
+
+
+def phase_step(train_flow: bool) -> None:
+    """One float32 step (stage 1, or stage 2 with ``train_flow``) from the
+    same seeded weights on CPU and GPU."""
     import torch
     from sndepth_tpu_torch.core.config import GeoNetConfig
     from sndepth_tpu_torch.data.prefetch import to_device
     from sndepth_tpu_torch.data.synthetic import synthetic_batches
     from sndepth_tpu_torch.train import geonet
-    cfg = GeoNetConfig(batch_size=2, compute_dtype=torch.float32)
+    cfg = GeoNetConfig(batch_size=2, compute_dtype=torch.float32,
+                       train_flow=train_flow)
     batch = next(synthetic_batches(2, cfg.img_height, cfg.img_width, seed=5))
     res = {}
     for dev in ("cpu", DEV):
@@ -251,6 +676,7 @@ def phase_step() -> None:
                                 cfg)
         res[dev] = {
             "loss": float(met["loss_total"]),
+            "parts": {k: float(v) for k, v in met.items()},
             "grads": {n: p.grad.detach().cpu() for n, p in _named(state)},
             "params": {n: p.detach().cpu() for n, p in _named(state)}}
     cpu, gpu = res["cpu"], res[DEV]
@@ -270,8 +696,11 @@ def phase_step() -> None:
         n_off += int((d > 0.01 * lr).sum())
         n_all += d.numel()
     worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:3]
-    emit("step", loss_cpu=cpu["loss"], loss_gpu=gpu["loss"],
-         loss_rel_err=loss_rel, grad_rel_err_worst=worst,
+    parts_rel = {k: abs(v - cpu["parts"][k]) / abs(cpu["parts"][k])
+                 for k, v in gpu["parts"].items()}
+    emit("step_flow" if train_flow else "step", loss_cpu=cpu["loss"],
+         loss_gpu=gpu["loss"], loss_rel_err=loss_rel,
+         loss_parts_rel_err=parts_rel, grad_rel_err_worst=worst,
          param_max_abs_err=max_param, param_frac_off=n_off / n_all)
     # Per-tensor gradient error is the norm of the difference over the norm
     # of the CPU gradient. The deepest DispNetS layers (1x4 maps at 128x416)
@@ -281,15 +710,15 @@ def phase_step() -> None:
     # two GPU runs of the same step ~4e-4 apart. After Adam, entries whose
     # gradient is within rounding of zero may take the other sign: at most
     # 1% of them, none by more than 2 * lr.
-    if not (loss_rel <= 1e-4 and worst[0][1] <= 2e-2
+    if not (max(parts_rel.values()) <= 1e-4 and worst[0][1] <= 2e-2
             and max_param <= 2 * lr and n_off <= 0.01 * n_all):
         raise AssertionError("CPU and GPU train steps disagree")
 
 
 def _named(state):
-    for prefix, net in (("disp.", state.disp_net), ("pose.", state.pose_net)):
+    for key, net in state.nets().items():
         for n, p in net.named_parameters():
-            yield prefix + n, p
+            yield f"{key}.{n}", p
 
 
 def _train(extra: list[str], max_steps: int) -> tuple[list[dict], float]:
@@ -331,15 +760,15 @@ def _device_step_ms(batch_size: int, steps: int = 5) -> float:
     return times[len(times) // 2] * 1e3
 
 
+def _used(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
 def phase_train() -> dict:
-    from sndepth_tpu_torch.kernels import photo_loss as K1
-    from sndepth_tpu_torch.kernels import smooth_loss as K2
     steps = 20
-    K1.photo_pair_sums.launches = 0
-    K2.smooth_sums.launches = 0
+    reset_launches()
     records, dt = _train([], steps)
-    launches = {"photo_pair": K1.photo_pair_sums.launches,
-                "smooth": K2.smooth_sums.launches}
+    launches = _used(read_launches())
     losses = [r["loss_total"] for r in records]
     if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
         raise AssertionError(f"non-finite loss: {losses}")
@@ -350,11 +779,11 @@ def phase_train() -> dict:
         raise AssertionError(f"launches {launches}, want {4 * steps} each")
 
     big_steps = 6
-    K1.photo_pair_sums.launches = 0
-    K2.smooth_sums.launches = 0
+    reset_launches()
     big, dt_big = _train(["--batch_size", "128"], big_steps)
-    big_launches = (K1.photo_pair_sums.launches, K2.smooth_sums.launches)
-    if big_launches != (4 * big_steps, 4 * big_steps):
+    big_launches = _used(read_launches())
+    if big_launches != {"photo_pair": 4 * big_steps,
+                        "smooth": 4 * big_steps}:
         raise AssertionError(f"B=128 launches {big_launches}")
     if not all(abs(r["loss_total"]) < float("inf") for r in big):
         raise AssertionError("non-finite loss at B=128")
@@ -366,6 +795,55 @@ def phase_train() -> dict:
          device_batch_ms_per_step_b4=dev_b4,
          device_batch_ms_per_step_b128=dev_b128,
          device_batch_frames_per_sec_b128=128 * 3 / dev_b128 * 1e3)
+    return launches
+
+
+def _finite(x: float) -> bool:
+    return x == x and abs(x) < float("inf")
+
+
+def phase_train_flow() -> dict:
+    """Stage 2 at B = FLOW_BATCH, bf16: a few steps through ``train_geonet``
+    with a checkpoint at the end, then the benchmark CLI's flow family.
+    Every kernel's launches grow by what the code path predicts per step."""
+    from sndepth_tpu_torch.cli import benchmark
+    from sndepth_tpu_torch.core.config import GeoNetConfig
+    from sndepth_tpu_torch.data.synthetic import synthetic_batches
+    from sndepth_tpu_torch.train.loop import train_geonet
+    steps = 4
+    cfg = GeoNetConfig(batch_size=FLOW_BATCH, train_flow=True)
+    reset_launches()
+    state, records = train_geonet(
+        cfg, synthetic_batches(FLOW_BATCH, *SCALES[0], seed=cfg.seed), steps,
+        device=DEV, ckpt_dir=os.path.join(WORK_DIR, "ckpt_flow"),
+        log_dir=os.path.join(WORK_DIR, "logs_flow"), log_every=1,
+        ckpt_every=steps)
+    launches = read_launches()
+    want = {k: v * steps for k, v in FLOW_STEP_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"stage-2 launches {launches}, want {want}")
+    if state.step != steps or len(records) != steps:
+        raise AssertionError(f"{state.step} of {steps} stage-2 steps ran")
+    for r in records:
+        for k, v in r.items():
+            if k.startswith("loss") and not _finite(v):
+                raise AssertionError(f"stage-2 step {r['step']}: {k} = {v}")
+    del state
+
+    iters = 5
+    reset_launches()
+    result, = benchmark.main(["--family", "flow", "--iters", str(iters),
+                              "--device", DEV])
+    bench_launches = read_launches()
+    want = {k: v * (iters + 2) for k, v in FLOW_STEP_LAUNCHES.items()}
+    if bench_launches != want:
+        raise AssertionError(f"benchmark launches {bench_launches}, "
+                             f"want {want}")
+    if result["family"] != "flow" or not result["ms_per_step"] > 0:
+        raise AssertionError(f"benchmark result {result}")
+    emit("train_flow", steps=steps, batch=FLOW_BATCH, records=records,
+         launches=launches, benchmark=result,
+         benchmark_launches=bench_launches)
     return launches
 
 
@@ -385,33 +863,49 @@ def main() -> int:
     phase_build()
     photo = phase_photo()
     smooth = phase_smooth()
-    phase_step()
-    launches = phase_train()
+    errs = {"photo_pair": photo["max_abs_err"],
+            "smooth": smooth["max_abs_err"], **phase_warp(), **phase_dssim(),
+            **phase_photo_modes()}
+    times = phase_kernel_times()
+    phase_step(train_flow=False)
+    phase_step(train_flow=True)
+    stage1_launches = phase_train()
+    launches = phase_train_flow()
 
-    def kernel_ms(t, key):
-        return sum(s[key] for s in t["B4"])
-
-    kernels = [
-        {"name": "photo_pair", "route": "cuda",
-         "source": "sndepth_tpu_torch/kernels/csrc/photo_pair.cu",
-         "replaces": "sndepth_tpu/kernels/photo_loss.py:614",
-         "launches": launches["photo_pair"],
-         "max_abs_err": photo["max_abs_err"],
-         "ms": kernel_ms(photo["timings"], "kernel_ms"),
-         "plain_ms": kernel_ms(photo["timings"], "plain_ms")},
-        {"name": "smooth", "route": "triton",
-         "source": "sndepth_tpu_torch/kernels/smooth_loss.py",
-         "replaces": "sndepth_tpu/kernels/smooth_loss.py:142",
-         "launches": launches["smooth"],
-         "max_abs_err": smooth["max_abs_err"],
-         "ms": kernel_ms(smooth["timings"], "kernel_ms"),
-         "plain_ms": kernel_ms(smooth["timings"], "plain_ms")},
-    ]
+    csrc = "sndepth_tpu_torch/kernels/csrc/"
+    where = {
+        "photo_pair": ("cuda", csrc + "photo_pair.cu",
+                       "sndepth_tpu/kernels/photo_loss.py:586"),
+        "smooth": ("triton", "sndepth_tpu_torch/kernels/smooth_loss.py",
+                   "sndepth_tpu/kernels/smooth_loss.py:118"),
+        "photo_single": ("cuda", csrc + "photo_pair.cu",
+                         "sndepth_tpu/kernels/photo_loss.py:294"),
+        "photo_pair_weighted": ("cuda", csrc + "photo_pair.cu",
+                                "sndepth_tpu/kernels/photo_loss.py:586"),
+        "warp_gather": ("cuda", csrc + "warp.cu",
+                        "sndepth_tpu/kernels/warp.py:895"),
+        "warp_splat": ("cuda", csrc + "warp.cu",
+                       "sndepth_tpu/kernels/warp.py:1294"),
+        "dssim_fwd": ("cuda", csrc + "dssim.cu",
+                      "sndepth_tpu/kernels/dssim.py:156"),
+        "dssim_bwd": ("cuda", csrc + "dssim.cu",
+                      "sndepth_tpu/kernels/dssim.py:134"),
+    }
+    kernels = []
+    for name, (route, source, replaces) in where.items():
+        if not launches[name] > 0:
+            raise AssertionError(f"{name} was never launched on the main path")
+        kernels.append({"name": name, "route": route, "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "stage1_launches": stage1_launches.get(name, 0),
+                        "max_abs_err": errs[name], **times[name]})
+    # K6's max_abs_err is over the cases whose tap weights stay near [0, 1];
+    # the far-out edge_zero cases are held to their own tolerance.
+    next(k for k in kernels if k["name"] == "warp_splat")[
+        "far_out_max_abs_err"] = REPORT["warp"]["splat_far_out_max_abs_err"]
     REPORT["kernels"] = kernels
     REPORT["seconds"] = time.perf_counter() - t0
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke_report.json"), "w") as f:
-        json.dump(REPORT, f, indent=1)
+    write_report()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,135 @@
+"""CLI: where one warm train step's time goes on the GPU.
+
+Runs the ``geonet`` (stage 1) or ``flow`` (stage 2) train step of
+``sndepth_tpu_torch.cli.benchmark`` on one batch that lies on the card,
+warms it up, then traces ``--steps`` steps with ``torch.profiler`` and
+prints one JSON object: the host's wall time per step, the summed device
+time of the kernels, the device's idle share (1 - kernel time / wall time),
+the number of kernel launches, the kernel time by group and the largest
+kernels by name. The hand-written kernels are groups of their own.
+
+Usage:
+    python -m sndepth_tpu_torch.cli.profile_step --family flow --batch 32
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+
+# First match wins; the hand-written kernels come first.
+GROUPS = (
+    ("K1/K3/K4 photo_pair", ("photo_pair_kernel",)),
+    ("K2 smooth", ("smooth_kernel",)),
+    ("K5 warp_gather", ("warp_gather_kernel",)),
+    ("K6 warp_splat", ("warp_splat_kernel",)),
+    ("K7 dssim", ("dssim_fwd_kernel", "dssim_bwd_kernel")),
+    ("layout transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),
+    ("adam", ("multi_tensor", "adam", "foreach")),
+    ("convolutions", ("gemm", "conv", "cutlass", "cudnn", "xmma", "wgrad",
+                      "dgrad", "implicit", "winograd")),
+    ("reductions", ("reduce",)),
+    ("gather/scatter/index", ("index", "gather", "scatter")),
+    ("elementwise and copies", ("elementwise", "vectorized", "copy", "cat",
+                                "unrolled", "fill", "memcpy", "memset")),
+)
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    for group, keys in GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description="Profile one warm train step")
+    p.add_argument("--family", default="flow", choices=["geonet", "flow"])
+    p.add_argument("--batch", default=0, type=int,
+                   help="override the family's default batch (128 / 32)")
+    p.add_argument("--steps", default=2, type=int, help="steps to trace")
+    p.add_argument("--img_height", default=128, type=int)
+    p.add_argument("--img_width", default=416, type=int)
+    args = p.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sndepth_tpu_torch.core.config import GeoNetConfig
+    from sndepth_tpu_torch.train import geonet
+
+    if not torch.cuda.is_available():
+        p.exit(2, "profile_step needs a CUDA device\n")
+    train_flow = args.family == "flow"
+    batch = args.batch or (32 if train_flow else 128)
+    h, w = args.img_height, args.img_width
+    device = torch.device("cuda")
+    cfg = GeoNetConfig(batch_size=batch, img_height=h, img_width=w,
+                       train_flow=train_flow)
+    rng = np.random.RandomState(0)
+    data = {
+        "tgt": rng.randint(0, 256, (batch, h, w, 3), np.uint8),
+        "src": rng.randint(0, 256, (batch, h, w, 6), np.uint8),
+        "intrinsics": np.tile(np.array(
+            [[[w * 0.58, 0, w / 2], [0, h * 1.92, h / 2], [0, 0, 1]]],
+            np.float32), (batch, 1, 1)),
+    }
+    data = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+    state = geonet.create_train_state(cfg, device)
+    for _ in range(3):
+        geonet.train_step(state, data, cfg)
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            geonet.train_step(state, data, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+
+    by_group: dict[str, float] = {}
+    by_name: dict[str, list] = {}
+    launches = 0
+    for evt in prof.events():
+        # Device-side events only, without the device-side mirror of a
+        # host annotation (such as the optimizer's step scope), whose time
+        # is that of the kernels inside it.
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or "#" in evt.name or evt.name.startswith("ProfilerStep")):
+            continue
+        us = getattr(evt, "device_time", None)
+        if us is None:
+            us = evt.cuda_time
+        ms = us * 1e-3 / args.steps
+        launches += 1
+        by_group[group_of(evt.name)] = by_group.get(group_of(evt.name), 0) + ms
+        entry = by_name.setdefault(evt.name, [0.0, 0])
+        entry[0] += ms
+        entry[1] += 1
+    kernel_ms = sum(by_group.values())
+    if not kernel_ms > 0:
+        p.exit(3, "the profiler recorded no device time\n")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    result = {
+        "family": args.family, "batch": batch, "hw": [h, w],
+        "device": torch.cuda.get_device_name(0),
+        "steps_traced": args.steps, "wall_ms_per_step": wall_ms,
+        "kernel_ms_per_step": kernel_ms,
+        "idle_share": 1.0 - kernel_ms / wall_ms,
+        "launches_per_step": launches / args.steps,
+        "ms_by_group": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
+        "top_kernels": [{"name": n[:100], "ms": v[0],
+                         "launches_per_step": v[1] / args.steps}
+                        for n, v in top],
+    }
+    print(json.dumps(result), flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()

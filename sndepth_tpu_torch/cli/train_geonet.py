@@ -74,8 +74,8 @@ def main(argv=None):
 
     if args.data_dir and os.path.exists(
             os.path.join(args.data_dir, "train.txt")):
-        from sndepth_tpu.data.kitti_sequence import (SequenceDataset,
-                                                     batch_iterator)
+        from sndepth_tpu_torch.data.kitti_sequence import (SequenceDataset,
+                                                           batch_iterator)
         dataset = SequenceDataset(
             args.data_dir, "train", args.sequence_length, args.img_width,
             args.img_height, seed=args.seed)

@@ -1,4 +1,4 @@
-"""GeoNet stage-1 training configuration.
+"""GeoNet training configuration (stage 1 and the stage-2 full-flow mode).
 
 Counterpart of :class:`sndepth_tpu.core.config.GeoNetConfig` with the
 reference's fields only (reference `models/baseline.py:43-123`). The
@@ -31,6 +31,16 @@ class GeoNetConfig:
     simi_alpha: float = 0.85
     loss_weight_rigid_warp: float = 1.0
     loss_weight_disparity_smooth: float = 0.5
+
+    # Full-flow training mode (`baseline.py:49` train_flow and the stage-2
+    # loss constants at `baseline.py:110-116`)
+    train_flow: bool = False
+    flow_scale_factor: float = 0.1
+    geometric_consistency_alpha: float = 3.0
+    geometric_consistency_beta: float = 0.05
+    loss_weight_full_warp: float = 1.0
+    loss_weight_full_smooth: float = 0.2
+    loss_weight_geometrical_consistency: float = 0.2
 
     # Optimizer (`baseline.py:101-108`)
     learning_rate: float = 2e-4

@@ -2,9 +2,10 @@
 
 Each source compiles on first use into a shared library with a plain C
 interface under ``build/`` at the repository root, named by a hash of the
-source, so a changed source rebuilds and an unchanged one is reused. The
-library is loaded with ``ctypes``; nothing here includes PyTorch's headers,
-which keeps a build to seconds.
+source, of the ``csrc/`` headers it includes (directly or through another
+header) and of the compiler flags, so a change to any of them rebuilds and
+an unchanged source is reused. The library is loaded with ``ctypes``;
+nothing here includes PyTorch's headers, which keeps a build to seconds.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -37,10 +39,30 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_closure(source: str) -> list[str]:
+    """``source`` (a file name in ``csrc/``) followed by every ``csrc/``
+    file it includes with ``#include "..."``, transitively, each once, in
+    the order found."""
+    order, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in order:
+            continue
+        order.append(name)
+        with open(os.path.join(CSRC, name), "rb") as f:
+            todo += [m.decode() for m in _INCLUDE.findall(f.read())]
+    return order
+
+
 def library_path(source: str) -> str:
     """Where the library of ``source`` (a file name in ``csrc/``) goes."""
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in source_closure(source):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:12]}.so")
 
@@ -60,6 +82,14 @@ def compile_source(source: str) -> tuple[str, str]:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
     os.replace(tmp, out)
     return out, proc.stderr
+
+
+def compile_sources(sources: list[str]) -> dict[str, tuple[str, str]]:
+    """Compile several sources at once, one ``nvcc`` process each, all
+    started together; returns ``{source: (library path, report)}``."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=max(len(sources), 1)) as pool:
+        return dict(zip(sources, pool.map(compile_source, sources)))
 
 
 def load_library(source: str) -> ctypes.CDLL:

@@ -1,6 +1,9 @@
 // Fused rigid-warp photometric pair loss and its coordinate gradient, for
-// Hopper (sm_90a). Replaces the Pallas TPU kernel
-// sndepth_tpu/kernels/photo_loss.py:_pair_kernel (entry warp_photo_pair_loss).
+// Hopper (sm_90a). Replaces the Pallas TPU kernels of
+// sndepth_tpu/kernels/photo_loss.py: _pair_kernel (entries
+// warp_photo_pair_loss and, with its weights input,
+// warp_photo_pair_loss_weighted) and _kernel (entry warp_photo_loss, one
+// direction of the pair for one source).
 //
 // One block computes one TH x TW output tile of one (batch image, direction,
 // source) plane:
@@ -12,6 +15,11 @@
 // channels into one partial, and d(sum err)/d(coords) for its tile: the
 // downstream loss is a sum, so the cotangent is a scalar and the complete
 // gradient can be formed in the forward pass.
+//
+// A launch with ndir = 1 runs direction 0 only. With weight planes wf, wb
+// (B, ns, H, W; null = all ones) each pixel's error, and with it the
+// cotangent of that pixel's error, is scaled by its weight; the weights are
+// constants and get no gradient.
 //
 // Steps:
 //   1. gather x and the warped y (and, on the tile, the tangents
@@ -25,11 +33,14 @@
 // Pixels outside the image are zero in every pool and carry no loss and no
 // cotangent, as in the zero-padded reduce_window of sndepth_tpu/ops/ssim.py.
 //
-// Build with -fmad=false: every product and sum then rounds as in the plain
-// PyTorch version, so windows where x == y give exactly SSIM = 1 and take
-// the clip's 0.5 tie factor in both.
+// The tap arithmetic is sampler.cuh's edge_zero mode and the SSIM algebra
+// ssim.cuh's, shared with warp.cu and dssim.cu. Build with -fmad=false (see
+// ssim.cuh).
 
 #include <cuda_runtime.h>
+
+#include "sampler.cuh"
+#include "ssim.cuh"
 
 namespace {
 
@@ -40,54 +51,37 @@ constexpr int NC = 3;                   // image channels
 constexpr int RH = TH + 4, RW = TW + 4; // tile + 2-pixel halo
 constexpr int QH = TH + 2, QW = TW + 2; // tile + 1-pixel halo
 constexpr int PPT = TH * TW / NT;       // tile pixels per thread
-constexpr float kC1 = (float)(0.01 * 0.01);
-constexpr float kC2 = (float)(0.03 * 0.03);
 
 // edge_zero bilinear sample of all channels of img at (x, y), with the
-// tangents d out / dx and d out / dy. Corner indices are clamped before
-// the weights are formed, so the weights of an out-of-image corner vanish.
+// tangents d out / dx and d out / dy.
 __device__ __forceinline__ void sample(const float* __restrict__ img,
                                        int H, int W, size_t hw, float x,
                                        float y, float* out, float* tx,
                                        float* ty) {
-  const float xf = floorf(x), yf = floorf(y);
-  const float x0 = fminf(fmaxf(xf, 0.f), W - 1.f);
-  const float x1 = fminf(fmaxf(xf + 1.f, 0.f), W - 1.f);
-  const float y0 = fminf(fmaxf(yf, 0.f), H - 1.f);
-  const float y1 = fminf(fmaxf(yf + 1.f, 0.f), H - 1.f);
-  const float wx0 = x1 - x, wx1 = x - x0, wy0 = y1 - y, wy1 = y - y0;
-  const float w00 = wx0 * wy0, w01 = wx0 * wy1;
-  const float w10 = wx1 * wy0, w11 = wx1 * wy1;
-  const int p00 = (int)y0 * W + (int)x0, p01 = (int)y1 * W + (int)x0;
-  const int p10 = (int)y0 * W + (int)x1, p11 = (int)y1 * W + (int)x1;
+  const Taps t = tap_setup<kEdgeZero>(x, y, H, W);
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const float* p = img + c * hw;
-    const float i00 = __ldg(p + p00), i01 = __ldg(p + p01);
-    const float i10 = __ldg(p + p10), i11 = __ldg(p + p11);
-    out[c] = w00 * i00 + w01 * i01 + w10 * i10 + w11 * i11;
-    tx[c] = wy0 * (i10 - i00) + wy1 * (i11 - i01);
-    ty[c] = wx0 * (i01 - i00) + wx1 * (i11 - i10);
-  }
+  for (int c = 0; c < NC; ++c) tap_channel(t, img + c * hw, out[c], tx[c], ty[c]);
 }
 
 __global__ void __launch_bounds__(NT) photo_pair_kernel(
     const float* __restrict__ tgt, const float* __restrict__ srcs,
     const float* __restrict__ cf, const float* __restrict__ cb,
+    const float* __restrict__ wf, const float* __restrict__ wb,
     float* __restrict__ loss_part, float* __restrict__ dcf,
-    float* __restrict__ dcb, int ns, int H, int W, float alpha,
+    float* __restrict__ dcb, int ns, int ndir, int H, int W, float alpha,
     float beta) {
   __shared__ float sx[NC][RH][RW];
   __shared__ float sy[NC][RH][RW];
   __shared__ float stx[NC][TH][TW];
   __shared__ float sty[NC][TH][TW];
   __shared__ float qa[QH][QW], qb[QH][QW], qc[QH][QW];
+  __shared__ float sw[QH][QW];
   __shared__ float red[NT / 32];
 
   const int plane = blockIdx.z;
   const int s = plane % ns;
-  const int dir = (plane / ns) % 2;
-  const int b = plane / (2 * ns);
+  const int dir = (plane / ns) % ndir;
+  const int b = plane / (ndir * ns);
   const size_t hw = (size_t)H * W;
   const float* tgt_b = tgt + (size_t)b * NC * hw;
   const float* src_bs = srcs + ((size_t)b * ns + s) * NC * hw;
@@ -96,6 +90,8 @@ __global__ void __launch_bounds__(NT) photo_pair_kernel(
   const size_t coff = ((size_t)b * ns + s) * 2 * hw;
   const float* crd = (dir == 0 ? cf : cb) + coff;
   float* dcrd = (dir == 0 ? dcf : dcb) + coff;
+  const float* wgt = dir == 0 ? wf : wb;
+  if (wgt != nullptr) wgt += ((size_t)b * ns + s) * hw;
   const int r0 = blockIdx.y * TH, c0 = blockIdx.x * TW;
   const int tid = threadIdx.x;
 
@@ -127,6 +123,14 @@ __global__ void __launch_bounds__(NT) photo_pair_kernel(
       }
     }
   }
+  // The pixel weights on the tile + 1-pixel halo.
+  for (int k = tid; k < QH * QW; k += NT) {
+    const int r = r0 + k / QW - 1, c = c0 + k % QW - 1;
+    float wv = 0.f;
+    if (r >= 0 && r < H && c >= 0 && c < W)
+      wv = wgt != nullptr ? __ldg(wgt + (size_t)r * W + c) : 1.f;
+    sw[k / QW][k % QW] = wv;
+  }
   __syncthreads();
 
   float err = 0.f;
@@ -155,32 +159,16 @@ __global__ void __launch_bounds__(NT) photo_pair_kernel(
             s_xy += xv * yv;
           }
         }
-        const float mu_x = s_x / 9.f, mu_y = s_y / 9.f;
-        const float sigma_x = s_xx / 9.f - mu_x * mu_x;
-        const float sigma_y = s_yy / 9.f - mu_y * mu_y;
-        const float sigma_xy = s_xy / 9.f - mu_x * mu_y;
-        const float t1 = 2.f * sigma_xy + kC2;
-        const float t2 = 2.f * mu_x * mu_y + kC1;
-        const float t3 = sigma_x + sigma_y + kC2;
-        const float t4 = mu_x * mu_x + mu_y * mu_y + kC1;
-        const float n = t2 * t1, d = t4 * t3;
-        const float sv = 0.5f * (1.f - n / d);
-        // d clip / d s: 1 inside, 0 outside, 0.5 at a tie with 0 or 1.
-        const float lo = 0.5f * ((sv > 0.f ? 1.f : 0.f) +
-                                 (sv >= 0.f ? 1.f : 0.f));
-        const float hi = 0.5f * ((sv < 1.f ? 1.f : 0.f) +
-                                 (sv <= 1.f ? 1.f : 0.f));
-        const float gp = lo * hi;
-        const float inv_d = 1.f / d;
-        const float a_n = -0.5f * gp * inv_d;
-        const float a_d = 0.5f * gp * n * inv_d * inv_d;
-        va = mu_x * (2.f * a_n * (t1 - t2)) + mu_y * (2.f * a_d * (t3 - t4));
-        vb = a_d * t4;
-        vc = 2.f * a_n * t2;
+        const Ssim m = ssim_terms(s_x, s_y, s_xx, s_yy, s_xy);
+        const float wv = sw[qr][qcol];
+        const SsimAdjoint a = ssim_adjoint(m, wv * clip01_grad(m.s));
+        va = a.a_y;
+        vb = a.b;
+        vc = a.c;
         if (qr >= 1 && qr <= TH && qcol >= 1 && qcol <= TW) {
           const float xv = sx[ch][qr + 1][qcol + 1];
           const float yv = sy[ch][qr + 1][qcol + 1];
-          err += alpha * fminf(fmaxf(sv, 0.f), 1.f) + beta * fabsf(xv - yv);
+          err += wv * (alpha * clip01(m.s) + beta * fabsf(xv - yv));
         }
       }
       qa[qr][qcol] = va;
@@ -212,7 +200,7 @@ __global__ void __launch_bounds__(NT) photo_pair_kernel(
       const float d_ssim = pa + 2.f * yv * pb + xv * pc;
       const float diff = xv - yv;
       const float sgn = diff > 0.f ? 1.f : (diff < 0.f ? -1.f : 0.f);
-      const float dw = alpha * d_ssim + beta * -sgn;
+      const float dw = alpha * d_ssim + beta * (-sgn * sw[tr + 1][tc + 1]);
       gx[i] += dw * stx[ch][tr][tc];
       gy[i] += dw * sty[ch][tr][tc];
     }
@@ -252,16 +240,21 @@ extern "C" int photo_pair_tile_w() { return TW; }
 
 // Launches the kernel on `stream`; returns the CUDA error code (0 = launched).
 // tgt (B, 3, H, W); srcs (B, ns, 3, H, W); cf, cb, dcf, dcb (B, ns, 2, H, W);
-// loss_part has one float per block: ceil(W/TW) * ceil(H/TH) * B * 2 * ns.
+// wf, wb (B, ns, H, W) or null; ndir is 2 (both directions) or 1 (direction 0
+// only: cb, wb and dcb are not read and may be null). loss_part has one float
+// per block: ceil(W/TW) * ceil(H/TH) * B * ndir * ns.
 extern "C" int photo_pair_launch(const float* tgt, const float* srcs,
                                  const float* cf, const float* cb,
+                                 const float* wf, const float* wb,
                                  float* loss_part, float* dcf, float* dcb,
-                                 int B, int ns, int C, int H, int W,
+                                 int B, int ns, int ndir, int C, int H, int W,
                                  float alpha, float beta, void* stream) {
-  if (C != NC || B < 1 || ns < 1 || H < 1 || W < 1 || B * 2 * ns > 65535)
+  if (C != NC || B < 1 || ns < 1 || H < 1 || W < 1 ||
+      (ndir != 1 && ndir != 2) || (long long)B * ndir * ns > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B * 2 * ns);
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B * ndir * ns);
   photo_pair_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      tgt, srcs, cf, cb, loss_part, dcf, dcb, ns, H, W, alpha, beta);
+      tgt, srcs, cf, cb, wf, wb, loss_part, dcf, dcb, ns, ndir, H, W, alpha,
+      beta);
   return (int)cudaGetLastError();
 }

@@ -59,19 +59,23 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
                          align_corners=False)
 
 
-class DispNetS(nn.Module):
-    """Input (B, 3, H, W) in [-1, 1]; returns (disp1, disp2, disp3, disp4),
-    each (B, 1, H/2^s, W/2^s) float32, finest first."""
+class EncoderDecoder(nn.Module):
+    """The 7-level stride-2 encoder and transposed-conv decoder with skips
+    that DispNetS and FlowNet share; a subclass adds its four prediction
+    heads and passes :meth:`_decode` a function that applies one.
 
-    def __init__(self, alpha: float = 10.0, beta: float = 0.01,
+    ``head_channels`` is the width of a prediction: the decoder levels 3-1
+    take the upsampled coarser prediction as extra input channels."""
+
+    def __init__(self, c_in: int, head_channels: int,
                  enc_planes: Sequence[int] = (32, 64, 128, 256, 512, 512, 512),
                  dec_planes: Sequence[int] = (512, 512, 256, 128, 64, 32, 16),
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.alpha, self.beta, self.dtype = alpha, beta, dtype
+        self.dtype = dtype
         ep, dp = tuple(enc_planes), tuple(dec_planes)
+        self.dec_planes = dp
         kernels = (7, 5, 3, 3, 3, 3, 3)
-        c_in = 3
         for i, (planes, k) in enumerate(zip(ep, kernels)):
             p = (k - 1) // 2
             setattr(self, f"conv{i + 1}", nn.Sequential(
@@ -80,16 +84,14 @@ class DispNetS(nn.Module):
             c_in = planes
         # Decoder index i (JAX _UpConv_i / _IConv_i) is torch level 7 - i.
         up_in = (ep[6],) + dp[:6]
-        skip = (ep[5], ep[4], ep[3], ep[2], ep[1] + 1, ep[0] + 1, 1)
+        hc = head_channels
+        skip = (ep[5], ep[4], ep[3], ep[2], ep[1] + hc, ep[0] + hc, hc)
         for i in range(7):
             t = 7 - i
             setattr(self, f"upconv{t}", nn.Sequential(
                 nn.ConvTranspose2d(up_in[i], dp[i], 3, 2, 1, 1), nn.ReLU()))
             setattr(self, f"iconv{t}", nn.Sequential(
                 nn.Conv2d(dp[i] + skip[i], dp[i], 3, 1, 1), nn.ReLU()))
-        for t, planes in ((4, dp[3]), (3, dp[4]), (2, dp[5]), (1, dp[6])):
-            setattr(self, f"predict_disp{t}", nn.Sequential(
-                nn.Conv2d(planes, 1, 3, 1, 1), nn.Sigmoid()))
 
     def _up(self, t: int, x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
         layer = getattr(self, f"upconv{t}")[0]
@@ -99,11 +101,10 @@ class DispNetS(nn.Module):
         layer = getattr(self, f"iconv{t}")[0]
         return F.relu(conv(layer, torch.cat(xs, 1), self.dtype))
 
-    def _head(self, t: int, x: torch.Tensor) -> torch.Tensor:
-        d = conv(getattr(self, f"predict_disp{t}")[0], x, self.dtype)
-        return self.alpha * torch.sigmoid(d.float()) + self.beta
-
-    def forward(self, x: torch.Tensor):
+    def _decode(self, x: torch.Tensor, head):
+        """Encoder and decoder over ``x``; ``head(t, features)`` gives the
+        float32 prediction of level t. Returns the predictions of levels
+        1-4, finest first."""
         dt = self.dtype
         x = x.to(dt)
         feats, h = [], x
@@ -118,17 +119,39 @@ class DispNetS(nn.Module):
         i6 = self._iconv(6, self._up(6, i7, c5), c5)
         i5 = self._iconv(5, self._up(5, i6, c4), c4)
         i4 = self._iconv(4, self._up(4, i5, c3), c3)
-        disp4 = self._head(4, i4)
+        p4 = head(4, i4)
 
-        d4_up = _crop_like(upsample2x(disp4), c2).to(dt)
-        i3 = self._iconv(3, self._up(3, i4, c2), c2, d4_up)
-        disp3 = self._head(3, i3)
+        p4_up = _crop_like(upsample2x(p4), c2).to(dt)
+        i3 = self._iconv(3, self._up(3, i4, c2), c2, p4_up)
+        p3 = head(3, i3)
 
-        d3_up = _crop_like(upsample2x(disp3), c1).to(dt)
-        i2 = self._iconv(2, self._up(2, i3, c1), c1, d3_up)
-        disp2 = self._head(2, i2)
+        p3_up = _crop_like(upsample2x(p3), c1).to(dt)
+        i2 = self._iconv(2, self._up(2, i3, c1), c1, p3_up)
+        p2 = head(2, i2)
 
-        d2_up = _crop_like(upsample2x(disp2), x).to(dt)
-        i1 = self._iconv(1, self._up(1, i2, x), d2_up)
-        disp1 = self._head(1, i1)
-        return disp1, disp2, disp3, disp4
+        p2_up = _crop_like(upsample2x(p2), x).to(dt)
+        i1 = self._iconv(1, self._up(1, i2, x), p2_up)
+        p1 = head(1, i1)
+        return p1, p2, p3, p4
+
+
+class DispNetS(EncoderDecoder):
+    """Input (B, 3, H, W) in [-1, 1]; returns (disp1, disp2, disp3, disp4),
+    each (B, 1, H/2^s, W/2^s) float32, finest first."""
+
+    def __init__(self, alpha: float = 10.0, beta: float = 0.01,
+                 enc_planes: Sequence[int] = (32, 64, 128, 256, 512, 512, 512),
+                 dec_planes: Sequence[int] = (512, 512, 256, 128, 64, 32, 16),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(3, 1, enc_planes, dec_planes, dtype)
+        self.alpha, self.beta = alpha, beta
+        for t in (4, 3, 2, 1):
+            setattr(self, f"predict_disp{t}", nn.Sequential(
+                nn.Conv2d(self.dec_planes[7 - t], 1, 3, 1, 1), nn.Sigmoid()))
+
+    def _head(self, t: int, x: torch.Tensor) -> torch.Tensor:
+        d = conv(getattr(self, f"predict_disp{t}")[0], x, self.dtype)
+        return self.alpha * torch.sigmoid(d.float()) + self.beta
+
+    def forward(self, x: torch.Tensor):
+        return self._decode(x, self._head)

@@ -1,13 +1,22 @@
-"""GeoNet stage-1 self-supervised depth+pose training step (PyTorch).
+"""GeoNet self-supervised training step, stages 1 and 2 (PyTorch).
 
-Counterpart of ``sndepth_tpu/train/geonet.py`` with ``train_flow=False``
-(reference `models/baseline.py:746-1278`): DispNetS over the stacked
-[target, sources] views, PoseNet over their channel concatenation, a
-4-scale rigid-warp photometric loss through the fused pair kernel
+Counterpart of ``sndepth_tpu/train/geonet.py`` (reference
+`models/baseline.py:746-1278`): DispNetS over the stacked [target, sources]
+views, PoseNet over their channel concatenation, a 4-scale rigid-warp
+photometric loss through the fused pair kernel
 (:mod:`sndepth_tpu_torch.kernels.photo_loss`), edge-aware smoothness
-through the fused smoothness kernel, and Adam. Kernels are chosen by the
-device the tensors live on: CUDA tensors launch them, CPU tensors take
-their plain versions.
+through the fused smoothness kernel, and Adam.
+
+With ``config.train_flow`` (stage 2) a residual FlowNet refines the rigid
+flows. It eats the scale-0 warped image and error map, so scale 0 keeps the
+split ops there (the warp gather and the DSSIM map, forward direction) and
+the single-direction photo kernel (backward direction); the full flows then
+pay a weighted photometric pair loss, a per-channel smoothness loss and a
+forward-backward consistency loss whose masks come from warping one flow by
+the other.
+
+Kernels are chosen by the device the tensors live on: CUDA tensors launch
+them, CPU tensors take their plain versions.
 """
 
 from __future__ import annotations
@@ -17,14 +26,18 @@ import dataclasses
 import torch
 
 from sndepth_tpu_torch.core.config import GeoNetConfig, apply_precision
-from sndepth_tpu_torch.kernels.photo_loss import warp_photo_pair_loss
-from sndepth_tpu_torch.losses.photometric import smooth_loss
+from sndepth_tpu_torch.kernels.photo_loss import (
+    warp_photo_loss, warp_photo_pair_loss, warp_photo_pair_loss_weighted)
+from sndepth_tpu_torch.losses.photometric import (flow_smooth_loss,
+                                                  smooth_loss)
 from sndepth_tpu_torch.models.dispnet import DispNetS, init_weights
+from sndepth_tpu_torch.models.flownet import FlowNet
 from sndepth_tpu_torch.models.posenet import PoseNet
 from sndepth_tpu_torch.ops.camera import (compute_multi_scale_intrinsics,
                                           compute_rigid_flow)
 from sndepth_tpu_torch.ops.pyramid import scale_pyramid
-from sndepth_tpu_torch.ops.warp import pixel_grid
+from sndepth_tpu_torch.ops.ssim import image_similarity
+from sndepth_tpu_torch.ops.warp import flow_warp, pixel_grid
 
 # As optax.apply_if_finite(max_consecutive_errors=100) in the JAX step: a
 # non-finite step is skipped; the 101st consecutive one raises here, where
@@ -32,17 +45,26 @@ from sndepth_tpu_torch.ops.warp import pixel_grid
 MAX_CONSECUTIVE_SKIPS = 100
 
 
-def build_models(config: GeoNetConfig, device) -> tuple[DispNetS, PoseNet]:
-    """DispNetS and PoseNet with weights drawn on the host from a generator
+# FlowNet input: tgt (3) + src (3) + warped (3) + rigid flow (2) + |err| (1)
+FLOW_IN_CHANNELS = 12
+
+
+def build_models(config: GeoNetConfig, device
+                 ) -> tuple[DispNetS, PoseNet, FlowNet | None]:
+    """DispNetS, PoseNet and, with ``config.train_flow``, FlowNet (else
+    ``None``), with weights drawn on the host in that order from a generator
     seeded with ``config.seed``, then moved to ``device``: the same seed
     gives the same weights on every device."""
     gen = torch.Generator().manual_seed(config.seed)
-    disp_net = DispNetS(dtype=config.compute_dtype)
-    pose_net = PoseNet(num_source=config.num_source,
-                       dtype=config.compute_dtype)
-    init_weights(disp_net, gen)
-    init_weights(pose_net, gen)
-    return disp_net.to(device), pose_net.to(device)
+    nets = [DispNetS(dtype=config.compute_dtype),
+            PoseNet(num_source=config.num_source, dtype=config.compute_dtype)]
+    if config.train_flow:
+        nets.append(FlowNet(FLOW_IN_CHANNELS, config.flow_scale_factor,
+                            dtype=config.compute_dtype))
+    for net in nets:
+        init_weights(net, gen)
+    nets = [net.to(device) for net in nets]
+    return nets[0], nets[1], (nets[2] if config.train_flow else None)
 
 
 def preprocess_batch(batch: dict) -> dict:
@@ -83,15 +105,19 @@ def geonet_forward(disp_net: DispNetS, pose_net: PoseNet, batch: dict,
 
 
 def geonet_loss(disp_net: DispNetS, pose_net: PoseNet, batch: dict,
-                config: GeoNetConfig) -> tuple[torch.Tensor, dict]:
-    """Total stage-1 loss of one preprocessed batch, and its parts."""
+                config: GeoNetConfig, flow_net: FlowNet | None = None
+                ) -> tuple[torch.Tensor, dict]:
+    """Total loss of one preprocessed batch, and its parts."""
     _, depths, poses = geonet_forward(disp_net, pose_net, batch, config)
-    return geonet_loss_tail(depths, poses, batch, config)
+    return geonet_loss_tail(depths, poses, batch, config, flow_net)
 
 
 def geonet_loss_tail(depths: list, poses: torch.Tensor, batch: dict,
-                     config: GeoNetConfig) -> tuple[torch.Tensor, dict]:
-    """Rigid-warp photometric + smoothness losses from the nets' outputs."""
+                     config: GeoNetConfig, flow_net: FlowNet | None = None
+                     ) -> tuple[torch.Tensor, dict]:
+    """Rigid-warp photometric + smoothness losses from the nets' outputs,
+    and the stage-2 flow losses when ``config.train_flow`` (``flow_net`` is
+    read by that branch only)."""
     cfg = config
     b = batch["tgt"].shape[0]
     ns = cfg.num_source
@@ -105,6 +131,8 @@ def geonet_loss_tail(depths: list, poses: torch.Tensor, batch: dict,
 
     loss_rigid_warp = 0.0
     loss_disp_smooth = 0.0
+    fwd_flows, bwd_flows, tgt_tile_pyr, src_pyr = [], [], [], []
+    fwd_warp0 = fwd_err0 = None
     for s in range(cfg.num_scales):
         hs, ws = views_pyr[s].shape[2], views_pyr[s].shape[3]
         v_s = views_pyr[s].reshape(b, nv, 3, hs, ws)
@@ -118,12 +146,29 @@ def geonet_loss_tail(depths: list, poses: torch.Tensor, batch: dict,
         fwd_flow = compute_rigid_flow(poses_flat, tgt_depth, k_s, False)
         bwd_flow = compute_rigid_flow(poses_flat, src_depth, k_s, True)
         grid = pixel_grid(hs, ws, torch.float32, fwd_flow.device)
-        cf = (grid + fwd_flow).reshape(b, ns, 2, hs, ws)
-        cb = (grid + bwd_flow).reshape(b, ns, 2, hs, ws)
-        pair_sum = warp_photo_pair_loss(
-            v_s[:, 0].contiguous(), v_s[:, 1:].contiguous(), cf.contiguous(),
-            cb.contiguous(), cfg.simi_alpha)
         denom = float(b * ns * 3 * hs * ws)
+        if not cfg.train_flow or s > 0:
+            cf = (grid + fwd_flow).reshape(b, ns, 2, hs, ws)
+            cb = (grid + bwd_flow).reshape(b, ns, 2, hs, ws)
+            pair_sum = warp_photo_pair_loss(
+                v_s[:, 0].contiguous(), v_s[:, 1:].contiguous(),
+                cf.contiguous(), cb.contiguous(), cfg.simi_alpha)
+        if cfg.train_flow:
+            tgt_s = v_s[:, :1].expand(b, ns, 3, hs, ws).reshape(
+                b * ns, 3, hs, ws).contiguous()
+            src_s = v_s[:, 1:].reshape(b * ns, 3, hs, ws).contiguous()
+            tgt_tile_pyr.append(tgt_s)
+            src_pyr.append(src_s)
+            fwd_flows.append(fwd_flow)
+            bwd_flows.append(bwd_flow)
+            if s == 0:
+                # Only the forward warp and error map feed FlowNet, so the
+                # backward direction takes the fused kernel.
+                fwd_warp0 = flow_warp(src_s, fwd_flow)
+                fwd_err0 = image_similarity(cfg.simi_alpha, tgt_s, fwd_warp0)
+                pair_sum = fwd_err0.sum() + warp_photo_loss(
+                    src_s, tgt_s, (grid + bwd_flow).contiguous(),
+                    cfg.simi_alpha)
         loss_rigid_warp = loss_rigid_warp + (
             cfg.loss_weight_rigid_warp * ns / 2.0 * pair_sum / denom)
 
@@ -132,9 +177,95 @@ def geonet_loss_tail(depths: list, poses: torch.Tensor, batch: dict,
             * smooth_loss(depth_s.reshape(b * nv, 1, hs, ws), views_pyr[s]))
 
     total = loss_rigid_warp + loss_disp_smooth
-    return total, {"loss_rigid_warp": loss_rigid_warp,
-                   "loss_disp_smooth": loss_disp_smooth,
-                   "loss_total": total}
+    aux = {"loss_rigid_warp": loss_rigid_warp,
+           "loss_disp_smooth": loss_disp_smooth}
+    if cfg.train_flow:
+        flow_losses = _full_flow_losses(
+            flow_net, cfg, tgt_tile_pyr, src_pyr, fwd_flows, bwd_flows,
+            fwd_warp0, fwd_err0)
+        total = total + sum(flow_losses.values())
+        aux.update(flow_losses)
+    aux["loss_total"] = total
+    return total, aux
+
+
+def _err_magnitude(err: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.vector_norm(err + 1e-10, dim=1, keepdim=True)
+
+
+def _consistency(flow: torch.Tensor, other: torch.Tensor, s: int,
+                 cfg: GeoNetConfig):
+    """|warp(other, flow) + flow| and the mask (N, 1, h, w) of the pixels
+    where it stays under the bound (`baseline.py:1063-1113`): the share of
+    the two flow channels that do. The bound and the mask carry no
+    gradient; the difference is differentiated in both flows."""
+    diff = torch.abs(flow_warp(other, flow) + flow)
+    bound = torch.clamp_min(
+        cfg.geometric_consistency_beta * torch.abs(flow) * 2 ** s,
+        cfg.geometric_consistency_alpha).detach()
+    mask = (diff * 2 ** s < bound).float().mean(1, keepdim=True)
+    return diff, mask
+
+
+def _full_flow_losses(flow_net: FlowNet, cfg: GeoNetConfig, tgt_tile_pyr,
+                      src_pyr, fwd_rigid, bwd_rigid, fwd_warp0, fwd_err0
+                      ) -> dict:
+    """Stage-2 GeoNet: residual FlowNet and the full-flow warp, smoothness
+    and consistency losses (``sndepth_tpu/train/geonet.py:
+    _full_flow_losses``). Pyramids are lists over scales of (B*ns, C, h, w);
+    ``fwd_warp0`` / ``fwd_err0`` are the scale-0 forward warp and error."""
+    n = tgt_tile_pyr[0].shape[0]
+    ns = cfg.num_source
+    tgt0, src0 = tgt_tile_pyr[0], src_pyr[0]
+    fwd_in = torch.cat([tgt0, src0, fwd_warp0, fwd_rigid[0],
+                        _err_magnitude(fwd_err0)], 1)
+    bwd_warp0 = flow_warp(tgt0, bwd_rigid[0])
+    bwd_err0 = image_similarity(cfg.simi_alpha, src0, bwd_warp0)
+    bwd_in = torch.cat([src0, tgt0, bwd_warp0, bwd_rigid[0],
+                        _err_magnitude(bwd_err0)], 1)
+    # Forward and backward interleaved per pair: (n, 2) flattened.
+    fb = torch.stack([fwd_in, bwd_in], 1)
+    resflow = flow_net(fb.reshape(2 * n, *fb.shape[2:]))
+
+    loss_warp = 0.0
+    loss_smooth = 0.0
+    loss_geo = 0.0
+    for s in range(cfg.num_scales):
+        hs, ws = tgt_tile_pyr[s].shape[2:]
+        r_s = resflow[s].reshape(n, 2, 2, hs, ws)
+        fwd_full = r_s[:, 0] + fwd_rigid[s]
+        bwd_full = r_s[:, 1] + bwd_rigid[s]
+        fwd_diff, fwd_mask = _consistency(fwd_full, bwd_full, s, cfg)
+        bwd_diff, bwd_mask = _consistency(bwd_full, fwd_full, s, cfg)
+        fwd_norm = fwd_mask.mean().clamp_min(1e-6)
+        bwd_norm = bwd_mask.mean().clamp_min(1e-6)
+
+        # The masked, mean-normalised photometric pair is linear in the
+        # masks, which carry no gradient: they ride the weighted kernel as
+        # per-pixel weights, the normalisations folded in.
+        nelem = 3.0 * fwd_mask.numel()
+        grid = pixel_grid(hs, ws, torch.float32, fwd_full.device)
+        pair_sum = warp_photo_pair_loss_weighted(
+            tgt_tile_pyr[s], src_pyr[s][:, None],
+            (grid + fwd_full)[:, None].contiguous(),
+            (grid + bwd_full)[:, None].contiguous(),
+            (fwd_mask / (fwd_norm * nelem)).contiguous(),
+            (bwd_mask / (bwd_norm * nelem)).contiguous(), cfg.simi_alpha)
+        loss_warp = loss_warp + cfg.loss_weight_full_warp * ns / 2.0 * pair_sum
+
+        loss_smooth = loss_smooth + (
+            cfg.loss_weight_full_smooth / 2 ** (s + 1)
+            * (flow_smooth_loss(fwd_full, tgt_tile_pyr[s])
+               + flow_smooth_loss(bwd_full, src_pyr[s])))
+
+        loss_geo = loss_geo + (
+            cfg.loss_weight_geometrical_consistency / 2.0
+            * ((fwd_diff.mean(1, keepdim=True) * fwd_mask).mean() / fwd_norm
+               + (bwd_diff.mean(1, keepdim=True) * bwd_mask).mean()
+               / bwd_norm))
+
+    return {"loss_full_warp": loss_warp, "loss_full_smooth": loss_smooth,
+            "loss_geometric_consistency": loss_geo}
 
 
 def make_optimizer(config: GeoNetConfig, params) -> torch.optim.Adam:
@@ -152,18 +283,27 @@ class TrainState:
     disp_net: DispNetS
     pose_net: PoseNet
     optimizer: torch.optim.Adam
+    flow_net: FlowNet | None = None
     step: int = 0
     notfinite_count: int = 0
 
+    def nets(self) -> dict[str, torch.nn.Module]:
+        """The nets by checkpoint key, in parameter order."""
+        nets = {"disp_net": self.disp_net, "pose_net": self.pose_net}
+        if self.flow_net is not None:
+            nets["flow_net"] = self.flow_net
+        return nets
+
     def parameters(self) -> list[torch.nn.Parameter]:
-        return [*self.disp_net.parameters(), *self.pose_net.parameters()]
+        return [p for net in self.nets().values() for p in net.parameters()]
 
 
 def create_train_state(config: GeoNetConfig, device) -> TrainState:
     apply_precision(config)
-    disp_net, pose_net = build_models(config, device)
-    params = [*disp_net.parameters(), *pose_net.parameters()]
-    return TrainState(disp_net, pose_net, make_optimizer(config, params))
+    disp_net, pose_net, flow_net = build_models(config, device)
+    state = TrainState(disp_net, pose_net, None, flow_net)
+    state.optimizer = make_optimizer(config, state.parameters())
+    return state
 
 
 def train_step(state: TrainState, batch: dict,
@@ -174,7 +314,8 @@ def train_step(state: TrainState, batch: dict,
     gradient is non-finite. Returns the loss parts, detached."""
     batch = preprocess_batch(batch)
     state.optimizer.zero_grad(set_to_none=True)
-    total, aux = geonet_loss(state.disp_net, state.pose_net, batch, config)
+    total, aux = geonet_loss(state.disp_net, state.pose_net, batch, config,
+                             state.flow_net)
     total.backward()
     grads = [p.grad for p in state.parameters() if p.grad is not None]
     finite = torch.stack([torch.isfinite(total)]

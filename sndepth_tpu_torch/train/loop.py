@@ -2,7 +2,8 @@
 
 Counterpart of ``sndepth_tpu/train/loop.py`` on one device, without its
 mesh, multi-host and trace branches. A checkpoint is one ``torch.save`` of
-the model and optimizer state dicts and the counters.
+the state dicts of the nets (DispNetS, PoseNet and, in stage 2, FlowNet) and
+of the optimizer, and the counters.
 """
 
 from __future__ import annotations
@@ -26,8 +27,7 @@ def save_checkpoint(state: geonet.TrainState, ckpt_dir: str) -> str:
     path = os.path.join(ckpt_dir, f"step_{state.step:08d}.pt")
     torch.save({"step": state.step,
                 "notfinite_count": state.notfinite_count,
-                "disp_net": state.disp_net.state_dict(),
-                "pose_net": state.pose_net.state_dict(),
+                **{k: net.state_dict() for k, net in state.nets().items()},
                 "optimizer": state.optimizer.state_dict()}, path + ".tmp")
     os.replace(path + ".tmp", path)
     return path
@@ -42,8 +42,11 @@ def latest_checkpoint(ckpt_dir: str) -> str | None:
 
 def restore_checkpoint(state: geonet.TrainState, path: str) -> None:
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    state.disp_net.load_state_dict(ckpt["disp_net"])
-    state.pose_net.load_state_dict(ckpt["pose_net"])
+    for key, net in state.nets().items():
+        if key not in ckpt:
+            raise KeyError(f"{path} holds no {key}: it was saved by a run "
+                           "without that net")
+        net.load_state_dict(ckpt[key])
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt["step"])
     state.notfinite_count = int(ckpt["notfinite_count"])

@@ -1,0 +1,68 @@
+"""``kernels/build.py`` names a library by everything that decides its
+contents: the source, the ``csrc/`` headers it includes, directly or through
+another header, and the compiler flags."""
+
+import os
+import shutil
+
+import pytest
+
+from sndepth_tpu_torch.kernels import build
+
+
+@pytest.fixture
+def csrc_copy(tmp_path, monkeypatch):
+    dst = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, dst)
+    monkeypatch.setattr(build, "CSRC", str(dst))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+    return dst
+
+
+def test_source_closure_follows_quoted_includes_only():
+    assert build.source_closure("photo_pair.cu") == [
+        "photo_pair.cu", "sampler.cuh", "ssim.cuh"]
+    assert build.source_closure("warp.cu") == ["warp.cu", "sampler.cuh"]
+    assert build.source_closure("dssim.cu") == ["dssim.cu", "ssim.cuh"]
+
+
+@pytest.mark.parametrize("source,header,rebuilds", [
+    ("photo_pair.cu", "sampler.cuh", True),
+    ("photo_pair.cu", "ssim.cuh", True),
+    ("warp.cu", "sampler.cuh", True),
+    ("warp.cu", "ssim.cuh", False),
+    ("dssim.cu", "sampler.cuh", False),
+])
+def test_a_changed_header_renames_the_libraries_that_include_it(
+        csrc_copy, source, header, rebuilds):
+    before = build.library_path(source)
+    with open(csrc_copy / header, "a") as f:
+        f.write("\n// changed\n")
+    assert (build.library_path(source) != before) == rebuilds
+
+
+def test_a_header_included_through_a_header_counts(csrc_copy):
+    (csrc_copy / "inner.cuh").write_text("#pragma once\n")
+    with open(csrc_copy / "ssim.cuh", "a") as f:
+        f.write('\n#include "inner.cuh"\n')
+    assert build.source_closure("dssim.cu") == ["dssim.cu", "ssim.cuh",
+                                                "inner.cuh"]
+    before = build.library_path("dssim.cu")
+    (csrc_copy / "inner.cuh").write_text("#pragma once\n// changed\n")
+    assert build.library_path("dssim.cu") != before
+
+
+def test_source_and_flags_rename_the_library(csrc_copy, monkeypatch):
+    before = build.library_path("warp.cu")
+    assert os.path.basename(before).startswith("libwarp_")
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["-g"])
+    flagged = build.library_path("warp.cu")
+    assert flagged != before
+    with open(csrc_copy / "warp.cu", "a") as f:
+        f.write("\n// changed\n")
+    assert build.library_path("warp.cu") not in (before, flagged)
+
+
+def test_flags_keep_the_target_and_the_unfused_arithmetic():
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert "-fmad=false" in build.NVCC_FLAGS

@@ -1,7 +1,10 @@
-"""The port imports without JAX, and a kernel request that cannot run on
-the card raises instead of falling back to the plain version."""
+"""The port imports without JAX and without the JAX package, and a kernel
+request that cannot run on the card raises instead of falling back to the
+plain version."""
 
+import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -9,8 +12,13 @@ import pytest
 import torch
 
 import sndepth_tpu_torch
+from sndepth_tpu_torch.kernels import dssim as K7
 from sndepth_tpu_torch.kernels import photo_loss as K1
 from sndepth_tpu_torch.kernels import smooth_loss as K2
+from sndepth_tpu_torch.kernels import warp as K5
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "sndepth_tpu")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _modules():
@@ -19,23 +27,55 @@ def _modules():
 
 
 def test_every_module_imports_with_jax_unavailable():
+    """Every module imports, and a stage-2 step and both CLIs run (so the
+    imports inside functions run too), with JAX and the JAX package blocked."""
     names = _modules()
     assert "sndepth_tpu_torch.cli.train_geonet" in names
-    code = ("import sys\n"
-            "for m in ('jax', 'jaxlib', 'flax', 'optax'):\n"
+    assert "sndepth_tpu_torch.cli.benchmark" in names
+    assert "sndepth_tpu_torch.data.kitti_sequence" in names
+    code = ("import sys, tempfile\n"
+            f"for m in {BLOCKED!r}:\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
+            "from sndepth_tpu_torch.cli import benchmark, train_geonet\n"
+            "small = ['--img_height', '16', '--img_width', '32',\n"
+            "         '--device', 'cpu']\n"
+            "benchmark.main(['--family', 'flow', '--batch', '1',\n"
+            "                '--iters', '1'] + small)\n"
+            "with tempfile.TemporaryDirectory() as d:\n"
+            "    train_geonet.main(['--max_steps', '1', '--batch_size', '1',\n"
+            "                       '--ckpt_dir', d + '/c',\n"
+            "                       '--graphs_dir', d + '/l'] + small)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-            "       ('jax', 'jaxlib', 'flax', 'optax')\n"
+            f"       {BLOCKED!r}\n"
             "       and sys.modules[m] is not None]\n"
             "assert not bad, bad\n"
             "print('ok', len(sys.modules))\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=120)
+                          text=True, timeout=300, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.startswith("ok")
+    assert proc.stdout.strip().splitlines()[-1].startswith("ok")
+
+
+def test_no_source_line_imports_jax_or_the_jax_package():
+    """A scan of the port's sources and of chip_smoke.py: it also sees an
+    import inside a function that no test happens to run."""
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|sndepth_tpu)(\.|\s|$)")
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "sndepth_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 20
+    bad = []
+    for path in paths:
+        with open(path) as f:
+            bad += [(path, n, line) for n, line in enumerate(f, 1)
+                    if pattern.match(line)]
+    assert not bad, bad
+    assert pattern.match("    from sndepth_tpu.data import x")
+    assert not pattern.match("from sndepth_tpu_torch.ops import warp")
 
 
 def _photo_inputs(device="cpu"):
@@ -51,15 +91,36 @@ def _smooth_inputs(device="cpu"):
             torch.zeros(2, 3, 8, 12, device=device))
 
 
+def _counts():
+    return [f.launches for f in (
+        K1.photo_pair_sums, K1.photo_sums, K1.photo_pair_weighted_sums,
+        K2.smooth_sums, K5.warp_gather, K5.warp_splat, K7.dssim_forward,
+        K7.dssim_backward)]
+
+
 def test_kernel_launch_without_a_card_raises():
     """The launch path (what a CUDA tensor takes) needs nvcc or triton and
     the card; without them it raises rather than computing anything."""
-    n1, n2 = K1.photo_pair_sums.launches, K2.smooth_sums.launches
-    with pytest.raises((RuntimeError, OSError)):
-        K1._launch(*_photo_inputs(), 0.85)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    before = _counts()
+    tgt, srcs, cf, cb = _photo_inputs()
+    w = torch.ones(1, 2, 8, 12)
+    x = torch.zeros(2, 3, 8, 12)
+    coords = torch.zeros(2, 2, 8, 12)
+    for launch in (lambda: K1._launch(tgt, srcs, cf, cb, 0.85),
+                   lambda: K1._launch(tgt, srcs, cf, None, 0.85),
+                   lambda: K1._launch(tgt, srcs, cf, cb, 0.85, w, w),
+                   lambda: K5._launch_gather(x, coords, "edge_zero", True),
+                   lambda: K5._launch_gather(x, coords, "zero_pad", False),
+                   lambda: K5._launch_splat(coords, x, 8, 12, "edge_zero"),
+                   lambda: K7._launch_forward(x, x),
+                   lambda: K7._launch_backward(x, x, x, True, True)):
+        with pytest.raises((RuntimeError, OSError)):
+            launch()
     with pytest.raises(ImportError):
         K2._launch(*_smooth_inputs())
-    assert (K1.photo_pair_sums.launches, K2.smooth_sums.launches) == (n1, n2)
+    assert _counts() == before
 
 
 def test_other_devices_raise_rather_than_fall_back():
@@ -67,15 +128,32 @@ def test_other_devices_raise_rather_than_fall_back():
         K1.photo_pair_sums(*_photo_inputs("meta"), 0.85)
     with pytest.raises(ValueError):
         K2.smooth_sums(*_smooth_inputs("meta"))
+    x = torch.zeros(2, 3, 8, 12, device="meta")
+    coords = torch.zeros(2, 2, 8, 12, device="meta")
+    with pytest.raises(ValueError):
+        K5.warp_gather(x, coords, "edge_zero")
+    with pytest.raises(ValueError):
+        K5.warp_splat(coords, x, 8, 12, "edge_zero")
+    with pytest.raises(ValueError):
+        K7.dssim_forward(x, x)
+    with pytest.raises(ValueError):
+        K7.dssim_backward(x, x, x)
 
 
 def test_cpu_tensors_take_the_plain_versions_without_counting():
-    n1, n2 = K1.photo_pair_sums.launches, K2.smooth_sums.launches
+    before = _counts()
     loss, d_cf, d_cb = K1.photo_pair_sums(*_photo_inputs(), 0.85)
     sx, sy, ddx, ddy = K2.smooth_sums(*_smooth_inputs())
     assert d_cf.shape == (1, 2, 2, 8, 12) and ddx.shape == (2, 1, 8, 12)
     assert float(sx) == 0.0 and float(sy) == 0.0
-    assert (K1.photo_pair_sums.launches, K2.smooth_sums.launches) == (n1, n2)
+    x = torch.zeros(2, 3, 8, 12)
+    coords = torch.zeros(2, 2, 8, 12)
+    out, tx, ty = K5.warp_gather(x, coords, "zero_pad", True)
+    assert out.shape == tx.shape == ty.shape == (2, 3, 8, 12)
+    assert K5.warp_splat(coords, x, 5, 7, "edge_zero").shape == (2, 3, 5, 7)
+    assert K7.dssim_forward(x, x).shape == (2, 3, 8, 12)
+    assert K7.dssim_backward(x, x, x)[1].shape == (2, 3, 8, 12)
+    assert _counts() == before
 
 
 def test_cli_default_device_needs_a_card(tmp_path):
@@ -87,3 +165,36 @@ def test_cli_default_device_needs_a_card(tmp_path):
                            "--img_height", "32", "--img_width", "64",
                            "--ckpt_dir", str(tmp_path / "ckpt"),
                            "--graphs_dir", str(tmp_path / "logs")])
+
+
+def test_benchmark_cli_default_device_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from sndepth_tpu_torch.cli import benchmark
+    with pytest.raises((AssertionError, RuntimeError)):
+        benchmark.main(["--family", "flow", "--batch", "1", "--iters", "1",
+                        "--img_height", "16", "--img_width", "32"])
+
+
+@pytest.mark.parametrize("family", ["nnet", "motion", "vae", "raft3d"])
+def test_benchmark_cli_refuses_families_that_are_not_ported(family, capsys):
+    from sndepth_tpu_torch.cli import benchmark
+    with pytest.raises(SystemExit) as exc:
+        benchmark.main(["--family", family, "--device", "cpu"])
+    assert exc.value.code != 0
+    assert "not ported yet" in capsys.readouterr().err
+
+
+def test_benchmark_cli_prints_one_json_line_per_family(capsys):
+    import json
+    from sndepth_tpu_torch.cli import benchmark
+    results = benchmark.main(["--family", "all", "--batch", "1", "--iters",
+                              "1", "--img_height", "16", "--img_width", "32",
+                              "--device", "cpu"])
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("{")]
+    assert lines == results
+    assert [r["family"] for r in results] == ["geonet", "flow"]
+    for r in results:
+        assert set(r) == {"family", "ms_per_step", "value", "unit"}
+        assert r["unit"] == "frames/sec" and r["ms_per_step"] > 0

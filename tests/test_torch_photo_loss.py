@@ -1,7 +1,8 @@
-"""The port's pair photo loss (K1) on the CPU, where it takes its plain
-version, against the JAX pair kernel itself (run by the Pallas interpreter
-on the CPU) and against the JAX split path (``flow_warp`` +
-``image_similarity``), on loss and coordinate gradients.
+"""The port's photo losses (K1 pair, K3 single direction, K4 weighted pair)
+on the CPU, where they take their plain version, against the JAX kernels
+themselves (run by the Pallas interpreter on the CPU) and against the JAX
+split path (``flow_warp`` + ``image_similarity``), on loss and coordinate
+gradients.
 
 Tolerances: loss rtol 2e-5 (float32 sums of ~10^4 terms in different
 orders, as ``tests/test_photo_loss.py``); gradients atol 2e-4 + rtol 1e-3,
@@ -17,7 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+from sndepth_tpu.kernels.photo_loss import warp_photo_loss as jax_single
 from sndepth_tpu.kernels.photo_loss import warp_photo_pair_loss as jax_pair
+from sndepth_tpu.kernels.photo_loss import (
+    warp_photo_pair_loss_weighted as jax_pair_weighted)
 from sndepth_tpu.ops.ssim import image_similarity as jax_sim
 from sndepth_tpu.ops.warp import bilinear_sampler as jax_sampler
 from sndepth_tpu_torch.kernels import photo_loss as K1
@@ -145,3 +149,125 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         tgt, srcs = tgt[:, :2].contiguous(), srcs[:, :, :2].contiguous()
     with pytest.raises((TypeError, ValueError)):
         K1.photo_pair_sums(tgt, srcs, cf, cb, ALPHA)
+
+
+def _single_case(seed, spread=1.5):
+    """One direction for one source: tgt, src (B, H, W, 3), coords."""
+    tgt, srcs, cf, _ = _case(seed, ns=1, spread=spread)
+    return tgt, srcs[:, 0], cf[:, 0]
+
+
+def _port_single(tgt, src, coords):
+    t = [torch.from_numpy(to_nchw(a)) for a in (tgt, src, coords)]
+    c = t[2].requires_grad_(True)
+    loss = 0.37 * K1.warp_photo_loss(t[0], t[1], c, ALPHA)
+    loss.backward()
+    assert torch.isfinite(c.grad).all()
+    return float(loss.detach()), to_nhwc(c.grad.numpy())
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_single_loss_matches_jax_kernel_and_split_ops(case):
+    """K3 against ``warp_photo_loss`` and against the JAX split ops."""
+    tgt, src, coords = _single_case(**CASES[case])
+    got, g = _port_single(tgt, src, coords)
+    for fn in (lambda t, s, c: jax_single(t, s, c, ALPHA, "edge_zero"),
+               lambda t, s, c: jnp.sum(jax_sim(ALPHA, t, jax_sampler(s, c)))):
+        want, wg = jax.value_and_grad(
+            lambda c: 0.37 * fn(tgt, src, c))(jnp.asarray(coords))
+        np.testing.assert_allclose(got, float(want), rtol=2e-5)
+        np.testing.assert_allclose(g, np.asarray(wg), **GRAD_TOL)
+
+
+def test_two_single_losses_equal_the_pair_loss():
+    """K3 forward plus K3 backward is K1 for one source."""
+    tgt, srcs, cf, cb = _case(6, ns=1)
+    pair, (gf, gb) = _port(tgt, srcs, cf, cb)
+    fwd, g_fwd = _port_single(tgt, srcs[:, 0], cf[:, 0])
+    bwd, g_bwd = _port_single(srcs[:, 0], tgt, cb[:, 0])
+    np.testing.assert_allclose(fwd + bwd, pair, rtol=1e-6)
+    np.testing.assert_allclose(g_fwd, gf[:, 0], rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(g_bwd, gb[:, 0], rtol=1e-6, atol=1e-7)
+
+
+def _weights(seed, shape, kind):
+    rng = np.random.RandomState(seed)
+    if kind == "masks":               # what stage 2 passes: {0, 0.5, 1}
+        return [(rng.randint(0, 3, shape) * 0.5).astype(np.float32)
+                for _ in range(2)]
+    return [rng.rand(*shape).astype(np.float32) for _ in range(2)]
+
+
+def _port_weighted(tgt, srcs, cf, cb, wf, wb):
+    t = [torch.from_numpy(to_nchw(a)) for a in (tgt, srcs, cf, cb)]
+    cf_t = t[2].requires_grad_(True)
+    cb_t = t[3].requires_grad_(True)
+    wf_t = torch.from_numpy(wf).requires_grad_(True)
+    wb_t = torch.from_numpy(wb).requires_grad_(True)
+    loss = 0.37 * K1.warp_photo_pair_loss_weighted(t[0], t[1], cf_t, cb_t,
+                                                   wf_t, wb_t, ALPHA)
+    loss.backward()
+    assert wf_t.grad is None and wb_t.grad is None
+    g = (to_nhwc(cf_t.grad.numpy()), to_nhwc(cb_t.grad.numpy()))
+    for a in g:
+        assert np.isfinite(a).all()
+    return float(loss.detach()), g
+
+
+def _split_weighted(tgt, srcs, cf, cb, wf, wb):
+    b, ns, h, w, c = srcs.shape
+    tt = jnp.broadcast_to(tgt[:, None], srcs.shape).reshape(b * ns, h, w, c)
+    sf = srcs.reshape(b * ns, h, w, c)
+    fwd = jax_sampler(sf, cf.reshape(b * ns, h, w, 2))
+    bwd = jax_sampler(tt, cb.reshape(b * ns, h, w, 2))
+    return (jnp.sum(jax_sim(ALPHA, tt, fwd) * wf.reshape(b * ns, h, w, 1))
+            + jnp.sum(jax_sim(ALPHA, sf, bwd) * wb.reshape(b * ns, h, w, 1)))
+
+
+@pytest.mark.parametrize("kind", ["masks", "random"])
+@pytest.mark.parametrize("ns", [1, 2])
+def test_weighted_pair_loss_matches_jax_kernel_and_split_ops(ns, kind):
+    """K4 against ``warp_photo_pair_loss_weighted`` and the split ops; the
+    weights get no gradient."""
+    tgt, srcs, cf, cb = _case(7 + ns, ns=ns)
+    wf, wb = _weights(ns, cf.shape[:-1], kind)
+    got, (gf, gb) = _port_weighted(tgt, srcs, cf, cb, wf, wb)
+    for fn in (lambda a, b: jax_pair_weighted(tgt, srcs, a, b, wf, wb, ALPHA,
+                                              "edge_zero"),
+               lambda a, b: _split_weighted(tgt, srcs, a, b, wf, wb)):
+        want, (wgf, wgb) = jax.value_and_grad(
+            lambda a, b: 0.37 * fn(a, b), argnums=(0, 1))(
+                jnp.asarray(cf), jnp.asarray(cb))
+        np.testing.assert_allclose(got, float(want), rtol=2e-5)
+        np.testing.assert_allclose(gf, np.asarray(wgf), **GRAD_TOL)
+        np.testing.assert_allclose(gb, np.asarray(wgb), **GRAD_TOL)
+
+
+def test_weights_of_one_equal_the_pair_loss():
+    tgt, srcs, cf, cb = _case(10)
+    ones = np.ones(cf.shape[:-1], np.float32)
+    pair, (gf, gb) = _port(tgt, srcs, cf, cb)
+    got, (wgf, wgb) = _port_weighted(tgt, srcs, cf, cb, ones, ones)
+    np.testing.assert_allclose(got, pair, rtol=1e-6)
+    np.testing.assert_allclose(wgf, gf, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(wgb, gb, rtol=1e-6, atol=1e-7)
+
+
+def test_plain_versions_call_only_plain_versions(monkeypatch):
+    """On a card the public samplers and DSSIM launch kernels, so the plain
+    photo loss must not reach them."""
+    from sndepth_tpu_torch.kernels import dssim as K7
+    from sndepth_tpu_torch.kernels import warp as K5
+
+    def boom(*args, **kwargs):
+        raise AssertionError("a plain version reached a kernel wrapper")
+
+    for mod, name in ((K5, "warp_gather"), (K5, "warp_splat"),
+                      (K7, "dssim_forward"), (K7, "dssim_backward")):
+        monkeypatch.setattr(mod, name, boom)
+    tgt, srcs, cf, cb = (torch.from_numpy(to_nchw(a)) for a in _case(11))
+    wf = torch.ones(cf.shape[0], cf.shape[1], *cf.shape[3:])
+    K1.photo_pair_sums_reference(tgt, srcs, cf, cb, ALPHA)
+    K1.photo_pair_sums_reference(tgt, srcs, cf, cb, ALPHA, wf, wf)
+    K1.photo_sums_reference(tgt, srcs[:, 0].contiguous(),
+                            cf[:, 0].contiguous(), ALPHA)
