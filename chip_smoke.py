@@ -3,8 +3,10 @@
 
 Drives GeoNet training of ``sndepth_tpu_torch`` at full width (DispNetS,
 PoseNet and, in stage 2, FlowNet at the reference channel counts, 128x416,
-3-frame snippets, 4 scales) through the kernels written for Hopper, and
-fails unless every phase passes:
+3-frame snippets, 4 scales) and RAFT3D scene-flow inference at full width
+(hidden 128, 4 correlation levels, ResNet-50 FPN context net, 16 iterations,
+at 128x416 and 376x1248) through the kernels written for Hopper, and fails
+unless every phase passes:
 
   env        card name and power limit (nvidia-smi), torch and CUDA versions
   build      one nvcc per CUDA source, all started together; the Triton
@@ -20,13 +22,23 @@ fails unless every phase passes:
              plain version
   photo_modes  K3 (one direction) and K4 (weighted pair) of the photo kernel
              against their plain versions on all 4 scales
+  gn_build   K8 (dense-SE3 Gauss-Newton build, CUDA) against its plain
+             version at n = 832 and n = 7332, radius 32 and 3, B = 1 and 2,
+             and on the inputs a real iteration of the model hands it; H
+             symmetric bit for bit
   kernel_times  every kernel at the shapes one stage-2 step at B=32 gives
              it: kernel, plain version, library call where there is one,
              and the least time the card could take (bytes over 3.35 TB/s
              against operations over 67 TFLOP/s float32)
+  kernel_times_raft3d  the same for K8 at both RAFT3D sizes (operations
+             counted over the in-radius pairs) and for K5 as the depth
+             sampler calls it
   step, step_flow  one float32 train step at 128x416, B=2, from the same
              seeded weights on the CPU (plain versions) and on the GPU
              (kernels), stage 1 and stage 2
+  raft3d_step  RAFT3D in float32 at 128x416, CPU against GPU from the same
+             seeded weights: one iteration from the same carry, the forward
+             with 2 iterations and with 16
   train      stage 1 through the CLI (bf16, B=4, synthetic stream): finite,
              descending loss, 4 launches of K1 and K2 per step; a short
              B=128 run for frames/sec; the step alone on a batch already on
@@ -34,6 +46,11 @@ fails unless every phase passes:
   train_flow  stage 2 through ``train_geonet`` and through the benchmark
              CLI's ``flow`` family (bf16, B=32): finite loss and every
              kernel's launches per step as the code path predicts
+
+  raft3d     RAFT3D through the benchmark CLI's ``raft3d`` family at 128x416
+             and 376x1248, float32 and bf16, and through the submission
+             writer on a generated ``testing/seq`` tree, artifacts read
+             back: 16 launches of K8 and of K5 a frame
 
 Each phase prints one JSON line; the full report goes to
 ``chiprun_out/chip_smoke_report.json``. The last lines are the kernels
@@ -114,7 +131,7 @@ def phase_env() -> str:
     return smi
 
 
-CUDA_SOURCES = ("photo_pair.cu", "warp.cu", "dssim.cu")
+CUDA_SOURCES = ("photo_pair.cu", "warp.cu", "dssim.cu", "gn_build.cu")
 
 
 def phase_build() -> None:
@@ -141,6 +158,7 @@ def phase_build() -> None:
 def _counters() -> dict:
     """The launch counter of every kernel wrapper, by kernel name."""
     from sndepth_tpu_torch.kernels import dssim as K7
+    from sndepth_tpu_torch.kernels import gn_build as K8
     from sndepth_tpu_torch.kernels import photo_loss as K1
     from sndepth_tpu_torch.kernels import smooth_loss as K2
     from sndepth_tpu_torch.kernels import warp as K5
@@ -148,7 +166,8 @@ def _counters() -> dict:
             "photo_single": K1.photo_sums,
             "photo_pair_weighted": K1.photo_pair_weighted_sums,
             "warp_gather": K5.warp_gather, "warp_splat": K5.warp_splat,
-            "dssim_fwd": K7.dssim_forward, "dssim_bwd": K7.dssim_backward}
+            "dssim_fwd": K7.dssim_forward, "dssim_bwd": K7.dssim_backward,
+            "gn_build": K8.gn_build_hg}
 
 
 def reset_launches() -> None:
@@ -338,8 +357,23 @@ def _assert_finite(name: str, *tensors) -> None:
             raise AssertionError(f"{name}: non-finite values")
 
 
+def _sampler_inputs(h8: int, w8: int, gen):
+    """What ``depth_sampler`` hands K5 in a RAFT3D iteration at an h8 x w8
+    grid: one inverse-depth plane and coordinates a few pixels off the grid,
+    every eighth of them thrown far outside the image."""
+    import torch
+    from sndepth_tpu_torch.ops.warp import pixel_grid
+    depth = (torch.rand(1, 1, h8, w8, generator=gen) + 0.2).to(DEV)
+    offset = torch.rand(1, 2, h8, w8, generator=gen) * 6 - 3
+    far = torch.rand(1, 1, h8, w8, generator=gen) < 0.125
+    offset = offset + far * (torch.rand(1, 2, h8, w8, generator=gen) - 0.5) \
+        * 4 * w8
+    return depth, (pixel_grid(h8, w8, device=DEV) + offset.to(DEV))
+
+
 def phase_warp() -> dict:
-    """K5 and K6 against their plain versions at the stage-2 shapes."""
+    """K5 and K6 against their plain versions at the stage-2 shapes, and K5
+    as the RAFT3D frame calls it."""
     import torch
     from sndepth_tpu_torch.kernels import warp as K5
     from sndepth_tpu_torch.ops.warp import pixel_grid
@@ -403,6 +437,27 @@ def phase_warp() -> dict:
                 far_err = max(far_err, err6)
             else:
                 splat_err = max(splat_err, err6)
+    # K5 as ``depth_sampler`` calls it 16 times a RAFT3D frame: zero_pad
+    # mode, one channel, no tangents, at both frame sizes' 1/8 grids. Held
+    # to the same tolerance as above.
+    sampler = []
+    for h, w in RAFT_SIZES:
+        depth, coords = _sampler_inputs(h // 8, w // 8, gen)
+        got = K5.warp_gather(depth, coords, "zero_pad", False)[0]
+        want = K5.warp_gather_reference(depth, coords, "zero_pad", False)[0]
+        torch.cuda.synchronize()
+        _assert_finite(f"K5 zero_pad {tuple(depth.shape)}", got)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        xy = coords.permute(0, 2, 3, 1)
+        outside = ((xy < -1) | (xy > xy.new_tensor([w // 8, h // 8]))).any(-1)
+        if not (outside.any() and (got[0, 0][outside[0]] == 0).all()):
+            raise AssertionError("K5 zero_pad: a sample wholly outside the "
+                                 "image must read 0, and the case needs one")
+        err5 = _max_err(got, want)
+        sampler.append({"shape": "x".join(map(str, depth.shape)),
+                        "mode": "zero_pad", "gather_err": err5,
+                        "outside_share": float(outside.float().mean())})
+        gather_err = max(gather_err, err5)
     # The autograd function around both kernels against autograd through
     # the plain sampler: gradients to the warped planes and to the
     # coordinates. Two bounded planes and small flows, so that neither far-out
@@ -417,7 +472,8 @@ def phase_warp() -> dict:
         grads.append((i.grad, c.grad))
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
-    emit("warp", checks=checks, splat_far_out_max_abs_err=far_err)
+    emit("warp", checks=checks, raft3d_sampler=sampler,
+         splat_far_out_max_abs_err=far_err)
     return {"warp_gather": gather_err, "warp_splat": splat_err}
 
 
@@ -506,6 +562,463 @@ def phase_photo_modes() -> dict:
             err3, err4 = max(err3, e3), max(err4, e4)
     emit("photo_modes", checks=checks)
     return {"photo_single": err3, "photo_pair_weighted": err4}
+
+
+RAFT_SIZES = ((128, 416), (376, 1248))   # the CLI default; a KITTI frame /8
+GN_RADIUS = 32
+# Float32 operations of one in-radius pair in the Gauss-Newton build: the
+# 32-wide embedding product (64), the distance and sigmoid (~8), the
+# transformed point and its inverse depth (~20), residuals (~11), the 13
+# Jacobian entries (~27), 13 weighted entries (~16) and the 54 accumulated
+# products (108).
+GN_PAIR_FLOPS = 254
+
+
+def _gn_inputs(b: int, h: int, w: int, seed: int):
+    """Seeded inputs of the Gauss-Newton build on an h x w grid: rotations
+    near the identity, points in front of the camera, unit-scale targets,
+    weights in [0, 1]."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    n = h * w
+    rot = np.eye(3)[None, None] + 0.05 * rng.randn(b, n, 3, 3)
+    trans = rng.randn(b, n, 3) * 0.1
+    trans[..., 2] += 2.0
+    x = rng.randn(b, n, 32) * 0.3
+    X = rng.rand(b, n, 3)
+    X[..., 2] += 1.0
+    tgt, wgt = rng.randn(b, n, 3), rng.rand(b, n, 3)
+    intr = np.tile(np.array([[20.0, 21.0, 4.0, 3.0]]), (b, 1))
+    f = [torch.from_numpy(a.astype(np.float32)).to(DEV)
+         for a in (rot, trans, x, X, tgt, wgt, intr)]
+    gy = torch.arange(h, device=DEV).repeat_interleave(w)
+    gx = torch.arange(w, device=DEV).repeat(h)
+    rot, trans, x, X, tgt, wgt, intr = f
+    return rot, trans, x, (x * x).sum(-1), gy, gx, X, tgt, wgt, intr
+
+
+def _in_radius_pairs(h: int, w: int, radius: int) -> int:
+    """Pairs (i, j) of an h x w grid within ``radius`` on both axes."""
+    def axis(n):
+        return sum(min(n - 1, p + radius) - max(0, p - radius) + 1
+                   for p in range(n))
+    return axis(h) * axis(w)
+
+
+def _raft_frame(h: int, w: int, seed: int, b: int = 1):
+    """A seeded frame pair, depths and intrinsics for RAFT3D, on the CPU."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    img1, img2 = (torch.from_numpy(rng.rand(b, 3, h, w).astype(np.float32))
+                  for _ in range(2))
+    d1, d2 = (torch.from_numpy((2 + rng.rand(b, h, w)).astype(np.float32))
+              for _ in range(2))
+    k = torch.tensor([[w * 0.58, h * 1.92, w / 2, h / 2]] * b)
+    return img1, img2, d1, d2, k
+
+
+def _gn_model_case():
+    """The build's inputs as the third iteration of a seeded RAFT3D at
+    128x416 hands them over: rotations and translations of the SE3 field,
+    the embedding and the sigmoid confidences of the update block."""
+    import torch
+    from sndepth_tpu_torch import pipelines
+    from sndepth_tpu_torch.models import raft3d
+    stage = pipelines.RAFT3DStage(iters=3, device=DEV, seed=3)
+    calls = []
+    kernel = raft3d.gn_build_hg
+
+    def record(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    raft3d.gn_build_hg = record
+    try:
+        stage(*_raft_frame(*RAFT_SIZES[0], seed=41))
+    finally:
+        raft3d.gn_build_hg = kernel
+    torch.cuda.synchronize()
+    return calls[-1]
+
+
+def phase_gn_build() -> dict:
+    """K8 against its plain version on the card."""
+    import torch
+    from sndepth_tpu_torch.kernels import gn_build as K8
+    cases = [(f"seeded_{h}x{w}_r{r}_B{b}", _gn_inputs(b, h, w, 50 + b + r), r)
+             for (h, w) in ((16, 52), (47, 156)) for r in (GN_RADIUS, 3)
+             for b in (1, 2)]
+    *model_args, model_radius = _gn_model_case()
+    cases.append(("model_iteration_16x52", tuple(model_args), model_radius))
+    checks, worst_abs, worst_scaled = [], 0.0, 0.0
+    for name, args, radius in cases:
+        Hk, gk = K8.gn_build_hg(*args, radius)
+        Hp, gp = K8.gn_build_hg_reference(*args, radius)
+        torch.cuda.synchronize()
+        _assert_finite(f"K8 {name}", Hk, gk, Hp, gp)
+        if not torch.equal(Hk, Hk.transpose(-1, -2)):
+            raise AssertionError(f"K8 {name}: H is not exactly symmetric")
+        # Each entry is a float32 sum of up to (2r+1)^2 = 4225 products taken
+        # in another order than the plain version's blocked sums, and the
+        # entries of H span orders of magnitude (fx^2 between a translation
+        # and a rotation column). An entry is held to 2e-5 of its own size
+        # plus 2e-5 of the mean size of that entry position over the pixels:
+        # a tenth of the 2e-4 the TPU kernel is held to against its XLA
+        # version, and ~10 times what the first run on an H100 showed.
+        rec = {"case": name, "n": int(args[3].shape[1]), "radius": radius}
+        for key, got, want in (("H", Hk, Hp), ("g", gk, gp)):
+            scale = want.abs().mean(dim=(0, 1), keepdim=True)
+            tol = 2e-5 * want.abs() + 2e-5 * scale
+            diff = (got - want).abs()
+            scaled = float((diff / tol.clamp_min(1e-30)).max())
+            rec[f"{key}_max_abs_err"] = float(diff.max())
+            rec[f"{key}_max_abs"] = float(want.abs().max())
+            rec[f"{key}_err_over_tol"] = scaled
+            worst_abs = max(worst_abs, float(diff.max()))
+            worst_scaled = max(worst_scaled, scaled)
+            if not scaled <= 1.0:
+                raise AssertionError(f"K8 {name}: {key} off by {scaled} x "
+                                     "the tolerance")
+        checks.append(rec)
+    # How far float32 itself is from the sums: both versions against a
+    # float64 evaluation of the plain version, at the largest case.
+    name, args, radius = cases[4]
+    H64, g64 = K8.gn_build_hg_reference(
+        *(a.double() if a.is_floating_point() else a for a in args), radius)
+    Hk, gk = K8._launch(*args, radius)
+    Hp, gp = K8.gn_build_hg_reference(*args, radius)
+    scale = H64.abs().mean(dim=(0, 1), keepdim=True).clamp_min(1e-30)
+    f64 = {"case": name,
+           "kernel_vs_f64": float(((Hk - H64).abs() / scale).max()),
+           "plain_vs_f64": float(((Hp - H64).abs() / scale).max())}
+    # A pair outside the radius whose transformed depth is exactly 0: the
+    # plain version, like the TPU kernel, forms 0 * inf = NaN in that
+    # pixel's sums; the kernel skips the pair, stays finite there and
+    # equals the plain version everywhere else.
+    args = list(_gn_inputs(1, 16, 52, 70))
+    args[0][:] = torch.eye(3, device=DEV)
+    args[6][..., 2] += 1.0
+    args[6][0, 831, 2] = 1.5
+    args[1][0, 0, 2] = -1.5
+    Hk, gk = K8.gn_build_hg(*args, 3)
+    Hp, gp = K8.gn_build_hg_reference(*args, 3)
+    torch.cuda.synchronize()
+    _assert_finite("K8 masked pair at zero depth", Hk, gk)
+    if torch.isfinite(Hp[0, 0]).all():
+        raise AssertionError("the plain build is finite at the zero-depth "
+                             "pair: the case does not test what it says")
+    torch.testing.assert_close(Hk[:, 1:], Hp[:, 1:], rtol=2e-5, atol=1e-3)
+    torch.testing.assert_close(gk[:, 1:], gp[:, 1:], rtol=2e-5, atol=1e-3)
+    # A launch that wants a gradient must raise, not take the plain version.
+    args = list(cases[0][1])
+    args[0] = args[0].clone().requires_grad_(True)
+    try:
+        K8.gn_build_hg(*args, 3)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("K8 took inputs that want a gradient")
+    emit("gn_build", checks=checks, float64=f64,
+         tolerance="2e-5 * |entry| + 2e-5 * mean |entry position|")
+    return {"gn_build": worst_abs, "gn_build_err_over_tol": worst_scaled}
+
+
+def phase_kernel_times_raft3d() -> dict:
+    """K8 at the two sizes the RAFT3D frame gives it (B = 1, radius 32),
+    beside its plain version and its bound; and K5 as ``depth_sampler``
+    calls it (``zero_pad``, one channel, no tangents). No single PyTorch
+    call computes the build, so it has no library time."""
+    import torch
+    import torch.nn.functional as F
+    from sndepth_tpu_torch.kernels import gn_build as K8
+    from sndepth_tpu_torch.kernels import warp as K5
+    gen = torch.Generator().manual_seed(7)
+    shapes, sampler = [], []
+    for h, w in RAFT_SIZES:
+        h8, w8 = h // 8, w // 8
+        args = _gn_inputs(1, h8, w8, 60)
+        Hk, gk = K8.gn_build_hg(*args, GN_RADIUS)
+        pairs = _in_radius_pairs(h8, w8, GN_RADIUS)
+        floats = [a for a in args if a.is_floating_point()]
+        # The grid positions reach the kernel as two float32 vectors.
+        n_bytes = _nbytes(*floats, Hk, gk) + 2 * 4 * h8 * w8
+        shapes.append({
+            "shape": f"1x{h8 * w8} ({h8}x{w8})", "in_radius_pairs": pairs,
+            "all_pairs": (h8 * w8) ** 2,
+            "ms": time_ms(lambda: K8.gn_build_hg(*args, GN_RADIUS), 10),
+            "plain_ms": time_ms(
+                lambda: K8.gn_build_hg_reference(*args, GN_RADIUS), 5),
+            **_bound(n_bytes, GN_PAIR_FLOPS * pairs), "library_ms": None})
+        depth, coords = _sampler_inputs(h8, w8, gen)
+        norm = torch.stack([coords[:, 0] * (2.0 / (w8 - 1)) - 1.0,
+                            coords[:, 1] * (2.0 / (h8 - 1)) - 1.0], -1)
+        out = K5.warp_gather(depth, coords, "zero_pad", False)[0]
+        sampler.append({
+            "shape": f"1x1x{h8}x{w8}",
+            "ms": time_ms(lambda: K5.warp_gather(depth, coords, "zero_pad",
+                                                 False), 10),
+            "plain_ms": time_ms(lambda: K5.warp_gather_reference(
+                depth, coords, "zero_pad", False), 5),
+            **_bound(_nbytes(depth, coords, out), h8 * w8 * 39),
+            "library_ms": time_ms(lambda: F.grid_sample(
+                depth, norm, mode="bilinear", padding_mode="zeros",
+                align_corners=True), 10)})
+    t_bytes = sum(r["bytes_ms"] for r in shapes)
+    t_flops = sum(r["flops_ms"] for r in shapes)
+    total = {"ms": sum(r["ms"] for r in shapes),
+             "plain_ms": sum(r["plain_ms"] for r in shapes),
+             "bound_ms": max(t_bytes, t_flops),
+             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+             "library_ms": None}
+    emit("kernel_times_raft3d", gn_build=shapes, gn_build_total=total,
+         warp_gather_zero_pad_c1=sampler)
+    return {"gn_build": total}, sampler
+
+
+def _log_distance(a, b) -> dict:
+    """Distance of two SE3 fields on their logarithms, translation and
+    rotation parts apart."""
+    from sndepth_tpu_torch.ops import se3
+    d = (se3.log(a.cpu()) - se3.log(b.cpu())).abs()
+    return {"tau_max": float(d[..., :3].max()),
+            "phi_max": float(d[..., 3:].max()),
+            "tau_mean": float(d[..., :3].mean()),
+            "phi_mean": float(d[..., 3:].mean())}
+
+
+def _check_field(name: str, Ts) -> float:
+    """Finite, and unit quaternions to 1e-3; returns the largest deviation
+    of a quaternion's norm from 1."""
+    _assert_finite(name, Ts)
+    off = float((Ts[..., 3:].norm(dim=-1) - 1.0).abs().max())
+    if off > 1e-3:
+        raise AssertionError(f"{name}: quaternion norm off 1 by {off}")
+    return off
+
+
+def _raft_pair(bilaplacian: bool):
+    """One seeded RAFT3D in float32 twice: on the CPU and on the card."""
+    import torch
+    from sndepth_tpu_torch.models import raft3d
+    cpu = raft3d.RAFT3D(bilaplacian=bilaplacian).eval()
+    raft3d.init_weights(cpu, torch.Generator().manual_seed(0))
+    gpu = raft3d.RAFT3D(bilaplacian=bilaplacian).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu.to(DEV)
+
+
+def phase_raft3d_step() -> None:
+    """RAFT3D in float32 at 128x416 from the same seeded weights on the CPU
+    (plain versions) and on the card (kernels): one refinement iteration
+    from the same carry, the whole forward with 2 iterations, and with 16;
+    and the bilaplacian variant's forward with 2 iterations, which runs the
+    grid smoother and the 16-wide plain build on the card and so launches
+    K5 but never K8."""
+    import torch
+    from sndepth_tpu_torch.kernels.gn_build import gn_build_hg
+    from sndepth_tpu_torch.kernels.warp import warp_gather
+    h, w = RAFT_SIZES[0]
+    frame = _raft_frame(h, w, seed=42)
+    cpu, gpu = _raft_pair(bilaplacian=False)
+    # A float32 convolution on the card runs in TF32 unless told otherwise;
+    # this comparison is about the port's arithmetic, so it is told.
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            const, net = cpu.features(*frame)
+            carry, _ = cpu.iteration(cpu.initial_carry(net), const)
+            (Ts_c, net_c, ae_c), mask_c = cpu.iteration(carry, const)
+            to_dev = lambda t: t.to(DEV)
+            const_g = {k: ([to_dev(t) for t in v] if isinstance(v, list)
+                           else to_dev(v)) for k, v in const.items()}
+            (Ts_g, net_g, ae_g), mask_g = gpu.iteration(
+                tuple(map(to_dev, carry)), const_g)
+            torch.cuda.synchronize()
+            step = {**_log_distance(Ts_g, Ts_c),
+                    "net_max": _max_err(net_g.cpu(), net_c),
+                    "ae_max": _max_err(ae_g.cpu(), ae_c),
+                    "mask_max": _max_err(mask_g.cpu(), mask_c)}
+            runs = {}
+            for iters in (2, 16):
+                want = cpu(*frame, iters=iters)
+                got = gpu(*map(to_dev, frame), iters=iters)
+                torch.cuda.synchronize()
+                runs[iters] = {**_log_distance(got, want),
+                               "quat_norm_off": max(
+                                   _check_field(f"cpu {iters}", want),
+                                   _check_field(f"gpu {iters}", got.cpu()))}
+            del cpu, gpu
+            cpu, gpu = _raft_pair(bilaplacian=True)
+            built, sampled = gn_build_hg.launches, warp_gather.launches
+            want = cpu(*frame, iters=2)
+            got = gpu(*map(to_dev, frame), iters=2)
+            torch.cuda.synchronize()
+            if (gn_build_hg.launches != built
+                    or warp_gather.launches != sampled + 2):
+                raise AssertionError(
+                    "bilaplacian forward: K8 launched "
+                    f"{gn_build_hg.launches - built} times (want 0), K5 "
+                    f"{warp_gather.launches - sampled} (want 2)")
+            runs["bilaplacian"] = {
+                **_log_distance(got, want),
+                "quat_norm_off": max(_check_field("cpu bilaplacian", want),
+                                     _check_field("gpu bilaplacian",
+                                                  got.cpu()))}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    emit("raft3d_step", hw=[h, w], one_iteration=step,
+         forward_2_iters=runs[2], forward_16_iters=runs[16],
+         bilaplacian_forward_2_iters=runs["bilaplacian"],
+         tolerance=RAFT_STEP_TOL)
+    # Float32 on both sides, other convolution algorithms and other orders
+    # of sums: the GRU state and the heads differ in the last digits, and
+    # the Gauss-Newton solve carries that into the field.
+    for key, limit in RAFT_STEP_TOL["one_iteration"].items():
+        if not step[key] <= limit:
+            raise AssertionError(f"one iteration, CPU against card: {key} "
+                                 f"{step[key]} > {limit}")
+    for run, name in ((2, "forward_2_iters"), (16, "forward_16_iters"),
+                      ("bilaplacian", "bilaplacian_forward_2_iters")):
+        for key, limit in RAFT_STEP_TOL[name].items():
+            if not runs[run][key] <= limit:
+                raise AssertionError(f"{name}, CPU against card: {key} "
+                                     f"{runs[run][key]} > {limit}")
+
+
+def _write_kitti_testing_tree(root: str, frames: int, seed: int) -> None:
+    """A small ``testing/seq`` tree with its calibration files, made from a
+    seed: smooth random frames at half the KITTI size."""
+    import cv2
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    seq = os.path.join(root, "testing", "seq")
+    calib = os.path.join(root, "testing", "calib_cam_to_cam")
+    os.makedirs(seq, exist_ok=True)
+    os.makedirs(calib, exist_ok=True)
+    base = rng.rand(24, 78, 3).astype(np.float32)
+    for i in range(frames):
+        coarse = np.roll(base, i, axis=1) + 0.05 * rng.rand(24, 78, 3)
+        img = cv2.resize(coarse.astype(np.float32), (621, 188),
+                         interpolation=cv2.INTER_LINEAR)
+        cv2.imwrite(os.path.join(seq, f"{i:06d}.png"),
+                    np.clip(img * 255, 0, 255).astype(np.uint8))
+        with open(os.path.join(calib, f"{i:06d}.txt"), "w") as f:
+            f.write("calib_time: 09-Jan-2012 13:57:47\n"
+                    "K_02: 241.0 0.0 208.0 0.0 246.0 64.0 0.0 0.0 1.0\n")
+
+
+def _read_back_submission(out_dir: str, index: int, h: int, w: int) -> dict:
+    """Read one frame's artifacts back and hold them against each other:
+    the tau / phi dumps are the logarithm of the T dump, and the flow png
+    is the 2-D flow that the T dump induces on the constant depth plane."""
+    import numpy as np
+    import torch
+    from sndepth_tpu_torch.data.frame_codecs import read_flow_kitti
+    from sndepth_tpu_torch.ops import se3
+    from sndepth_tpu_torch.ops.projective import induced_flow
+    T = torch.from_numpy(np.loadtxt(
+        os.path.join(out_dir, "T", f"{index:06d}.txt"))).float()
+    tau, phi = (torch.from_numpy(np.loadtxt(
+        os.path.join(out_dir, d, f"{index:06d}.txt"))).float()
+        for d in ("tau", "phi"))
+    if (T.shape != (h * w, 7) or tau.shape != (h * w, 3)
+            or phi.shape != (h * w, 3)):
+        raise AssertionError(f"artifact shapes {T.shape}, {tau.shape}")
+    quat_off = _check_field("submission T", T)
+    logs = torch.cat([tau, phi], -1)
+    # The dumps keep 6 decimals, and the logarithm is taken again here on
+    # the CPU from the text of T: held to 2e-4 of the largest entry.
+    log_err = _max_err(se3.log(T), logs) / max(1.0, float(logs.abs().max()))
+    flow, valid = read_flow_kitti(
+        os.path.join(out_dir, "flow", f"{index:06d}_10.png"))
+    k = torch.tensor([[241.0, 246.0, 208.0, 64.0]])
+    want, _, _ = induced_flow(T.reshape(1, h, w, 7),
+                              torch.full((1, h, w), 4.0), k)
+    want = want[0, ..., :2].numpy()
+    # The png holds 64 * uv + 2^15 cut to an integer, within uint16.
+    inside = np.abs(want).max(-1) < 500.0
+    flow_err = float(np.abs(flow - want)[inside].max()) if inside.any() else 0.0
+    if flow.shape != (h, w, 2) or not (valid == 1).all():
+        raise AssertionError("flow png: wrong shape or validity")
+    if log_err > 2e-4 or flow_err > 1.0 / 64 + 1e-3:
+        raise AssertionError(f"submission artifacts disagree: log {log_err}, "
+                             f"flow {flow_err}")
+    return {"quat_norm_off": quat_off, "log_err": log_err,
+            "flow_err": flow_err, "flow_in_range": float(inside.mean())}
+
+
+# CPU against card in float32 (TF32 off), largest absolute differences: of
+# the field's logarithm (translation tau, rotation phi), the GRU state, the
+# embedding and the mask after one iteration from the same carry, and of the
+# field's logarithm after the whole forward with 2 and with 16 iterations
+# (the Gauss-Newton step contracts: 16 iterations of a randomly initialised
+# GRU do not amplify the rounding). About 20 times what an H100 showed.
+RAFT_STEP_TOL = {
+    "one_iteration": {"tau_max": 5e-4, "phi_max": 2e-5, "net_max": 2e-3,
+                      "ae_max": 5e-4, "mask_max": 5e-4},
+    "forward_2_iters": {"tau_max": 1e-3, "phi_max": 2e-5},
+    "forward_16_iters": {"tau_max": 1e-3, "phi_max": 5e-5},
+    "bilaplacian_forward_2_iters": {"tau_max": 1e-3, "phi_max": 2e-5},
+}
+RAFT_ITERS = 16                 # refinement iterations a frame
+# K8 and K5 (depth_sampler, zero_pad) launch once an iteration each.
+RAFT_FRAME_LAUNCHES = {"gn_build": RAFT_ITERS, "warp_gather": RAFT_ITERS}
+
+
+def phase_raft3d() -> dict:
+    """The RAFT3D main path at full width through its entry points: the
+    benchmark CLI's ``raft3d`` family at both sizes in float32 and bf16,
+    and the submission writer on a generated tree."""
+    from sndepth_tpu_torch.cli import benchmark, kitti_submission
+    timed = 5
+    results, total = [], {k: 0 for k in RAFT_FRAME_LAUNCHES}
+    for h, w in RAFT_SIZES:
+        for dtype in ("f32", "bf16"):
+            reset_launches()
+            result, = benchmark.main(
+                ["--family", "raft3d", "--iters", str(timed), "--device", DEV,
+                 "--img_height", str(h), "--img_width", str(w),
+                 "--dtype", dtype])
+            launches = _used(read_launches())
+            # One warm-up frame and the timed ones.
+            want = {k: v * (timed + 1) for k, v in RAFT_FRAME_LAUNCHES.items()}
+            if launches != want:
+                raise AssertionError(f"raft3d {h}x{w} {dtype}: launches "
+                                     f"{launches}, want {want}")
+            if result["family"] != "raft3d" or not result["ms_per_step"] > 0:
+                raise AssertionError(f"benchmark result {result}")
+            results.append({"hw": [h, w], "dtype": dtype,
+                            "ms_per_frame": result["ms_per_step"],
+                            "frames_per_sec": result["value"],
+                            "launches": launches})
+            for k in total:
+                total[k] += launches[k]
+
+    frames = 2
+    root = os.path.join(WORK_DIR, "raft_datasets")
+    out_dir = os.path.join(WORK_DIR, "raft3d_out")
+    _write_kitti_testing_tree(root, frames + 1, seed=9)
+    reset_launches()
+    h, w = RAFT_SIZES[0]
+    written = kitti_submission.main(
+        ["--root", root, "--out_dir", out_dir, "--max_frames", str(frames),
+         "--device", DEV])
+    launches = _used(read_launches())
+    want = {k: v * frames for k, v in RAFT_FRAME_LAUNCHES.items()}
+    if written != frames or launches != want:
+        raise AssertionError(f"submission: {written} frames, launches "
+                             f"{launches}, want {want}")
+    artifacts = [_read_back_submission(out_dir, i, h, w)
+                 for i in range(frames)]
+    for k in total:
+        total[k] += launches[k]
+    emit("raft3d", benchmark=results, submission_frames=frames,
+         submission_launches=launches, artifacts=artifacts,
+         launches_total=total)
+    return total
 
 
 # Operations per element, counted from the kernels' arithmetic: the photo
@@ -818,7 +1331,7 @@ def phase_train_flow() -> dict:
         device=DEV, ckpt_dir=os.path.join(WORK_DIR, "ckpt_flow"),
         log_dir=os.path.join(WORK_DIR, "logs_flow"), log_every=1,
         ckpt_every=steps)
-    launches = read_launches()
+    launches = _used(read_launches())
     want = {k: v * steps for k, v in FLOW_STEP_LAUNCHES.items()}
     if launches != want:
         raise AssertionError(f"stage-2 launches {launches}, want {want}")
@@ -834,7 +1347,7 @@ def phase_train_flow() -> dict:
     reset_launches()
     result, = benchmark.main(["--family", "flow", "--iters", str(iters),
                               "--device", DEV])
-    bench_launches = read_launches()
+    bench_launches = _used(read_launches())
     want = {k: v * (iters + 2) for k, v in FLOW_STEP_LAUNCHES.items()}
     if bench_launches != want:
         raise AssertionError(f"benchmark launches {bench_launches}, "
@@ -866,11 +1379,17 @@ def main() -> int:
     errs = {"photo_pair": photo["max_abs_err"],
             "smooth": smooth["max_abs_err"], **phase_warp(), **phase_dssim(),
             **phase_photo_modes()}
+    errs.update(phase_gn_build())
     times = phase_kernel_times()
+    raft_times, sampler_times = phase_kernel_times_raft3d()
+    times.update(raft_times)
     phase_step(train_flow=False)
     phase_step(train_flow=True)
+    phase_raft3d_step()
     stage1_launches = phase_train()
     launches = phase_train_flow()
+    raft_launches = phase_raft3d()
+    launches["gn_build"] = raft_launches["gn_build"]
 
     csrc = "sndepth_tpu_torch/kernels/csrc/"
     where = {
@@ -890,6 +1409,8 @@ def main() -> int:
                       "sndepth_tpu/kernels/dssim.py:156"),
         "dssim_bwd": ("cuda", csrc + "dssim.cu",
                       "sndepth_tpu/kernels/dssim.py:134"),
+        "gn_build": ("cuda", csrc + "gn_build.cu",
+                     "sndepth_tpu/kernels/gn_build.py:244"),
     }
     kernels = []
     for name, (route, source, replaces) in where.items():
@@ -899,6 +1420,14 @@ def main() -> int:
                         "replaces": replaces, "launches": launches[name],
                         "stage1_launches": stage1_launches.get(name, 0),
                         "max_abs_err": errs[name], **times[name]})
+    # K5 runs on both paths: `launches` is the stage-2 train run's count,
+    # `raft3d_launches` that of the RAFT3D frames (zero_pad mode, C = 1).
+    # and `raft3d_zero_pad_c1` its times at those shapes.
+    k5 = next(k for k in kernels if k["name"] == "warp_gather")
+    k5["raft3d_launches"] = raft_launches["warp_gather"]
+    k5["raft3d_zero_pad_c1"] = sampler_times
+    next(k for k in kernels if k["name"] == "gn_build")[
+        "err_over_tolerance"] = errs["gn_build_err_over_tol"]
     # K6's max_abs_err is over the cases whose tap weights stay near [0, 1];
     # the far-out edge_zero cases are held to their own tolerance.
     next(k for k in kernels if k["name"] == "warp_splat")[

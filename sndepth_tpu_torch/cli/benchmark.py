@@ -1,19 +1,25 @@
-"""CLI: per-family train-step throughput on one GPU.
+"""CLI: per-family throughput on one GPU.
 
 The flags, defaults and output of ``python -m sndepth_tpu.cli.benchmark``
-(one JSON line per family), plus ``--device``. A family's step runs twice
-to warm up and then ``--iters`` times on one batch that already lies on the
-device; the loop is timed with CUDA events on the device's stream (with the
-host clock around a synchronised loop on the CPU).
+(one JSON line per family), plus ``--device`` and ``--dtype``. A family's
+step runs to warm up and then ``--iters`` times on inputs that already lie
+on the device; the loop is timed with CUDA events on the device's stream
+(with the host clock around a synchronised loop on the CPU).
 
 Families:
   geonet   self-supervised stage-1 train step (DispNetS + PoseNet + loss)
   flow     stage-2 full-flow train step (FlowNet + geometric consistency)
-The JAX package's other families (nnet, motion, vae, raft3d) are not ported
-yet: asking for one exits with an error, and ``all`` runs the ported ones.
+  raft3d   RAFT3D scene-flow inference: one frame pair a call (B = 1), 16
+           refinement iterations, each call's second frame made from the
+           call before so that no two calls do the same work; ``--dtype``
+           is the type of the encoders and the GRU (f32 or bf16)
+The JAX package's other families (nnet, motion, vae) are not ported yet:
+asking for one exits with an error, and ``all`` runs the ported ones.
 
 Usage:
     python -m sndepth_tpu_torch.cli.benchmark --family flow
+    python -m sndepth_tpu_torch.cli.benchmark --family raft3d \
+        --img_height 376 --img_width 1248
 """
 
 from __future__ import annotations
@@ -24,8 +30,8 @@ import time
 
 import numpy as np
 
-PORTED = ("geonet", "flow")
-NOT_PORTED = ("nnet", "motion", "vae", "raft3d")
+PORTED = ("geonet", "flow", "raft3d")
+NOT_PORTED = ("nnet", "motion", "vae")
 
 
 def _result(family: str, ms: float, value: float, unit: str) -> dict:
@@ -58,24 +64,75 @@ def _geonet_like(train_flow: bool, batch: int, h: int, w: int, iters: int,
     for _ in range(2):
         m = geonet.train_step(state, data, cfg)
     float(m["loss_total"])
+    last = {}
+
+    def step():
+        last["m"] = geonet.train_step(state, data, cfg)
+
+    dt = _timed(step, iters, device)
+    if not np.isfinite(float(last["m"]["loss_total"])):
+        raise FloatingPointError("non-finite loss in the timed loop")
+    fam = "flow" if train_flow else "geonet"
+    return _result(fam, dt * 1e3, batch * 3 / dt, "frames/sec")
+
+
+def _timed(fn, iters: int, device) -> float:
+    """Seconds per call of ``fn`` over ``iters`` calls: CUDA events on the
+    card, the host clock on the CPU."""
+    import torch
     if device.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(iters):
-            m = geonet.train_step(state, data, cfg)
+            fn()
         end.record()
         end.synchronize()
-        dt = start.elapsed_time(end) * 1e-3 / iters
-    else:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            m = geonet.train_step(state, data, cfg)
-        dt = (time.perf_counter() - t0) / iters
-    if not np.isfinite(float(m["loss_total"])):
-        raise FloatingPointError("non-finite loss in the timed loop")
-    fam = "flow" if train_flow else "geonet"
-    return _result(fam, dt * 1e3, batch * 3 / dt, "frames/sec")
+        return start.elapsed_time(end) * 1e-3 / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters
+
+
+def raft3d_frame(h: int, w: int, device, dtype: str):
+    """The ``raft3d`` family's stage (16 iterations, seeded weights) and its
+    seeded inputs on ``device``: ``(stage, (img1, img2, depth1, depth2,
+    intrinsics))`` for one frame pair."""
+    import torch
+
+    from sndepth_tpu_torch.pipelines import RAFT3DStage
+
+    device = torch.device(device)
+    stage = RAFT3DStage(
+        iters=16, device=device,
+        dtype=torch.bfloat16 if dtype == "bf16" else torch.float32)
+    rng = np.random.RandomState(0)
+    img1, img2 = (torch.from_numpy(
+        rng.rand(1, 3, h, w).astype(np.float32)).to(device) for _ in range(2))
+    d = torch.from_numpy((2 + rng.rand(1, h, w)).astype(np.float32)).to(device)
+    k = torch.tensor([[w * 0.58, h * 1.92, w / 2, h / 2]], device=device)
+    return stage, (img1, img2, d, d, k)
+
+
+def _raft3d(h: int, w: int, iters: int, device, dtype: str) -> dict:
+    import torch
+
+    stage, (img1, img2, d1, d2, k) = raft3d_frame(h, w, device, dtype)
+    state = {"cur": img2}
+    _, tp = stage(img1, state["cur"], d1, d2, k)
+    float(tp.sum())
+
+    def frame():
+        _, tp = stage(img1, state["cur"], d1, d2, k)
+        # Distinct work each call.
+        state["cur"] = img1 + tp[..., :3].permute(0, 3, 1, 2) * 0.001
+        state["tp"] = tp
+
+    dt = _timed(frame, iters, torch.device(device))
+    if not bool(torch.isfinite(state["tp"]).all()):
+        raise FloatingPointError("non-finite field in the timed loop")
+    return _result("raft3d", dt * 1e3, 1.0 / dt, "frames/sec")
 
 
 def main(argv=None) -> list[dict]:
@@ -90,6 +147,8 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--img_width", default=0, type=int)
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cuda:1, cpu)")
+    p.add_argument("--dtype", default="f32", choices=["f32", "bf16"],
+                   help="raft3d: encoder/GRU compute dtype")
     args = p.parse_args(argv)
     if args.family in NOT_PORTED:
         p.exit(2, f"family {args.family}: not ported yet\n")
@@ -105,6 +164,8 @@ def main(argv=None) -> list[dict]:
     if fam in ("all", "flow"):
         results.append(_geonet_like(True, args.batch or 32, h, w,
                                     args.iters, args.device))
+    if fam in ("all", "raft3d"):
+        results.append(_raft3d(h, w, args.iters, args.device, args.dtype))
     return results
 
 

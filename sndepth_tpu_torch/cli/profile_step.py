@@ -1,15 +1,18 @@
-"""CLI: where one warm train step's time goes on the GPU.
+"""CLI: where one warm step's time goes on the GPU.
 
-Runs the ``geonet`` (stage 1) or ``flow`` (stage 2) train step of
-``sndepth_tpu_torch.cli.benchmark`` on one batch that lies on the card,
-warms it up, then traces ``--steps`` steps with ``torch.profiler`` and
-prints one JSON object: the host's wall time per step, the summed device
+Runs the ``geonet`` (stage 1) or ``flow`` (stage 2) train step, or the
+``raft3d`` inference frame (B = 1, 16 iterations), of
+``sndepth_tpu_torch.cli.benchmark`` on inputs that lie on the card, warms
+it up, then traces ``--steps`` steps with ``torch.profiler`` and prints one
+JSON object: the host's wall time per step, the summed device
 time of the kernels, the device's idle share (1 - kernel time / wall time),
 the number of kernel launches, the kernel time by group and the largest
 kernels by name. The hand-written kernels are groups of their own.
 
 Usage:
     python -m sndepth_tpu_torch.cli.profile_step --family flow --batch 32
+    python -m sndepth_tpu_torch.cli.profile_step --family raft3d \
+        --img_height 376 --img_width 1248
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ GROUPS = (
     ("K5 warp_gather", ("warp_gather_kernel",)),
     ("K6 warp_splat", ("warp_splat_kernel",)),
     ("K7 dssim", ("dssim_fwd_kernel", "dssim_bwd_kernel")),
+    ("K8 gn_build", ("gn_build_kernel",)),
     ("layout transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),
     ("adam", ("multi_tensor", "adam", "foreach")),
     ("convolutions", ("gemm", "conv", "cutlass", "cudnn", "xmma", "wgrad",
@@ -46,30 +50,15 @@ def group_of(name: str) -> str:
     return "other"
 
 
-def main(argv=None) -> dict:
-    p = argparse.ArgumentParser(description="Profile one warm train step")
-    p.add_argument("--family", default="flow", choices=["geonet", "flow"])
-    p.add_argument("--batch", default=0, type=int,
-                   help="override the family's default batch (128 / 32)")
-    p.add_argument("--steps", default=2, type=int, help="steps to trace")
-    p.add_argument("--img_height", default=128, type=int)
-    p.add_argument("--img_width", default=416, type=int)
-    args = p.parse_args(argv)
-
+def _train_step(family: str, batch: int, h: int, w: int, device):
+    """A warm train step of the family as a function of no arguments."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from sndepth_tpu_torch.core.config import GeoNetConfig
     from sndepth_tpu_torch.train import geonet
 
-    if not torch.cuda.is_available():
-        p.exit(2, "profile_step needs a CUDA device\n")
-    train_flow = args.family == "flow"
-    batch = args.batch or (32 if train_flow else 128)
-    h, w = args.img_height, args.img_width
-    device = torch.device("cuda")
     cfg = GeoNetConfig(batch_size=batch, img_height=h, img_width=w,
-                       train_flow=train_flow)
+                       train_flow=family == "flow")
     rng = np.random.RandomState(0)
     data = {
         "tgt": rng.randint(0, 256, (batch, h, w, 3), np.uint8),
@@ -80,15 +69,47 @@ def main(argv=None) -> dict:
     }
     data = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
     state = geonet.create_train_state(cfg, device)
+    return lambda: geonet.train_step(state, data, cfg)
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description="Profile one warm step")
+    p.add_argument("--family", default="flow",
+                   choices=["geonet", "flow", "raft3d"])
+    p.add_argument("--batch", default=0, type=int,
+                   help="override the family's default batch (128 / 32; "
+                        "raft3d runs one frame pair)")
+    p.add_argument("--steps", default=2, type=int, help="steps to trace")
+    p.add_argument("--img_height", default=128, type=int)
+    p.add_argument("--img_width", default=416, type=int)
+    p.add_argument("--dtype", default="f32", choices=["f32", "bf16"],
+                   help="raft3d: encoder/GRU compute dtype")
+    args = p.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        p.exit(2, "profile_step needs a CUDA device\n")
+    h, w = args.img_height, args.img_width
+    device = torch.device("cuda")
+    if args.family == "raft3d":
+        from sndepth_tpu_torch.cli.benchmark import raft3d_frame
+        batch = 1
+        stage, frame = raft3d_frame(h, w, device, args.dtype)
+        step = lambda: stage(*frame)
+    else:
+        batch = args.batch or (32 if args.family == "flow" else 128)
+        step = _train_step(args.family, batch, h, w, device)
     for _ in range(3):
-        geonet.train_step(state, data, cfg)
+        step()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            geonet.train_step(state, data, cfg)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 

@@ -1,0 +1,320 @@
+"""The plain version of the dense-SE3 Gauss-Newton build (K8), which CPU
+tensors take, against the JAX package on the same inputs, made from a seed
+with numpy: against the Pallas kernel ``sndepth_tpu.kernels.gn_build
+.gn_build_hg`` (interpret mode on the CPU) and against the blocked XLA
+build ``sndepth_tpu.models.raft3d._hg_xla``; ``gauss_newton_step`` against
+JAX's; gradients against ``jax.grad`` of ``_hg_xla``; and the dispatch
+rules of the wrapper.
+
+Tolerances. H and g: each entry is a float32 sum over up to (2r+1)^2 pairs,
+taken pair by pair in the Pallas kernel, as a Gram product in ``_hg_xla``
+and as blocked contractions here, and H spans orders of magnitude (fx^2
+between a translation and a rotation column), so an entry is held to 2e-5 of
+its own size plus 2e-5 of the mean size of its entry position over the
+pixels (the JAX package holds its two versions to 2e-4 + 2e-4 relative).
+``gauss_newton_step``: atol 2e-5 + rtol 1e-4 on the updated field.
+Gradients: rtol 5e-3 + atol 5e-3 of the largest entry, as the JAX package
+holds its backward kernels to the XLA gradients. Every output and gradient
+is asserted finite.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sndepth_tpu.kernels.gn_build import gn_build_hg as jax_kernel
+from sndepth_tpu.models import raft3d as jraft
+from sndepth_tpu.ops import se3 as jse3
+from sndepth_tpu_torch.kernels import gn_build as K8
+from sndepth_tpu_torch.models import raft3d as traft
+
+DIFF = (0, 1, 2, 3, 6, 7, 8, 9)    # rot trans x sq X tgt wgt intrinsics
+
+
+def _inputs(seed=0, b=1, h=6, w=9, emb=32):
+    rng = np.random.RandomState(seed)
+    n = h * w
+    rot = (np.eye(3)[None, None]
+           + 0.05 * rng.randn(b, n, 3, 3)).astype(np.float32)
+    trans = rng.randn(b, n, 3).astype(np.float32) * 0.1
+    trans[..., 2] += 2.0
+    x = rng.randn(b, n, emb).astype(np.float32) * 0.3
+    sq = np.sum(x * x, -1)
+    gy = np.repeat(np.arange(h), w).astype(np.int32)
+    gx = np.tile(np.arange(w), h).astype(np.int32)
+    X = rng.rand(b, n, 3).astype(np.float32)
+    X[..., 2] += 1.0
+    tgt = rng.randn(b, n, 3).astype(np.float32)
+    wgt = rng.rand(b, n, 3).astype(np.float32)
+    intr4 = np.tile(np.array([[20.0, 21.0, 4.0, 3.0]], np.float32), (b, 1))
+    intr4[-1] += 0.5 * (b - 1)
+    return rot, trans, x, sq, gy, gx, X, tgt, wgt, intr4
+
+
+def _torch(args):
+    return tuple(torch.from_numpy(a) for a in args)
+
+
+def _jax_f32_grid(args):
+    """The Pallas entry takes the grid positions as float32."""
+    a = [jnp.asarray(v) for v in args]
+    a[4], a[5] = a[4].astype(jnp.float32), a[5].astype(jnp.float32)
+    return a
+
+
+def _close(got, want):
+    got = got.detach().numpy()
+    want = np.asarray(want)
+    assert np.isfinite(got).all() and np.isfinite(want).all()
+    scale = np.abs(want).mean(axis=(0, 1), keepdims=True)
+    tol = 2e-5 * np.abs(want) + 2e-5 * scale
+    worst = (np.abs(got - want) / np.maximum(tol, 1e-30)).max()
+    assert worst <= 1.0, f"off by {worst} x the tolerance"
+
+
+# n = 54, 35 and 120: none a multiple of 128, the first two not of 8.
+CASES = [(0, 1, 6, 9, 3), (1, 2, 5, 7, 3), (2, 2, 6, 9, 32), (3, 1, 8, 15, 2)]
+
+
+@pytest.mark.parametrize("seed,b,h,w,radius", CASES)
+def test_plain_build_matches_the_pallas_kernel(seed, b, h, w, radius):
+    args = _inputs(seed, b, h, w)
+    H, g = K8.gn_build_hg(*_torch(args), radius)
+    Hj, gj = jax_kernel(*_jax_f32_grid(args), radius)
+    _close(H, Hj)
+    _close(g, gj)
+    assert torch.equal(H, H.transpose(-1, -2))
+    assert H.shape == (b, h * w, 6, 6) and g.shape == (b, h * w, 6)
+
+
+@pytest.mark.parametrize("seed,b,h,w,radius", CASES)
+def test_plain_build_matches_the_xla_build(seed, b, h, w, radius):
+    args = _inputs(seed, b, h, w)
+    H, g = K8.gn_build_hg_reference(*_torch(args), radius)
+    Hj, gj = jraft._hg_xla(*map(jnp.asarray, args), radius, 16)
+    _close(H, Hj)
+    _close(g, gj)
+    assert torch.equal(H, H.transpose(-1, -2))
+
+
+def test_blocked_accumulation_equals_the_single_shot(monkeypatch):
+    """Beyond 2048 pixels the plain version sums the j axis in blocks of
+    1024; here the thresholds are lowered so that a ragged last block runs
+    at a small size."""
+    args = _torch(_inputs(4, 2, 7, 9))
+    H1, g1 = K8.gn_build_hg_reference(*args, 3)
+    monkeypatch.setattr(K8, "_SINGLE_SHOT_MAX", 32)
+    monkeypatch.setattr(K8, "_BLOCK", 20)      # 63 = 3 * 20 + 3
+    H2, g2 = K8.gn_build_hg_reference(*args, 3)
+    _close(H2, H1.numpy())
+    _close(g2, g1.numpy())
+    Hj, gj = jraft._hg_xla(*(jnp.asarray(a.numpy()) for a in args), 3, 20)
+    _close(H2, Hj)
+    _close(g2, gj)
+
+
+def test_radius_zero_leaves_each_pixel_its_own_pair():
+    """With radius 0 only j = i counts: each pixel's system equals the
+    build of that pixel alone on a 1 x 1 grid (to float32 rounding of the
+    same products, rtol 1e-6)."""
+    args = list(_inputs(5, 1, 4, 5))
+    H, g = K8.gn_build_hg_reference(*_torch(args), 0)
+    for i in (0, 7, 19):
+        one = [a[:, i:i + 1] if a.ndim > 1 and a.shape[1] == 20 else a
+               for a in args]
+        one[4], one[5] = args[4][i:i + 1], args[5][i:i + 1]
+        Hi, gi = K8.gn_build_hg_reference(*_torch(one), 0)
+        torch.testing.assert_close(H[:, i], Hi[:, 0], rtol=1e-6, atol=0)
+        torch.testing.assert_close(g[:, i], gi[:, 0], rtol=1e-6, atol=0)
+
+
+def zero_depth_case():
+    """Inputs in which one pair (i = 0, j = 19) lies outside radius 1 and
+    has a transformed depth of exactly 0; every other pair's is 0.5 or
+    more."""
+    args = list(_inputs(6, 1, 4, 5))
+    args[0][:] = np.eye(3, dtype=np.float32)
+    args[6][..., 2] += 1.0                      # depths in [2, 3)
+    args[6][0, 19, 2] = 1.5
+    args[1][0, 0, 2] = -1.5                     # P_z(0, 19) = 1.5 - 1.5
+    return args
+
+
+def test_a_masked_pair_at_zero_depth_follows_jax():
+    """There the weight is exactly 0 but the Jacobian is infinite: the JAX
+    build forms 0 * inf = NaN in pixel 0's sums, and so does the plain
+    version, which multiplies by the mask as it does. (The CUDA kernel
+    skips the pair and stays finite: the card check holds that.) Every
+    other pixel is finite and equal."""
+    args = zero_depth_case()
+    H, g = K8.gn_build_hg_reference(*_torch(args), 1)
+    Hj, gj = jraft._hg_xla(*map(jnp.asarray, args), 1, 16)
+    assert not np.isfinite(np.asarray(Hj)[0, 0]).all()
+    assert not torch.isfinite(H[0, 0]).all()
+    _close(H[:, 1:], np.asarray(Hj)[:, 1:])
+    _close(g[:, 1:], np.asarray(gj)[:, 1:])
+
+
+def test_gauss_newton_step_matches_jax():
+    rng = np.random.RandomState(7)
+    b, h, w = 2, 6, 8
+    tangent = (rng.randn(b, h, w, 6) * 0.05).astype(np.float32)
+    Ts = np.array(jse3.exp(jnp.asarray(tangent)))
+    ae = rng.randn(b, h, w, 32).astype(np.float32)
+    depth = (1.5 + rng.rand(b, h, w)).astype(np.float32)
+    intr = np.array([[20.0, 21.0, 4.0, 3.0], [19.0, 20.0, 4.2, 2.9]],
+                    np.float32)
+    weight = rng.rand(b, h, w, 3).astype(np.float32)
+    coords, _ = jraft.pops.projective_transform(
+        jnp.asarray(Ts), jnp.asarray(depth), jnp.asarray(intr))
+    target = (np.asarray(coords)
+              + 0.3 * rng.randn(b, h, w, 3).astype(np.float32) * [1, 1, 0.01]
+              ).astype(np.float32)
+    for radius in (2, 32):
+        got = traft.gauss_newton_step(*_torch(
+            (Ts, ae, target, weight, depth, intr)), radius=radius)
+        want = jraft.gauss_newton_step(*map(jnp.asarray, (
+            Ts, ae, target, weight, depth, intr)), radius=radius)
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                                   rtol=1e-4)
+        assert float((got - torch.from_numpy(Ts)).abs().max()) > 1e-3
+
+
+def _loss_grads(args, radius, build):
+    t = list(_torch(args))
+    for i in DIFF:
+        t[i] = t[i].clone().requires_grad_(True)
+    H, g = build(*t, radius)
+    (torch.sin(H).sum() + (g * g).sum()).backward()
+    return [t[i].grad for i in DIFF]
+
+
+@pytest.mark.parametrize("radius", [3, 100])
+def test_plain_build_gradients_match_jax_grad_of_the_xla_build(radius):
+    """radius 3 masks most pairs (their gradients must be finite zeros, not
+    NaN), radius 100 none."""
+    args = _inputs(1)
+
+    def loss(*diff):
+        full = list(map(jnp.asarray, args))
+        for i, d in zip(DIFF, diff):
+            full[i] = d
+        H, g = jraft._hg_xla(*full, radius, 16)
+        return jnp.sum(jnp.sin(H)) + jnp.sum(g * g)
+
+    want = jax.grad(loss, argnums=tuple(range(8)))(
+        *(jnp.asarray(args[i]) for i in DIFF))
+    got = _loss_grads(args, radius, K8.gn_build_hg)
+    for i, (a, b) in zip(DIFF, zip(got, want)):
+        b = np.asarray(b)
+        assert torch.isfinite(a).all(), f"arg {i} gradient not finite"
+        assert np.isfinite(b).all()
+        np.testing.assert_allclose(a.numpy(), b, rtol=5e-3,
+                                   atol=5e-3 * max(1.0, np.abs(b).max()),
+                                   err_msg=f"arg {i}")
+
+
+def test_gradients_are_finite_where_a_masked_pair_has_zero_weight():
+    """Masked pairs and exactly-zero confidences together: a square root of
+    the weight would have an infinite derivative there."""
+    args = list(_inputs(2))
+    args[8] = args[8].copy()
+    args[8][:, ::3] = 0.0
+    for a in _loss_grads(args, 2, K8.gn_build_hg_reference):
+        assert torch.isfinite(a).all()
+
+
+def test_the_16_wide_embedding_takes_the_plain_build(monkeypatch):
+    """The bilaplacian variant's embedding is 16 wide: the step must not
+    reach the kernel wrapper, on any device, as the JAX package keeps it on
+    its XLA build."""
+    calls = {"wrapper": 0, "plain": 0}
+    plain = K8.gn_build_hg_reference
+
+    def wrapper(*a):
+        calls["wrapper"] += 1
+        return plain(*a)
+
+    def counted(*a):
+        calls["plain"] += 1
+        return plain(*a)
+
+    monkeypatch.setattr(traft, "gn_build_hg", wrapper)
+    monkeypatch.setattr(traft, "gn_build_hg_reference", counted)
+    rng = np.random.RandomState(8)
+    b, h, w = 1, 5, 6
+    Ts = torch.from_numpy(np.asarray(jse3.identity((b, h, w))).copy())
+    tgt = torch.from_numpy(rng.randn(b, h, w, 3).astype(np.float32))
+    wgt = torch.from_numpy(rng.rand(b, h, w, 3).astype(np.float32))
+    depth = torch.full((b, h, w), 2.0)
+    K = torch.tensor([[20.0, 21.0, 4.0, 3.0]])
+    for width, want in ((16, {"wrapper": 0, "plain": 1}),
+                        (32, {"wrapper": 1, "plain": 1})):
+        ae = torch.from_numpy(rng.randn(b, h, w, width).astype(np.float32))
+        out = traft.gauss_newton_step(Ts, ae, tgt, wgt, depth, K, radius=3)
+        assert torch.isfinite(out).all() and calls == want
+    # The 16-wide plain build against JAX's.
+    args = _inputs(9, emb=16)
+    H, g = K8.gn_build_hg_reference(*_torch(args), 3)
+    Hj, gj = jraft._hg_xla(*map(jnp.asarray, args), 3, 16)
+    _close(H, Hj)
+    _close(g, gj)
+    with pytest.raises(ValueError, match="32-wide"):
+        K8._launch(*_torch(args), 3)
+
+
+def test_a_launch_without_a_card_raises_and_counts_nothing():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    before = K8.gn_build_hg.launches
+    with pytest.raises((RuntimeError, OSError)):
+        K8._launch(*_torch(_inputs()), 3)
+    H, _ = K8.gn_build_hg(*_torch(_inputs()), 3)      # CPU: plain version
+    assert H.shape == (1, 54, 6, 6)
+    assert K8.gn_build_hg.launches == before
+    meta = tuple(a.to("meta") for a in _torch(_inputs()))
+    with pytest.raises(ValueError, match="no gn_build kernel"):
+        K8.gn_build_hg(*meta, 3)
+
+
+def test_a_launch_refuses_inputs_that_want_a_gradient():
+    """The backward kernels are not ported: the launch raises before it
+    builds anything, and does not give way to the plain version."""
+    args = list(_torch(_inputs()))
+    args[0] = args[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        K8._launch(*args, 3)
+    with torch.no_grad():
+        # Without a card this now fails on the build, not on the gradient.
+        if not torch.cuda.is_available():
+            with pytest.raises((RuntimeError, OSError), match="nvcc|cannot"):
+                K8._launch(*args, 3)
+
+
+def test_plain_version_calls_only_plain_versions(monkeypatch):
+    def poisoned(*a, **k):
+        raise AssertionError("the plain version reached a kernel wrapper")
+
+    monkeypatch.setattr(K8, "gn_build_hg", poisoned)
+    monkeypatch.setattr(K8, "_launch", poisoned)
+    monkeypatch.setattr(K8, "_library", poisoned)
+    H, g = K8.gn_build_hg_reference(*_torch(_inputs()), 3)
+    assert torch.isfinite(H).all() and torch.isfinite(g).all()
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "grid", "mixed"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    args = list(_torch(_inputs()))
+    if bad == "dtype":
+        args[6] = args[6].double()
+    elif bad == "shape":
+        args[7] = args[7][:, :-1]
+    elif bad == "grid":
+        args[4] = args[4][:-1]
+    else:
+        args[9] = args[9].to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        K8.gn_build_hg(*args, 3)

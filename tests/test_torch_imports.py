@@ -13,6 +13,7 @@ import torch
 
 import sndepth_tpu_torch
 from sndepth_tpu_torch.kernels import dssim as K7
+from sndepth_tpu_torch.kernels import gn_build as K8
 from sndepth_tpu_torch.kernels import photo_loss as K1
 from sndepth_tpu_torch.kernels import smooth_loss as K2
 from sndepth_tpu_torch.kernels import warp as K5
@@ -27,12 +28,16 @@ def _modules():
 
 
 def test_every_module_imports_with_jax_unavailable():
-    """Every module imports, and a stage-2 step and both CLIs run (so the
-    imports inside functions run too), with JAX and the JAX package blocked."""
+    """Every module imports, and a stage-2 step, a RAFT3D frame and the
+    CLIs run (so the imports inside functions run too), with JAX and the JAX
+    package blocked."""
     names = _modules()
-    assert "sndepth_tpu_torch.cli.train_geonet" in names
-    assert "sndepth_tpu_torch.cli.benchmark" in names
-    assert "sndepth_tpu_torch.data.kitti_sequence" in names
+    for name in ("cli.train_geonet", "cli.benchmark", "cli.kitti_submission",
+                 "cli.profile_step", "data.kitti_sequence",
+                 "data.raft3d_kitti", "data.frame_codecs", "kernels.gn_build",
+                 "models.raft3d", "models.grid_smoother", "ops.se3",
+                 "ops.projective", "ops.resize", "ops.patches", "pipelines"):
+        assert f"sndepth_tpu_torch.{name}" in names, name
     code = ("import sys, tempfile\n"
             f"for m in {BLOCKED!r}:\n"
             "    sys.modules[m] = None\n"
@@ -40,6 +45,7 @@ def test_every_module_imports_with_jax_unavailable():
             f"for name in {names!r}:\n"
             "    importlib.import_module(name)\n"
             "from sndepth_tpu_torch.cli import benchmark, train_geonet\n"
+            "from sndepth_tpu_torch.cli import kitti_submission\n"
             "small = ['--img_height', '16', '--img_width', '32',\n"
             "         '--device', 'cpu']\n"
             "benchmark.main(['--family', 'flow', '--batch', '1',\n"
@@ -48,6 +54,24 @@ def test_every_module_imports_with_jax_unavailable():
             "    train_geonet.main(['--max_steps', '1', '--batch_size', '1',\n"
             "                       '--ckpt_dir', d + '/c',\n"
             "                       '--graphs_dir', d + '/l'] + small)\n"
+            "benchmark.main(['--family', 'raft3d', '--iters', '1',\n"
+            "                '--img_height', '64', '--img_width', '64',\n"
+            "                '--device', 'cpu'])\n"
+            "import os, numpy as np\n"
+            "from PIL import Image\n"
+            "with tempfile.TemporaryDirectory() as d:\n"
+            "    os.makedirs(d + '/testing/seq')\n"
+            "    os.makedirs(d + '/testing/calib_cam_to_cam')\n"
+            "    for i in range(2):\n"
+            "        Image.fromarray(np.full((70, 90, 3), 40 * i, np.uint8)\n"
+            "                        ).save(d + f'/testing/seq/{i:06d}.png')\n"
+            "        open(d + f'/testing/calib_cam_to_cam/{i:06d}.txt', 'w'\n"
+            "             ).write('K_02: 50 0 32 0 50 32 0 0 1\\n')\n"
+            "    n = kitti_submission.main(\n"
+            "        ['--root', d, '--out_dir', d + '/out', '--iters', '1',\n"
+            "         '--img_height', '64', '--img_width', '64',\n"
+            "         '--max_frames', '1', '--device', 'cpu'])\n"
+            "    assert n == 1 and os.path.exists(d + '/out/T/000000.txt')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             f"       {BLOCKED!r}\n"
             "       and sys.modules[m] is not None]\n"
@@ -91,11 +115,20 @@ def _smooth_inputs(device="cpu"):
             torch.zeros(2, 3, 8, 12, device=device))
 
 
+def _gn_inputs(device="cpu"):
+    b, n = 1, 6
+    z = lambda *shape: torch.zeros(*shape, device=device)
+    rot = torch.eye(3, device=device).expand(b, n, 3, 3).contiguous()
+    grid = torch.arange(n, device=device)
+    return (rot, z(b, n, 3) + 2.0, z(b, n, 32), z(b, n), grid // 3, grid % 3,
+            z(b, n, 3) + 1.0, z(b, n, 3), z(b, n, 3) + 1.0, z(b, 4) + 10.0)
+
+
 def _counts():
     return [f.launches for f in (
         K1.photo_pair_sums, K1.photo_sums, K1.photo_pair_weighted_sums,
         K2.smooth_sums, K5.warp_gather, K5.warp_splat, K7.dssim_forward,
-        K7.dssim_backward)]
+        K7.dssim_backward, K8.gn_build_hg)]
 
 
 def test_kernel_launch_without_a_card_raises():
@@ -115,7 +148,8 @@ def test_kernel_launch_without_a_card_raises():
                    lambda: K5._launch_gather(x, coords, "zero_pad", False),
                    lambda: K5._launch_splat(coords, x, 8, 12, "edge_zero"),
                    lambda: K7._launch_forward(x, x),
-                   lambda: K7._launch_backward(x, x, x, True, True)):
+                   lambda: K7._launch_backward(x, x, x, True, True),
+                   lambda: K8._launch(*_gn_inputs(), 1)):
         with pytest.raises((RuntimeError, OSError)):
             launch()
     with pytest.raises(ImportError):
@@ -138,6 +172,8 @@ def test_other_devices_raise_rather_than_fall_back():
         K7.dssim_forward(x, x)
     with pytest.raises(ValueError):
         K7.dssim_backward(x, x, x)
+    with pytest.raises(ValueError):
+        K8.gn_build_hg(*_gn_inputs("meta"), 1)
 
 
 def test_cpu_tensors_take_the_plain_versions_without_counting():
@@ -153,6 +189,9 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     assert K5.warp_splat(coords, x, 5, 7, "edge_zero").shape == (2, 3, 5, 7)
     assert K7.dssim_forward(x, x).shape == (2, 3, 8, 12)
     assert K7.dssim_backward(x, x, x)[1].shape == (2, 3, 8, 12)
+    H, g = K8.gn_build_hg(*_gn_inputs(), 1)
+    assert H.shape == (1, 6, 6, 6) and g.shape == (1, 6, 6)
+    assert torch.isfinite(H).all() and torch.equal(H, H.transpose(-1, -2))
     assert _counts() == before
 
 
@@ -176,7 +215,34 @@ def test_benchmark_cli_default_device_needs_a_card():
                         "--img_height", "16", "--img_width", "32"])
 
 
-@pytest.mark.parametrize("family", ["nnet", "motion", "vae", "raft3d"])
+def test_kitti_submission_cli_default_device_needs_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    import numpy as np
+    from PIL import Image
+    from sndepth_tpu_torch.cli import kitti_submission
+    (tmp_path / "testing" / "seq").mkdir(parents=True)
+    (tmp_path / "testing" / "calib_cam_to_cam").mkdir()
+    Image.fromarray(np.zeros((70, 90, 3), np.uint8)).save(
+        tmp_path / "testing" / "seq" / "000000.png")
+    (tmp_path / "testing" / "calib_cam_to_cam" / "000000.txt").write_text(
+        "K_02: 50 0 32 0 50 32 0 0 1\n")
+    with pytest.raises((AssertionError, RuntimeError)):
+        kitti_submission.main(["--root", str(tmp_path), "--out_dir",
+                               str(tmp_path / "out"), "--img_height", "64",
+                               "--img_width", "64"])
+    assert not (tmp_path / "out").exists()
+
+
+def test_kitti_submission_cli_says_that_data_parallel_waits(capsys):
+    from sndepth_tpu_torch.cli import kitti_submission
+    with pytest.raises(SystemExit) as exc:
+        kitti_submission.main(["--data_parallel", "--device", "cpu"])
+    assert exc.value.code != 0
+    assert "not ported yet" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("family", ["nnet", "motion", "vae"])
 def test_benchmark_cli_refuses_families_that_are_not_ported(family, capsys):
     from sndepth_tpu_torch.cli import benchmark
     with pytest.raises(SystemExit) as exc:
@@ -189,12 +255,12 @@ def test_benchmark_cli_prints_one_json_line_per_family(capsys):
     import json
     from sndepth_tpu_torch.cli import benchmark
     results = benchmark.main(["--family", "all", "--batch", "1", "--iters",
-                              "1", "--img_height", "16", "--img_width", "32",
+                              "1", "--img_height", "64", "--img_width", "64",
                               "--device", "cpu"])
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("{")]
     assert lines == results
-    assert [r["family"] for r in results] == ["geonet", "flow"]
+    assert [r["family"] for r in results] == ["geonet", "flow", "raft3d"]
     for r in results:
         assert set(r) == {"family", "ms_per_step", "value", "unit"}
         assert r["unit"] == "frames/sec" and r["ms_per_step"] > 0
