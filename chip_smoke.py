@@ -3,10 +3,11 @@
 
 Drives GeoNet training of ``sndepth_tpu_torch`` at full width (DispNetS,
 PoseNet and, in stage 2, FlowNet at the reference channel counts, 128x416,
-3-frame snippets, 4 scales) and RAFT3D scene-flow inference at full width
+3-frame snippets, 4 scales), RAFT3D scene-flow inference at full width
 (hidden 128, 4 correlation levels, ResNet-50 FPN context net, 16 iterations,
-at 128x416 and 376x1248) through the kernels written for Hopper, and fails
-unless every phase passes:
+at 128x416 and 376x1248) and RAFT3D training at full width (256x832, B = 2,
+12 iterations, bf16 encoders) through the kernels written for Hopper, and
+fails unless every phase passes:
 
   env        card name and power limit (nvidia-smi), torch and CUDA versions
   build      one nvcc per CUDA source, all started together; the Triton
@@ -26,19 +27,29 @@ unless every phase passes:
              version at n = 832 and n = 7332, radius 32 and 3, B = 1 and 2,
              and on the inputs a real iteration of the model hands it; H
              symmetric bit for bit
+  gn_build_bwd  K8b-i and K8b-j (the backward of the build, CUDA) against
+             autograd through the plain version at n = 832, 3328 and 7332,
+             radius 32 and 3, B = 1 and 2: all eight gradients and the
+             train step's subset, on random cotangents and on what a real
+             train step hands them; finite at a masked zero-depth pair;
+             through ``torch.autograd``
   kernel_times  every kernel at the shapes one stage-2 step at B=32 gives
              it: kernel, plain version, library call where there is one,
              and the least time the card could take (bytes over 3.35 TB/s
              against operations over 67 TFLOP/s float32)
   kernel_times_raft3d  the same for K8 at both RAFT3D sizes (operations
-             counted over the in-radius pairs) and for K5 as the depth
-             sampler calls it
+             counted over the in-radius pairs), for K5 as the depth sampler
+             calls it, and for K8b-i and K8b-j at the training sizes, asked
+             for all gradients and for the train step's subset
   step, step_flow  one float32 train step at 128x416, B=2, from the same
              seeded weights on the CPU (plain versions) and on the GPU
              (kernels), stage 1 and stage 2
   raft3d_step  RAFT3D in float32 at 128x416, CPU against GPU from the same
              seeded weights: one iteration from the same carry, the forward
              with 2 iterations and with 16
+  raft3d_train_step  one float32 RAFT3D train step at 128x416, B = 1, 2
+             iterations, CPU against GPU from the same seeded weights: loss,
+             epe2d, per-tensor gradients, parameters after AdamW
   train      stage 1 through the CLI (bf16, B=4, synthetic stream): finite,
              descending loss, 4 launches of K1 and K2 per step; a short
              B=128 run for frames/sec; the step alone on a batch already on
@@ -51,6 +62,13 @@ unless every phase passes:
              and 376x1248, float32 and bf16, and through the submission
              writer on a generated ``testing/seq`` tree, artifacts read
              back: 16 launches of K8 and of K5 a frame
+  raft3d_train  RAFT3D training through ``cli/train_raft3d.py`` on the
+             synthetic stream at its defaults: finite loss, moving
+             parameters, 12 launches a step of K8, K8b-i, K8b-j and K5 and
+             none of K6, ms/step and peak memory; the step alone on
+             card-resident batches at 256x832, B = 2 and 376x1248, B = 1;
+             the written ``raft3d.pth`` served for one frame by the
+             submission writer
 
 Each phase prints one JSON line; the full report goes to
 ``chiprun_out/chip_smoke_report.json``. The last lines are the kernels
@@ -131,7 +149,8 @@ def phase_env() -> str:
     return smi
 
 
-CUDA_SOURCES = ("photo_pair.cu", "warp.cu", "dssim.cu", "gn_build.cu")
+CUDA_SOURCES = ("photo_pair.cu", "warp.cu", "dssim.cu", "gn_build.cu",
+                "gn_build_bwd_i.cu", "gn_build_bwd_j.cu")
 
 
 def phase_build() -> None:
@@ -149,7 +168,8 @@ def phase_build() -> None:
     torch.cuda.synchronize()
     t_triton = time.perf_counter() - t0
     ptxas = {source: [ln.strip() for ln in report.splitlines()
-                      if "registers" in ln or "spill" in ln]
+                      if "registers" in ln or "spill" in ln
+                      or "Compiling entry" in ln]
              for source, (_, report) in built.items()}
     emit("build", nvcc_s=round(t_nvcc, 2), triton_s=round(t_triton, 2),
          ptxas=ptxas)
@@ -167,7 +187,8 @@ def _counters() -> dict:
             "photo_pair_weighted": K1.photo_pair_weighted_sums,
             "warp_gather": K5.warp_gather, "warp_splat": K5.warp_splat,
             "dssim_fwd": K7.dssim_forward, "dssim_bwd": K7.dssim_backward,
-            "gn_build": K8.gn_build_hg}
+            "gn_build": K8.gn_build_hg, "gn_build_bwd_i": K8.gn_build_bwd_i,
+            "gn_build_bwd_j": K8.gn_build_bwd_j}
 
 
 def reset_launches() -> None:
@@ -619,6 +640,22 @@ def _raft_frame(h: int, w: int, seed: int, b: int = 1):
     return img1, img2, d1, d2, k
 
 
+def _raft_train_batch(b: int, h: int, w: int, seed: int):
+    """A seeded RAFT3D training batch on the card, in the readers' layout:
+    images (B, H, W, 3), depths, a zero flow target, full validity."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    batch = {
+        "image1": rng.rand(b, h, w, 3), "image2": rng.rand(b, h, w, 3),
+        "depth1": 2 + rng.rand(b, h, w), "depth2": 2 + rng.rand(b, h, w),
+        "flow": np.zeros((b, h, w, 3)), "valid": np.ones((b, h, w)),
+        "intrinsics": np.tile(np.array([w * 0.6, w * 0.6, w / 2, h / 2]),
+                              (b, 1))}
+    return {k: torch.from_numpy(v.astype(np.float32)).to(DEV)
+            for k, v in batch.items()}
+
+
 def _gn_model_case():
     """The build's inputs as the third iteration of a seeded RAFT3D at
     128x416 hands them over: rotations and translations of the SE3 field,
@@ -711,18 +748,266 @@ def phase_gn_build() -> dict:
                              "pair: the case does not test what it says")
     torch.testing.assert_close(Hk[:, 1:], Hp[:, 1:], rtol=2e-5, atol=1e-3)
     torch.testing.assert_close(gk[:, 1:], gp[:, 1:], rtol=2e-5, atol=1e-3)
-    # A launch that wants a gradient must raise, not take the plain version.
-    args = list(cases[0][1])
-    args[0] = args[0].clone().requires_grad_(True)
-    try:
-        K8.gn_build_hg(*args, 3)
-    except RuntimeError:
-        pass
-    else:
-        raise AssertionError("K8 took inputs that want a gradient")
     emit("gn_build", checks=checks, float64=f64,
          tolerance="2e-5 * |entry| + 2e-5 * mean |entry position|")
     return {"gn_build": worst_abs, "gn_build_err_over_tol": worst_scaled}
+
+GN_BWD_NAMES = ("rot", "trans", "x", "sq", "X", "tgt", "wgt", "intrinsics")
+# The gradients the train step wants: the pose is detached, depth and
+# intrinsics are data.
+GN_BWD_TRAIN = (False, False, True, True, False, True, True, False)
+# K8b against its plain version: a gradient entry is a float32 sum of up to
+# (2r+1)^2 = 4225 signed pair adjoints, each a sum of ~60 products, taken in
+# another order than autograd's blocked contractions. An entry is held to
+# GN_BWD_TOL of its own size plus GN_BWD_TOL of the mean size of its entry
+# position over the pixels (K8's form). Calibrated on an H100 against a
+# float64 evaluation of the plain version at 32x104, B = 2: the kernels are
+# up to 1.2e-5 of the mean size off it and the float32 plain version up to
+# 3.3e-5 (the phase records both); the largest difference between the two
+# over all cases was 0.18 of this tolerance.
+GN_BWD_TOL = 5e-5
+
+
+def _gn_bwd_compare(name: str, got, want, skip=None) -> tuple[float, float]:
+    """Hold the eight gradients ``got`` against ``want`` (``None`` in
+    ``got``: not asked for) after asserting them finite; ``skip(key, t)``
+    cuts both to what can be compared, ``None`` for nothing. Returns the
+    largest absolute error and the largest error over its tolerance."""
+    import torch
+    worst_abs = worst_scaled = 0.0
+    for key, g, w in zip(GN_BWD_NAMES, got, want):
+        if g is None:
+            continue
+        _assert_finite(f"K8b {name} d {key}", g)
+        if g.shape != w.shape:
+            raise AssertionError(f"K8b {name}: d {key} is {tuple(g.shape)}, "
+                                 f"want {tuple(w.shape)}")
+        if skip is not None:
+            g, w = skip(key, g), skip(key, w)
+            if w is None:
+                continue
+        # The intrinsics have no pixel axis: their entries are whole sums.
+        dims = (0,) if key == "intrinsics" else (0, 1)
+        scale = w.abs().mean(dim=dims, keepdim=True)
+        tol = GN_BWD_TOL * w.abs() + GN_BWD_TOL * scale
+        diff = (g - w).abs()
+        scaled = float((diff / tol.clamp_min(1e-30)).max())
+        if not scaled <= 1.0:
+            raise AssertionError(f"K8b {name}: d {key} off by {scaled} x the "
+                                 f"tolerance (max abs {float(diff.max())})")
+        worst_abs = max(worst_abs, float(diff.max()))
+        worst_scaled = max(worst_scaled, scaled)
+    return worst_abs, worst_scaled
+
+
+def _gn_bwd_model_case():
+    """What the backward of the last of three iterations of a seeded RAFT3D
+    train step at 128x416 hands the kernels: the build's inputs, the radius,
+    the cotangents of H and g, and which gradients are wanted."""
+    import torch
+    from sndepth_tpu_torch.kernels import gn_build as K8
+    from sndepth_tpu_torch.train import raft3d as rt
+    state = rt.create_train_state(device=DEV, seed=3)
+    calls = []
+    kernel = K8.gn_build_hg_bwd
+
+    def record(*args):
+        calls.append(args)
+        return kernel(*args)
+
+    K8.gn_build_hg_bwd = record
+    try:
+        loss, _ = rt.raft3d_loss(state.model, _raft_train_batch(
+            1, *RAFT_SIZES[0], seed=43), iters=3)
+        loss.backward()
+    finally:
+        K8.gn_build_hg_bwd = kernel
+    torch.cuda.synchronize()
+    # Backward runs the iterations last to first.
+    *args, radius, ct_H, ct_g, want = calls[0]
+    return args, radius, ct_H, ct_g, want
+
+
+def phase_gn_build_bwd() -> dict:
+    """K8b-i and K8b-j against the plain version (autograd through the plain
+    build) on the card: all eight gradients, and the subset a train step
+    asks for."""
+    import torch
+    from sndepth_tpu_torch.kernels import gn_build as K8
+    gen = torch.Generator().manual_seed(8)
+    checks, worst = [], {"abs": 0.0, "scaled": 0.0}
+
+    def run(name, args, radius, ct_H, ct_g, want, skip=None):
+        ref = K8.gn_build_hg_bwd_reference(*args, radius, ct_H, ct_g)
+        got = K8.gn_build_hg_bwd(*args, radius, ct_H, ct_g, want)
+        torch.cuda.synchronize()
+        for key, g, w in zip(GN_BWD_NAMES, got, want):
+            if (g is None) == w:
+                raise AssertionError(f"K8b {name}: d {key} wanted {w}, got "
+                                     f"{'nothing' if g is None else 'one'}")
+        a, sc = _gn_bwd_compare(name, got, ref, skip)
+        worst["abs"] = max(worst["abs"], a)
+        worst["scaled"] = max(worst["scaled"], sc)
+        checks.append({"case": name, "n": int(args[3].shape[1]),
+                       "radius": radius, "max_abs_err": a,
+                       "err_over_tol": sc})
+        return ref, got
+
+    def cotangents(b, n):
+        return (torch.randn(b, n, 6, 6, generator=gen).to(DEV),
+                torch.randn(b, n, 6, generator=gen).to(DEV))
+
+    for h, w in ((16, 52), (32, 104), (47, 156)):
+        for radius in (GN_RADIUS, 3):
+            for b in (1, 2):
+                args = _gn_inputs(b, h, w, 80 + b + radius)
+                ct_H, ct_g = cotangents(b, h * w)
+                name = f"seeded_{h}x{w}_r{radius}_B{b}"
+                run(name, args, radius, ct_H, ct_g, (True,) * 8)
+                if b == 2:
+                    run(name + "_train_subset", args, radius, ct_H, ct_g,
+                        GN_BWD_TRAIN)
+    args, radius, ct_H, ct_g, want = _gn_bwd_model_case()
+    if tuple(want) != GN_BWD_TRAIN:
+        raise AssertionError(f"the train step asks the build for {want}")
+    run("model_iteration_16x52", args, radius, ct_H, ct_g, want)
+    run("model_iteration_16x52_all", args, radius, ct_H, ct_g, (True,) * 8)
+
+    # How far float32 itself is from the sums: kernels and plain version
+    # against a float64 evaluation of the plain version, at 32x104, B = 2.
+    args = _gn_inputs(2, 32, 104, 90)
+    ct_H, ct_g = cotangents(2, 32 * 104)
+    to64 = lambda t: t.double() if t.is_floating_point() else t
+    ref64 = K8.gn_build_hg_bwd_reference(*map(to64, args), GN_RADIUS,
+                                         ct_H.double(), ct_g.double())
+    ref32 = K8.gn_build_hg_bwd_reference(*args, GN_RADIUS, ct_H, ct_g)
+    got = K8.gn_build_hg_bwd(*args, GN_RADIUS, ct_H, ct_g)
+    f64 = {}
+    for key, g, r32, r64 in zip(GN_BWD_NAMES, got, ref32, ref64):
+        dims = (0,) if key == "intrinsics" else (0, 1)
+        scale = r64.abs().mean(dim=dims, keepdim=True).clamp_min(1e-30)
+        f64[key] = {"kernel_vs_f64": float(((g - r64).abs() / scale).max()),
+                    "plain_vs_f64": float(((r32 - r64).abs() / scale).max())}
+
+    # A pair (i = 0, j = 831) outside radius 3 whose transformed depth is
+    # exactly 0: the plain version forms 0 * inf = NaN in what belongs to
+    # pixel 0, to pixel 831 and in the intrinsics; the kernels skip the pair,
+    # stay finite everywhere and equal the plain version elsewhere.
+    args = list(_gn_inputs(1, 16, 52, 70))
+    args[0][:] = torch.eye(3, device=DEV)
+    args[6][..., 2] += 1.0
+    args[6][0, 831, 2] = 1.5
+    args[1][0, 0, 2] = -1.5
+    ct_H, ct_g = cotangents(1, 832)
+
+    def skip(key, t):
+        return None if key == "intrinsics" else t[:, 1:831]
+
+    ref, got = run("masked_pair_at_zero_depth", args, 3, ct_H, ct_g,
+                   (True,) * 8, skip)
+    if torch.isfinite(ref[0][0, 0]).all():
+        raise AssertionError("the plain backward is finite at the zero-depth "
+                             "pair: the case does not test what it says")
+
+    # Through autograd: the Function's backward reaches the same kernels and
+    # hands back gradients of the inputs' type, None where none is wanted.
+    args = list(_gn_inputs(1, 16, 52, 91))
+    for k in (2, 3, 7, 8):
+        args[k] = args[k].clone().requires_grad_(True)
+    before = (K8.gn_build_bwd_i.launches, K8.gn_build_bwd_j.launches)
+    H, g = K8.gn_build_hg(*args, GN_RADIUS)
+    ct_H, ct_g = cotangents(1, 832)
+    grads = torch.autograd.grad([H, g], [args[k] for k in (2, 3, 7, 8)],
+                                [ct_H, ct_g])
+    ref = K8.gn_build_hg_bwd_reference(*args, GN_RADIUS, ct_H, ct_g)
+    _gn_bwd_compare("autograd", [None, None, grads[0], grads[1], None,
+                                 grads[2], grads[3], None], ref)
+    after = (K8.gn_build_bwd_i.launches, K8.gn_build_bwd_j.launches)
+    if after != (before[0] + 1, before[1] + 1) or any(
+            g.dtype != torch.float32 for g in grads):
+        raise AssertionError(f"autograd through K8: launches {before} -> "
+                             f"{after}")
+    emit("gn_build_bwd", checks=checks, float64=f64,
+         tolerance=f"{GN_BWD_TOL} * |entry| + {GN_BWD_TOL} * mean |entry "
+                   "position|")
+    return {"gn_build_bwd_i": worst["abs"], "gn_build_bwd_j": worst["abs"],
+            "gn_build_bwd_err_over_tol": worst["scaled"]}
+
+
+# Float32 operations of one in-radius pair in the backward kernels, counted
+# from their arithmetic (csrc/gn_pair.cuh and the two kernels). Both halves:
+# the embedding product (64), distance and sigmoid (~8), the transformed
+# point and its inverse (~20), the 13 Jacobian entries and 3 residuals (~36),
+# v = A J over the non-zero columns (59 multiply-adds, 118), the quadratic
+# forms and cg . J (~52), q, S and d dist (~21), and the 32 multiply-adds of
+# d x (64) and d sq (1): 384. The j half adds d tgt and d wgt (9). The
+# geometry chain (d J, d r -> d P, d intrinsics: ~150) comes with d rot,
+# d trans and d intrinsics (25) in the i half, with d X (15) in the j half.
+GN_BWD_PAIR_FLOPS = {("i", "train"): 384, ("i", "all"): 559,
+                     ("j", "train"): 393, ("j", "all"): 558}
+# What each half is asked for: (rot, trans, x, sq, intrinsics) of the i
+# half, (X, x, sq, tgt, wgt) of the j half.
+GN_BWD_WANT = {("i", "train"): (False, False, True, True, False),
+               ("i", "all"): (True,) * 5,
+               ("j", "train"): (False, True, True, True, True),
+               ("j", "all"): (True,) * 5}
+# The build's sizes on the training path: the train CLI's default batch
+# (256x832, B = 2) and a KITTI frame (376x1248, B = 1); 128x416 besides.
+GN_BWD_SIZES = ((2, 256, 832), (1, 376, 1248), (1, 128, 416))
+
+
+def _gn_bwd_times() -> tuple[dict, dict]:
+    """K8b-i and K8b-j at the sizes above (radius 32), asked for all their
+    gradients and for the train step's subset, beside the plain version
+    (one autograd pass gives all eight gradients, so both halves share its
+    time) and the bound. Returns the rows by kernel and, for the kernels
+    line, each kernel's totals over the first two sizes with the train
+    step's subset: what one step at each size launches."""
+    import torch
+    from sndepth_tpu_torch.kernels import gn_build as K8
+    gen = torch.Generator().manual_seed(9)
+    halves = {"i": K8.gn_build_bwd_i, "j": K8.gn_build_bwd_j}
+    rows = {"gn_build_bwd_i": [], "gn_build_bwd_j": []}
+    for b, h, w in GN_BWD_SIZES:
+        h8, w8 = h // 8, w // 8
+        n = h8 * w8
+        args = _gn_inputs(b, h8, w8, 61)
+        ct_H = torch.randn(b, n, 6, 6, generator=gen).to(DEV)
+        ct_g = torch.randn(b, n, 6, generator=gen).to(DEV)
+        kargs = K8._kernel_inputs(*args)
+        ct27 = K8.fold_cotangents(ct_H, ct_g).contiguous()
+        pairs = b * _in_radius_pairs(h8, w8, GN_RADIUS)
+        plain_ms = time_ms(lambda: K8.gn_build_hg_bwd_reference(
+            *args, GN_RADIUS, ct_H, ct_g), 3)
+        for half, fn in halves.items():
+            for subset in ("train", "all"):
+                want = GN_BWD_WANT[half, subset]
+                out = fn(kargs, ct27, GN_RADIUS, want)
+                n_bytes = _nbytes(*kargs, ct27,
+                                  *(t for t in out if t is not None))
+                rows[f"gn_build_bwd_{half}"].append({
+                    "shape": f"{b}x{n} ({h8}x{w8})", "gradients": subset,
+                    "in_radius_pairs": pairs,
+                    "ms": time_ms(lambda: fn(kargs, ct27, GN_RADIUS, want),
+                                  10),
+                    "plain_ms": plain_ms,
+                    **_bound(n_bytes, GN_BWD_PAIR_FLOPS[half, subset] * pairs),
+                    "library_ms": None})
+    totals = {}
+    main = {f"{b}x{(h // 8) * (w // 8)} ({h // 8}x{w // 8})"
+            for b, h, w in GN_BWD_SIZES[:2]}
+    for name, shapes in rows.items():
+        used = [r for r in shapes
+                if r["gradients"] == "train" and r["shape"] in main]
+        t_bytes = sum(r["bytes_ms"] for r in used)
+        t_flops = sum(r["flops_ms"] for r in used)
+        totals[name] = {
+            "ms": sum(r["ms"] for r in used),
+            "plain_ms": sum(r["plain_ms"] for r in used),
+            "bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "library_ms": None}
+    return rows, totals
 
 
 def phase_kernel_times_raft3d() -> dict:
@@ -772,9 +1057,11 @@ def phase_kernel_times_raft3d() -> dict:
              "bound_ms": max(t_bytes, t_flops),
              "bound_by": "bytes" if t_bytes >= t_flops else "operations",
              "library_ms": None}
+    bwd_rows, bwd_totals = _gn_bwd_times()
     emit("kernel_times_raft3d", gn_build=shapes, gn_build_total=total,
-         warp_gather_zero_pad_c1=sampler)
-    return {"gn_build": total}, sampler
+         warp_gather_zero_pad_c1=sampler, **bwd_rows,
+         gn_build_bwd_totals=bwd_totals)
+    return {"gn_build": total, **bwd_totals}, sampler
 
 
 def _log_distance(a, b) -> dict:
@@ -888,6 +1175,193 @@ def phase_raft3d_step() -> None:
                                      f"{runs[run][key]} > {limit}")
 
 
+# CPU against card, one float32 RAFT3D train step (TF32 off) from the same
+# seeded weights at 128x416, B = 1, 2 iterations: relative difference of the
+# loss, of epe2d and of the gradient norm; the worst per-tensor gradient
+# difference (norm of the difference over the CPU gradient's norm: the
+# lookup's scatter-add and the convolutions' other algorithms sum in another
+# order); the largest parameter difference after AdamW in units of the
+# step's rate (an entry whose gradient is within rounding of zero may take
+# the other sign: 2 rates apart at most, plus the rounding of the two
+# updated float32 entries) and the share of entries more than a hundredth of
+# a rate apart. Gradients that are zero in exact arithmetic
+# (a bias before an instance norm, the embedding's common shift) hold
+# rounding noise only, ~1e-7 of the global norm: the denominator is floored
+# at 1e-5 of the global gradient norm.
+RAFT_TRAIN_STEP_TOL = {"loss_rel": 1e-4, "epe2d_rel": 1e-4,
+                       "grad_norm_rel": 1e-3, "grad_rel_worst": 5e-2,
+                       "param_over_lr": 2.01, "param_frac_off": 0.01}
+RAFT_TRAIN_ITERS = 12           # the train CLI's default
+# One train step launches K8 and K5 (depth_sampler) once an iteration in the
+# forward pass and K8b-i and K8b-j once an iteration in the backward pass.
+# The sampled plane (1 / depth2) is data, so K6 never launches.
+RAFT_TRAIN_STEP_LAUNCHES = {"gn_build": RAFT_TRAIN_ITERS,
+                            "gn_build_bwd_i": RAFT_TRAIN_ITERS,
+                            "gn_build_bwd_j": RAFT_TRAIN_ITERS,
+                            "warp_gather": RAFT_TRAIN_ITERS}
+
+
+def phase_raft3d_train_step() -> None:
+    """One float32 RAFT3D train step at 128x416, B = 1, 2 iterations, from
+    the same seeded weights on the CPU (plain versions) and on the card
+    (kernels, forward and backward)."""
+    import torch
+    from sndepth_tpu_torch.train import raft3d as rt
+    h, w = RAFT_SIZES[0]
+    batch = _raft_train_batch(1, h, w, seed=44)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    try:
+        for dev in ("cpu", DEV):
+            state = rt.create_train_state(device=dev, seed=0)
+            lr = rt.onecycle_lr(state.step)
+            met = rt.train_step(
+                state, {k: v.to(dev) for k, v in batch.items()}, iters=2)
+            named = list(state.model.named_parameters())
+            res[dev] = {
+                "metrics": {k: float(v) for k, v in met.items()},
+                "grads": {n: p.grad.detach().cpu() for n, p in named},
+                "params": {n: p.detach().cpu() for n, p in named},
+                "buffers": {n: b.detach().cpu().clone()
+                            for n, b in state.model.named_buffers()}}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    cpu, gpu = res["cpu"], res[DEV]
+    rel = {f"{k}_rel": abs(gpu["metrics"][k] - v) / abs(v)
+           for k, v in cpu["metrics"].items()}
+    grad_err = {}
+    # The gradients are read after clipping: their global norm is 1.
+    floor = 1e-5 * float(torch.stack(
+        [g.norm() for g in cpu["grads"].values()]).norm())
+    for n, g in gpu["grads"].items():
+        _assert_finite(f"card gradient {n}", g)
+        grad_err[n] = float((g - cpu["grads"][n]).norm()
+                            / cpu["grads"][n].norm().clamp_min(floor))
+    worst = sorted(grad_err.items(), key=lambda kv: -kv[1])[:3]
+    n_off = n_all = 0
+    max_param = 0.0
+    for n, p in gpu["params"].items():
+        d = (p - cpu["params"][n]).abs()
+        max_param = max(max_param, float(d.max()))
+        n_off += int((d > 0.01 * lr).sum())
+        n_all += d.numel()
+    for n, b in gpu["buffers"].items():
+        if not torch.equal(b, cpu["buffers"][n]):
+            raise AssertionError(f"buffer {n} differs after the step")
+    got = {**rel, "grad_rel_worst": worst[0][1],
+           "param_over_lr": max_param / lr, "param_frac_off": n_off / n_all}
+    emit("raft3d_train_step", hw=[h, w], metrics_cpu=cpu["metrics"],
+         metrics_gpu=gpu["metrics"], grad_rel_err_worst=worst, lr=lr, **got,
+         tolerance=RAFT_TRAIN_STEP_TOL)
+    for key, limit in RAFT_TRAIN_STEP_TOL.items():
+        if not got[key] <= limit:
+            raise AssertionError(f"RAFT3D train step, CPU against card: "
+                                 f"{key} {got[key]} > {limit}")
+
+
+def _raft3d_device_step(b: int, h: int, w: int, steps: int = 3) -> dict:
+    """Median ms of a bf16 RAFT3D train step (12 iterations) on one batch
+    already on the card, after two warm-up steps, and the peak device
+    memory over those steps."""
+    import torch
+    from sndepth_tpu_torch.models import raft3d
+    from sndepth_tpu_torch.train import raft3d as rt
+    model = raft3d.RAFT3D(dtype=torch.bfloat16)
+    raft3d.init_weights(model, torch.Generator().manual_seed(0))
+    state = rt.create_train_state(model, DEV)
+    batch = _raft_train_batch(b, h, w, seed=45)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, last = [], None
+    for _ in range(2 + steps):
+        t0 = time.perf_counter()
+        last = rt.train_step(state, batch, RAFT_TRAIN_ITERS)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if not _finite(float(last["loss"])) or state.notfinite_count:
+        raise AssertionError(f"train step at {b}x{h}x{w}: loss "
+                             f"{float(last['loss'])}, "
+                             f"{state.notfinite_count} steps skipped")
+    times = sorted(times[2:])
+    return {"batch": b, "hw": [h, w],
+            "ms_per_step": times[len(times) // 2] * 1e3,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "loss": float(last["loss"])}
+
+
+def phase_raft3d_train() -> dict:
+    """The RAFT3D training path at full width through its entry points: the
+    train CLI on the synthetic stream (256x832, B = 2, 12 iterations, bf16),
+    the step alone on card-resident batches at that size and at 376x1248,
+    B = 1, and the written checkpoint served for one frame by the
+    submission writer."""
+    import torch
+    from sndepth_tpu_torch.cli import kitti_submission, train_raft3d
+    from sndepth_tpu_torch.models import raft3d
+    steps = 4
+    ckpt_dir = os.path.join(WORK_DIR, "ckpt_raft3d")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state, records = train_raft3d.main(
+        ["--max_steps", str(steps), "--log_every", "1", "--device", DEV,
+         "--ckpt_dir", ckpt_dir, "--root", os.path.join(WORK_DIR, "no_data")])
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * steps for k, v in RAFT_TRAIN_STEP_LAUNCHES.items()}
+    if _used(launches) != want:
+        raise AssertionError(f"raft3d train: launches {_used(launches)}, "
+                             f"want {want}")
+    if state.step != steps or len(records) != steps:
+        raise AssertionError(f"{state.step} of {steps} train steps ran")
+    for r in records:
+        if not all(_finite(r[k]) for k in ("loss", "epe2d", "grad_norm")):
+            raise AssertionError(f"raft3d train step {r['step']}: {r}")
+    if state.notfinite_count:
+        raise AssertionError("a train step was skipped as non-finite")
+    # The weights moved from their seeded start, the BatchNorm statistics
+    # did not.
+    start = raft3d.RAFT3D()
+    raft3d.init_weights(start, torch.Generator().manual_seed(0))
+    moved = {n: float((p.detach().cpu() - q.detach()).abs().max())
+             for (n, p), q in
+             zip(state.model.named_parameters(), start.parameters())}
+    # (A bias whose gradient is exactly zero stays at its zero start.)
+    still = [n for n, v in moved.items() if not v > 0.0]
+    if len(still) > 0.1 * len(moved):
+        raise AssertionError(f"{len(still)} of {len(moved)} parameter "
+                             f"tensors did not move: {still[:5]}")
+    for (n, b), b0 in zip(state.model.named_buffers(), start.buffers()):
+        if not torch.equal(b.cpu(), b0):
+            raise AssertionError(f"buffer {n} changed in training")
+    del state
+    dts = sorted(1.0 / r["steps_per_sec"] for r in records[1:])
+    cli_ms = dts[len(dts) // 2] * 1e3
+
+    device_steps = [_raft3d_device_step(2, 256, 832),
+                    _raft3d_device_step(1, 376, 1248)]
+
+    # The checkpoint the CLI wrote, served for one frame.
+    root = os.path.join(WORK_DIR, "raft_datasets")
+    out_dir = os.path.join(WORK_DIR, "raft3d_trained_out")
+    _write_kitti_testing_tree(root, 2, seed=9)
+    written = kitti_submission.main(
+        ["--root", root, "--out_dir", out_dir, "--max_frames", "1",
+         "--ckpt_dir", ckpt_dir, "--device", DEV])
+    if written != 1:
+        raise AssertionError(f"served {written} frames from the checkpoint")
+    artifacts = _read_back_submission(out_dir, 0, *RAFT_SIZES[0])
+    emit("raft3d_train", steps=steps, batch=2, hw=[256, 832],
+         iters=RAFT_TRAIN_ITERS, records=records, launches=_used(launches),
+         cli_ms_per_step=cli_ms, cli_peak_memory_bytes=peak,
+         device_batch_steps=device_steps,
+         parameter_tensors=len(moved), parameter_tensors_still=still,
+         largest_parameter_move=max(moved.values()),
+         served_artifacts=artifacts)
+    return launches
+
+
 def _write_kitti_testing_tree(root: str, frames: int, seed: int) -> None:
     """A small ``testing/seq`` tree with its calibration files, made from a
     seed: smooth random frames at half the KITTI size."""
@@ -973,7 +1447,7 @@ def phase_raft3d() -> dict:
     benchmark CLI's ``raft3d`` family at both sizes in float32 and bf16,
     and the submission writer on a generated tree."""
     from sndepth_tpu_torch.cli import benchmark, kitti_submission
-    timed = 5
+    timed = 3
     results, total = [], {k: 0 for k in RAFT_FRAME_LAUNCHES}
     for h, w in RAFT_SIZES:
         for dtype in ("f32", "bf16"):
@@ -1380,16 +1854,21 @@ def main() -> int:
             "smooth": smooth["max_abs_err"], **phase_warp(), **phase_dssim(),
             **phase_photo_modes()}
     errs.update(phase_gn_build())
+    errs.update(phase_gn_build_bwd())
     times = phase_kernel_times()
     raft_times, sampler_times = phase_kernel_times_raft3d()
     times.update(raft_times)
     phase_step(train_flow=False)
     phase_step(train_flow=True)
     phase_raft3d_step()
+    phase_raft3d_train_step()
     stage1_launches = phase_train()
     launches = phase_train_flow()
     raft_launches = phase_raft3d()
     launches["gn_build"] = raft_launches["gn_build"]
+    raft_train_launches = phase_raft3d_train()
+    for name in ("gn_build_bwd_i", "gn_build_bwd_j"):
+        launches[name] = raft_train_launches[name]
 
     csrc = "sndepth_tpu_torch/kernels/csrc/"
     where = {
@@ -1411,6 +1890,10 @@ def main() -> int:
                       "sndepth_tpu/kernels/dssim.py:134"),
         "gn_build": ("cuda", csrc + "gn_build.cu",
                      "sndepth_tpu/kernels/gn_build.py:244"),
+        "gn_build_bwd_i": ("cuda", csrc + "gn_build_bwd_i.cu",
+                           "sndepth_tpu/kernels/gn_build.py:267"),
+        "gn_build_bwd_j": ("cuda", csrc + "gn_build_bwd_j.cu",
+                           "sndepth_tpu/kernels/gn_build.py:292"),
     }
     kernels = []
     for name, (route, source, replaces) in where.items():
@@ -1426,8 +1909,14 @@ def main() -> int:
     k5 = next(k for k in kernels if k["name"] == "warp_gather")
     k5["raft3d_launches"] = raft_launches["warp_gather"]
     k5["raft3d_zero_pad_c1"] = sampler_times
-    next(k for k in kernels if k["name"] == "gn_build")[
-        "err_over_tolerance"] = errs["gn_build_err_over_tol"]
+    # K8 and K5 also run on the training path: their launches there.
+    for k in kernels:
+        if k["name"] in ("gn_build", "warp_gather"):
+            k["raft3d_train_launches"] = raft_train_launches[k["name"]]
+        if k["name"] == "gn_build":
+            k["err_over_tolerance"] = errs["gn_build_err_over_tol"]
+        if k["name"].startswith("gn_build_bwd"):
+            k["err_over_tolerance"] = errs["gn_build_bwd_err_over_tol"]
     # K6's max_abs_err is over the cases whose tap weights stay near [0, 1];
     # the far-out edge_zero cases are held to their own tolerance.
     next(k for k in kernels if k["name"] == "warp_splat")[

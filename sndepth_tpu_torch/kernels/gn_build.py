@@ -1,8 +1,10 @@
-"""Dense-SE3 Gauss-Newton build (K8).
+"""Dense-SE3 Gauss-Newton build (K8) and its backward (K8b).
 
-Replaces the Pallas TPU kernel of ``sndepth_tpu/kernels/gn_build.py``
+Replaces the Pallas TPU kernels of ``sndepth_tpu/kernels/gn_build.py``
 (:func:`gn_build_hg` -> ``_gn_pallas`` -> ``_kernel``, pair arithmetic
-``_pair_contribs``) with the CUDA C++ kernel ``csrc/gn_build.cu`` for Hopper
+``_pair_contribs``; :func:`gn_build_hg_bwd` -> ``_gn_bwd_i_pallas`` and
+``_gn_bwd_j_pallas``) with the CUDA C++ kernels ``csrc/gn_build.cu``,
+``csrc/gn_build_bwd_i.cu`` and ``csrc/gn_build_bwd_j.cu`` for Hopper
 (sm_90a). For every pixel i it accumulates, over the pixels j within
 ``radius`` grid units of i on both axes, the 6x6 normal equations H_i and
 the right-hand side g_i of the reprojection residuals of T_i applied to the
@@ -25,14 +27,27 @@ sq (B, n) = |x|^2, gy / gx (n,) grid rows and columns (integers, any dtype),
 X / tgt / wgt (B, n, 3), intrinsics4 (B, 4) = (fx, fy, cx, cy). Returns H
 (B, n, 6, 6), symmetric bit for bit, and g (B, n, 6).
 
-The kernel is written for the 32-wide embedding; the backward kernels of the
-TPU package (``gn_build_hg_bwd``) are not ported yet, so a launch refuses
-inputs that want a gradient.
+The kernels are written for the 32-wide embedding and float32.
+
+Gradients. :func:`gn_build_hg` is differentiable on both devices in its eight
+float inputs (the grid positions only feed the radius test): on the CPU by
+autograd through the plain version, on a CUDA tensor through a
+``torch.autograd.Function`` whose backward is :func:`gn_build_hg_bwd`, two
+kernel launches. Both take the cotangent of H folded onto the 21
+upper-triangle sums that the forward mirrors into both triangles
+(:func:`fold_cotangents`). ``gn_build_bwd_i`` sums the hand-derived adjoint of
+a pair (``csrc/gn_pair.cuh``) over j into d rot, d trans, d x_i, d sq_i and
+d intrinsics; ``gn_build_bwd_j`` sums it over i into d X, d x_j, d sq_j,
+d tgt, d wgt; d x and d sq are the two halves added. A gradient nobody wants
+is neither computed nor written, and a launch none of whose gradients is
+wanted is not made. As in the forward, a pair outside the radius adds
+exactly nothing, also where its depth is 0.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -41,8 +56,12 @@ EMB = 32
 # of _BLOCK (the JAX package's rule): a single shot holds O(n^2) Jacobians.
 _SINGLE_SHOT_MAX = 2048
 _BLOCK = 1024
-_SOURCE = "gn_build.cu"
-_lib = None
+# The pointers each kernel's C launcher ``<name>_launch`` in
+# ``csrc/<name>.cu`` takes before (b, n, radius, stream).
+_POINTERS = {"gn_build": 12, "gn_build_bwd_i": 16, "gn_build_bwd_j": 16}
+# The 21 upper-triangle entries (c, d), c <= d, row-major: the order of the
+# forward's sums and of the folded cotangents.
+_TRI_ROWS, _TRI_COLS = zip(*[(c, d) for c in range(6) for d in range(c, 6)])
 
 
 def _check(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4) -> None:
@@ -104,6 +123,23 @@ def _accumulate(rot, trans, x, sq, gy, gx, fx, fy, cx, cy, radius,
     return Hc, gc
 
 
+def _grid_and_intrinsics(sq, gy, gx, intrinsics4):
+    gy = gy.to(device=sq.device, dtype=sq.dtype)
+    gx = gx.to(device=sq.device, dtype=sq.dtype)
+    return gy, gx, intrinsics4[:, None, None, :].unbind(-1)
+
+
+def _j_blocks(n: int) -> list[slice]:
+    block = n if n <= _SINGLE_SHOT_MAX else _BLOCK
+    return [slice(j0, j0 + block) for j0 in range(0, n, block)]
+
+
+def _mirror(H: torch.Tensor) -> torch.Tensor:
+    """Both triangles from the upper one's sums, as the kernel writes
+    them."""
+    return torch.triu(H) + torch.triu(H, 1).transpose(-1, -2)
+
+
 def gn_build_hg_reference(rot, trans, x, sq, gy, gx, X, tgt, wgt,
                           intrinsics4, radius: int):
     """Plain PyTorch version, on any device, for any embedding width and
@@ -112,79 +148,215 @@ def gn_build_hg_reference(rot, trans, x, sq, gy, gx, X, tgt, wgt,
     sigmoid times a 0/1 mask, with no square root at 0). Up to 2048 pixels
     in one shot, beyond that over blocks of 1024 pixels j."""
     _check(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4)
-    n = sq.shape[1]
-    gy = gy.to(device=sq.device, dtype=sq.dtype)
-    gx = gx.to(device=sq.device, dtype=sq.dtype)
-    fx, fy, cx, cy = intrinsics4[:, None, None, :].unbind(-1)
-    block = n if n <= _SINGLE_SHOT_MAX else _BLOCK
+    gy, gx, (fx, fy, cx, cy) = _grid_and_intrinsics(sq, gy, gx, intrinsics4)
     H = g = None
-    for j0 in range(0, n, block):
-        sl = slice(j0, j0 + block)
+    for sl in _j_blocks(sq.shape[1]):
         Hc, gc = _accumulate(rot, trans, x, sq, gy, gx, fx, fy, cx, cy,
                              float(radius), X[:, sl], x[:, sl], sq[:, sl],
                              gy[sl], gx[sl], tgt[:, sl], wgt[:, sl])
         H, g = (Hc, gc) if H is None else (H + Hc, g + gc)
-    # Both triangles from the same sums, as the kernel writes them.
-    upper = torch.triu(H)
-    return upper + torch.triu(H, 1).transpose(-1, -2), g
+    return _mirror(H), g
 
 
-def _library() -> ctypes.CDLL:
-    """The built kernel library, with the launcher's C signature set."""
-    global _lib
-    if _lib is None:
-        from sndepth_tpu_torch.kernels.build import load_library
-        lib = load_library(_SOURCE)
-        lib.gn_build_launch.restype = ctypes.c_int
-        lib.gn_build_launch.argtypes = (
-            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 2 + [ctypes.c_float]
-            + [ctypes.c_void_p])
-        _lib = lib
-    return _lib
+def fold_cotangents(ct_H: torch.Tensor, ct_g: torch.Tensor) -> torch.Tensor:
+    """(B, n, 27): the cotangent of H (B, n, 6, 6) folded onto the 21
+    upper-triangle sums that the forward mirrors into both triangles (an
+    off-diagonal sum gets ``ct_H[c, d] + ct_H[d, c]``, a diagonal one
+    ``ct_H[c, c]`` once), then the cotangent of g (B, n, 6)."""
+    rows, cols = list(_TRI_ROWS), list(_TRI_COLS)
+    upper = ct_H[..., rows, cols]
+    lower = ct_H[..., cols, rows]
+    diagonal = torch.tensor([c == d for c, d in zip(rows, cols)],
+                            device=ct_H.device)
+    return torch.cat([torch.where(diagonal, upper, upper + lower), ct_g], -1)
 
 
-def _launch(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4,
-            radius: int):
+def gn_build_hg_bwd_reference(rot, trans, x, sq, gy, gx, X, tgt, wgt,
+                              intrinsics4, radius: int, ct_H, ct_g):
+    """Plain version of the backward: ``torch.autograd.grad`` through the
+    plain build, on any device and in any float type. (H, g) is a sum over
+    the blocks of pixels j that :func:`gn_build_hg_reference` takes, and the
+    mirroring of H is linear, so the gradients are taken block by block and
+    added: the graph of one block is all that is held at a time. Returns
+    (d rot, d trans, d x, d sq, d X, d tgt, d wgt, d intrinsics4), the order
+    of the JAX package's ``gn_build_hg_bwd``."""
+    _check(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4)
+    leaves = [t.detach().requires_grad_(True)
+              for t in (rot, trans, x, sq, X, tgt, wgt, intrinsics4)]
+    rot_, trans_, x_, sq_, X_, tgt_, wgt_, intr_ = leaves
+    total = None
+    for sl in _j_blocks(sq.shape[1]):
+        with torch.enable_grad():
+            gy_, gx_, (fx, fy, cx, cy) = _grid_and_intrinsics(sq_, gy, gx,
+                                                              intr_)
+            Hc, gc = _accumulate(rot_, trans_, x_, sq_, gy_, gx_, fx, fy, cx,
+                                 cy, float(radius), X_[:, sl], x_[:, sl],
+                                 sq_[:, sl], gy_[sl], gx_[sl], tgt_[:, sl],
+                                 wgt_[:, sl])
+            grads = torch.autograd.grad([_mirror(Hc), gc], leaves,
+                                        [ct_H, ct_g])
+        total = grads if total is None else tuple(
+            a + b for a, b in zip(total, grads))
+    return total
+
+
+@functools.lru_cache(maxsize=None)
+def _library(name: str = "gn_build"):
+    """The C launcher of kernel ``name``, its library built on first use,
+    with its signature set."""
+    from sndepth_tpu_torch.kernels.build import load_library
+    fn = getattr(load_library(name + ".cu"), name + "_launch")
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * _POINTERS[name] + [ctypes.c_int] * 2
+                   + [ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
+def _kernel_inputs(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4):
+    """The ten inputs as the kernels take them: contiguous float32 on the
+    device of ``sq``; raises on what they do not take."""
     if x.shape[-1] != EMB:
         raise ValueError(f"the kernel takes a {EMB}-wide embedding, got "
                          f"{x.shape[-1]}")
     if sq.dtype != torch.float32:
         raise TypeError(f"the kernel takes float32, got {sq.dtype}")
-    floats = (rot, trans, x, sq, X, tgt, wgt, intrinsics4)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in floats):
-        raise RuntimeError(
-            "the Gauss-Newton build kernel has no backward yet: call it "
-            "under torch.no_grad() or on tensors that want no gradient")
+    gy, gx = (t.to(device=sq.device, dtype=torch.float32) for t in (gy, gx))
+    return [t.detach().contiguous()
+            for t in (rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4)]
+
+
+def _launch(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4,
+            radius: int):
+    args = _kernel_inputs(rot, trans, x, sq, gy, gx, X, tgt, wgt,
+                          intrinsics4)
     b, n = sq.shape
-    lib = _library()
-    args = [t.contiguous() for t in floats]
-    grid = [t.to(device=sq.device, dtype=torch.float32).contiguous()
-            for t in (gy, gx)]
-    rot_, trans_, x_, sq_, X_, tgt_, wgt_, intr_ = args
+    launch = _library()
     H = torch.empty(b, n, 6, 6, dtype=torch.float32, device=sq.device)
     g = torch.empty(b, n, 6, dtype=torch.float32, device=sq.device)
     with torch.cuda.device(sq.device):
-        rc = lib.gn_build_launch(
-            rot_.data_ptr(), trans_.data_ptr(), x_.data_ptr(),
-            sq_.data_ptr(), grid[0].data_ptr(), grid[1].data_ptr(),
-            X_.data_ptr(), tgt_.data_ptr(), wgt_.data_ptr(),
-            intr_.data_ptr(), H.data_ptr(), g.data_ptr(), b, n,
-            float(radius), torch.cuda.current_stream().cuda_stream)
+        rc = launch(*(t.data_ptr() for t in args), H.data_ptr(),
+                    g.data_ptr(), b, n, float(radius),
+                    torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gn_build launch failed: CUDA error {rc}")
     gn_build_hg.launches += 1
     return H, g
 
 
+def _launch_bwd(wrapper, args, ct27, outputs, radius):
+    """Launch the backward kernel named as ``wrapper`` on the prepared
+    inputs; ``outputs`` are the tensors it writes, ``None`` for a gradient
+    to skip."""
+    name = wrapper.__name__
+    sq = args[3]
+    b, n = sq.shape
+    launch = _library(name)
+    with torch.cuda.device(sq.device):
+        rc = launch(*(t.data_ptr() for t in args), ct27.data_ptr(),
+                    *(None if t is None else t.data_ptr() for t in outputs),
+                    b, n, float(radius),
+                    torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    wrapper.launches += 1
+
+
+def _outputs(want, shapes, device):
+    return [torch.empty(shape, dtype=torch.float32, device=device) if w
+            else None for w, shape in zip(want, shapes)]
+
+
+def gn_build_bwd_i(args, ct27, radius: int, want=(True,) * 5):
+    """The per-i half on a CUDA device: (d rot, d trans, d x_i, d sq_i,
+    d intrinsics4) summed over j, ``None`` where ``want`` is false. ``args``
+    come from ``_kernel_inputs``, ``ct27`` from :func:`fold_cotangents`."""
+    b, n = args[3].shape
+    out = _outputs(want, [(b, n, 3, 3), (b, n, 3), (b, n, EMB), (b, n),
+                          (b, n, 4)], args[3].device)
+    _launch_bwd(gn_build_bwd_i, args, ct27, out, radius)
+    if out[4] is not None:
+        # The kernel writes each i's share; the sum over i is taken in one
+        # order from run to run.
+        out[4] = out[4].sum(1)
+    return out
+
+
+def gn_build_bwd_j(args, ct27, radius: int, want=(True,) * 5):
+    """The per-j half on a CUDA device: (d X, d x_j, d sq_j, d tgt, d wgt)
+    summed over i, ``None`` where ``want`` is false."""
+    b, n = args[3].shape
+    out = _outputs(want, [(b, n, 3), (b, n, EMB), (b, n), (b, n, 3),
+                          (b, n, 3)], args[3].device)
+    _launch_bwd(gn_build_bwd_j, args, ct27, out, radius)
+    return out
+
+
+def gn_build_hg_bwd(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4,
+                    radius: int, ct_H, ct_g, want=(True,) * 8):
+    """Backward of :func:`gn_build_hg`: (d rot, d trans, d x, d sq, d X,
+    d tgt, d wgt, d intrinsics4), ``None`` where ``want`` is false. CUDA
+    tensors launch the two kernels (each only if one of its gradients is
+    wanted), and any failure raises; CPU tensors take the plain version."""
+    _check(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4)
+    if sq.device.type == "cpu":
+        grads = gn_build_hg_bwd_reference(rot, trans, x, sq, gy, gx, X, tgt,
+                                          wgt, intrinsics4, radius, ct_H,
+                                          ct_g)
+        return tuple(g if w else None for g, w in zip(grads, want))
+    if sq.device.type != "cuda":
+        raise ValueError(f"no gn_build kernel for device {sq.device}")
+    args = _kernel_inputs(rot, trans, x, sq, gy, gx, X, tgt, wgt,
+                          intrinsics4)
+    ct27 = fold_cotangents(ct_H.float(), ct_g.float()).contiguous()
+    w_rot, w_trans, w_x, w_sq, w_X, w_tgt, w_wgt, w_intr = want
+    drot = dtrans = dx = dsq = dX = dtgt = dwgt = dintr = None
+    want_i = (w_rot, w_trans, w_x, w_sq, w_intr)
+    if any(want_i):
+        drot, dtrans, dx, dsq, dintr = gn_build_bwd_i(args, ct27, radius,
+                                                      want_i)
+    want_j = (w_X, w_x, w_sq, w_tgt, w_wgt)
+    if any(want_j):
+        dX, dx_j, dsq_j, dtgt, dwgt = gn_build_bwd_j(args, ct27, radius,
+                                                     want_j)
+        if w_x:
+            dx += dx_j
+        if w_sq:
+            dsq += dsq_j
+    return drot, dtrans, dx, dsq, dX, dtgt, dwgt, dintr
+
+
+class _GNBuild(torch.autograd.Function):
+    """K8 forward, K8b backward, on CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4,
+                radius):
+        ctx.save_for_backward(rot, trans, x, sq, gy, gx, X, tgt, wgt,
+                              intrinsics4)
+        ctx.radius = radius
+        return _launch(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4,
+                       radius)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, ct_H, ct_g):
+        need = ctx.needs_input_grad
+        want = tuple(need[k] for k in (0, 1, 2, 3, 6, 7, 8, 9))
+        drot, dtrans, dx, dsq, dX, dtgt, dwgt, dintr = gn_build_hg_bwd(
+            *ctx.saved_tensors, ctx.radius, ct_H, ct_g, want)
+        return drot, dtrans, dx, dsq, None, None, dX, dtgt, dwgt, dintr, None
+
+
 def gn_build_hg(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4,
                 radius: int):
-    """(H, g) of the build (see the module docstring for shapes). A CUDA
-    tensor launches the kernel at every n, and any failure raises; a CPU
+    """(H, g) of the build (see the module docstring for shapes),
+    differentiable in the eight float inputs. A CUDA tensor launches the
+    kernels at every n, forward and backward, and any failure raises; a CPU
     tensor takes the plain version."""
     _check(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4)
     if sq.device.type == "cuda":
-        return _launch(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4,
-                       radius)
+        return _GNBuild.apply(rot, trans, x, sq, gy, gx, X, tgt, wgt,
+                              intrinsics4, radius)
     if sq.device.type == "cpu":
         return gn_build_hg_reference(rot, trans, x, sq, gy, gx, X, tgt, wgt,
                                      intrinsics4, radius)
@@ -192,3 +364,5 @@ def gn_build_hg(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4,
 
 
 gn_build_hg.launches = 0
+gn_build_bwd_i.launches = 0
+gn_build_bwd_j.launches = 0

@@ -7,7 +7,8 @@ names so that a reference state_dict loads as it is:
   channels at 1/8 resolution;
 * ``cnet``: context net, a ResNet-50 bottleneck trunk with a two-level FPN
   tail, 512 channels at 1/8 resolution, BatchNorm always on its running
-  statistics (the model never trains it through this path);
+  statistics, under ``model.train()`` too (the JAX train step passes them
+  in immutably: only the scales and biases train);
 * a streaming correlation lookup over an average-pooled pyramid of the
   second frame's features (:func:`corr_lookup_dot`), and the all-pairs
   volume form it must equal (:func:`build_corr_pyramid`,
@@ -17,7 +18,7 @@ names so that a reference state_dict loads as it is:
   the ``bilaplacian`` variant feeds the previous embedding to the GRU and
   smooths the new one with an edge-weighted grid solve;
 * the dense Gauss-Newton SE(3) update (:func:`gauss_newton_step`), whose
-  normal equations come from the kernel of
+  normal equations and their gradients come from the kernels of
   :mod:`sndepth_tpu_torch.kernels.gn_build`, and the convex upsampling.
 
 Layouts. Images, feature maps and everything a convolution touches are NCHW,

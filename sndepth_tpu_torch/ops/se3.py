@@ -110,10 +110,18 @@ def log(g: torch.Tensor) -> torch.Tensor:
     # V^{-1} = I - 0.5 [phi]x + D [phi]x^2
     cos_t = torch.cos(theta)
     sin_t = torch.sin(theta)
-    denom = torch.where(small, one, 2.0 * (1.0 - cos_t))
+    # Up to theta ~ 3.5e-4 the float32 cosine rounds to 1 and the exact
+    # branch would divide by 0 (the JAX function does, and returns
+    # non-finite translations between theta = 1e-4 and there; a field in
+    # its first training steps lives in that band): wherever the
+    # denominator is exactly 0 the Taylor branch is taken too. Everywhere
+    # else the thresholds and the arithmetic are the JAX function's.
+    denom = 2.0 * (1.0 - cos_t)
+    series = small | (denom == 0)
     d = torch.where(
-        small, 1.0 / 12.0 + theta_sq / 720.0,
-        (1.0 - theta * sin_t / denom) / torch.where(small, one, theta_sq))
+        series, 1.0 / 12.0 + theta_sq / 720.0,
+        (1.0 - theta * sin_t / torch.where(series, one, denom))
+        / torch.where(small, one, theta_sq))
     px = _cross(phi, t)
     pxx = _cross(phi, px)
     tau = t - 0.5 * px + d * pxx

@@ -1,6 +1,7 @@
-"""The port's own KITTI sequence reader, RAFT3D evaluation loader and
-submission codecs against the JAX package's, and the stage-2 training
-loop's checkpoints.
+"""The port's own KITTI sequence reader, RAFT3D evaluation loader,
+submission codecs, RAFT3D training codecs (.flo, PFM), augmentors and
+training readers against the JAX package's, and the stage-2 training loop's
+checkpoints.
 
 The readers get the same files and seeds. The JAX package's reader is held
 to its ``cv2`` decoder here (its native codec is switched off for the
@@ -16,10 +17,14 @@ import torch
 import sndepth_tpu.native as jax_native
 from sndepth_tpu.data import frame_codecs as jcodecs
 from sndepth_tpu.data import kitti_sequence as jreader
+from sndepth_tpu.data import raft3d_augment as jaug
+from sndepth_tpu.data import raft3d_datasets as jsets
 from sndepth_tpu.data import raft3d_kitti as jkitti
 from sndepth_tpu_torch.core.config import GeoNetConfig
 from sndepth_tpu_torch.data import frame_codecs as tcodecs
 from sndepth_tpu_torch.data import kitti_sequence as treader
+from sndepth_tpu_torch.data import raft3d_augment as taug
+from sndepth_tpu_torch.data import raft3d_datasets as tsets
 from sndepth_tpu_torch.data import raft3d_kitti as tkitti
 from sndepth_tpu_torch.data.synthetic import synthetic_batches
 from sndepth_tpu_torch.train import loop
@@ -326,3 +331,260 @@ def test_kitti_submission_cli_loads_a_checkpoint(tmp_path):
     with pytest.raises(KeyError, match="fnet.conv1.weight"):
         kitti_submission.load_raft3d_checkpoint(fresh,
                                                 str(tmp_path / "short.pth"))
+
+
+# ----------------------------------------------------------------------
+# RAFT3D training: codecs, augmentors, readers
+# ----------------------------------------------------------------------
+
+def test_flo_and_pfm_readers_read_the_jax_packages_files(tmp_path):
+    rng = np.random.RandomState(20)
+    flow = rng.randn(7, 9, 2).astype(np.float32)
+    jcodecs.write_flo(str(tmp_path / "a.flo"), flow)
+    got = tcodecs.read_flo(str(tmp_path / "a.flo"))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, flow)
+    np.testing.assert_array_equal(got, jcodecs.read_flo(str(tmp_path / "a.flo")))
+    for name, arr, scale in (("gray", rng.rand(6, 8), 1.0),
+                             ("color", rng.rand(6, 8, 3), 1.0),
+                             ("scaled", rng.rand(5, 4), 2.5)):
+        path = str(tmp_path / f"{name}.pfm")
+        jcodecs.write_pfm(path, arr.astype(np.float32), scale)
+        got, want = tcodecs.read_pfm(path), jcodecs.read_pfm(path)
+        assert got.shape == arr.shape
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, arr.astype(np.float32))
+    # A big-endian file (positive scale) reads the same values.
+    with open(tmp_path / "big.pfm", "wb") as f:
+        f.write(b"Pf\n3 2\n1.0\n")
+        np.flipud(np.arange(6, dtype=">f4").reshape(2, 3)).tofile(f)
+    np.testing.assert_array_equal(tcodecs.read_pfm(str(tmp_path / "big.pfm")),
+                                  np.arange(6, dtype=np.float32).reshape(2, 3))
+    np.testing.assert_array_equal(tcodecs.read_pfm(str(tmp_path / "big.pfm")),
+                                  jcodecs.read_pfm(str(tmp_path / "big.pfm")))
+    (tmp_path / "bad.flo").write_bytes(b"XXXX" + bytes(16))
+    with pytest.raises(ValueError, match="magic"):
+        tcodecs.read_flo(str(tmp_path / "bad.flo"))
+    (tmp_path / "bad.pfm").write_bytes(b"P6\n3 2\n1.0\n")
+    with pytest.raises(ValueError, match="PFM"):
+        tcodecs.read_pfm(str(tmp_path / "bad.pfm"))
+    (tmp_path / "bad2.pfm").write_bytes(b"Pf\nthree two\n1.0\n")
+    with pytest.raises(ValueError, match="header"):
+        tcodecs.read_pfm(str(tmp_path / "bad2.pfm"))
+
+
+def _rgbd_inputs(seed, h=60, w=90):
+    rng = np.random.RandomState(seed)
+    im1, im2 = (rng.randint(0, 255, (h, w, 3)).astype(np.float32)
+                for _ in range(2))
+    d1, d2 = ((1 + rng.rand(h, w)).astype(np.float32) for _ in range(2))
+    flow = rng.randn(h, w, 3).astype(np.float32)
+    valid = (rng.rand(h, w) > 0.5).astype(np.float32)
+    k = np.array([100.0, 101.0, w / 2, h / 2], np.float32)
+    return im1, im2, d1, d2, flow, valid, k
+
+
+def test_color_jitter_matches_the_jax_package():
+    img = np.random.RandomState(21).rand(12, 16, 3).astype(np.float32)
+    for seed in range(4):
+        got = taug.color_jitter(np.random.RandomState(seed), img)
+        want = jaug.color_jitter(np.random.RandomState(seed), img)
+        np.testing.assert_array_equal(got, want)
+        assert got.min() >= 0.0 and got.max() <= 1.0
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["rgbd", "sparse"])
+def test_augmentors_match_the_jax_package_call_for_call(sparse):
+    """The same seed gives the same draws: six calls in a row, so that both
+    the resized and the unresized branch (1 call in 5) are met."""
+    cls = "SparseAugmentor" if sparse else "RGBDAugmentor"
+    ours, theirs = (getattr(m, cls)((32, 48), seed=3) for m in (taug, jaug))
+    resized = set()
+    for call in range(6):
+        im1, im2, d1, d2, flow, valid, k = _rgbd_inputs(30 + call)
+        args = ((im1, im2, d1, d2, flow, valid, k) if sparse
+                else (im1, im2, d1, d2, flow, k))
+        got, want = ours(*args), theirs(*args)
+        assert len(got) == len(want) == (7 if sparse else 6)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        assert got[0].shape == (32, 48, 3) and got[2].shape == (32, 48)
+        resized.add(bool(got[-1][0] != k[0]))
+    assert resized == {False, True}
+    scattered, scattered_valid = taug.resize_sparse_image(flow, valid, 45, 70)
+    want, want_valid = jaug.resize_sparse_image(flow, valid, 45, 70)
+    np.testing.assert_array_equal(scattered, want)
+    np.testing.assert_array_equal(scattered_valid, want_valid)
+
+
+def _write_kitti_training_tree(root, n=3, h=120, w=140):
+    """A ``training`` tree of a KITTI scene-flow root: image pairs, sparse
+    and dense disparities, occluded flow and calibration, made from a
+    seed."""
+    import cv2
+    rng = np.random.RandomState(22)
+    base = os.path.join(root, "training")
+    dirs = ("image_2", "disp_occ_0", "disp_occ_1", "disp_ganet_training",
+            "flow_occ", "calib_cam_to_cam")
+    for d in dirs:
+        os.makedirs(os.path.join(base, d), exist_ok=True)
+    for i in range(n):
+        for t in (10, 11):
+            img = rng.randint(0, 255, (h, w, 3), dtype=np.uint8)
+            cv2.imwrite(os.path.join(base, "image_2", f"{i:06d}_{t}.png"), img)
+            jcodecs.write_disp_kitti(
+                os.path.join(base, "disp_ganet_training", f"{i:06d}_{t}.png"),
+                (5 + 60 * rng.rand(h, w)).astype(np.float32))
+        for d in ("disp_occ_0", "disp_occ_1"):
+            sparse = (60 * rng.rand(h, w) * (rng.rand(h, w) > 0.4))
+            jcodecs.write_disp_kitti(
+                os.path.join(base, d, f"{i:06d}_10.png"),
+                sparse.astype(np.float32))
+        jcodecs.write_flow_kitti(
+            os.path.join(base, "flow_occ", f"{i:06d}_10.png"),
+            (rng.randn(h, w, 2) * 8).astype(np.float32),
+            (rng.rand(h, w) > 0.3).astype(np.float32))
+        with open(os.path.join(base, "calib_cam_to_cam", f"{i:06d}.txt"),
+                  "w") as f:
+            f.write(f"K_02: {700.0 + i} 0.0 70.0 0.0 {705.0 + i} 60.0 "
+                    "0.0 0.0 1.0\n")
+    return root
+
+
+@pytest.mark.parametrize("augment", [True, False], ids=["augmented", "raw"])
+def test_kitti_scene_flow_dataset_matches_the_jax_reader(tmp_path, monkeypatch,
+                                                         augment):
+    monkeypatch.setattr(jax_native, "available", lambda: False)
+    root = _write_kitti_training_tree(str(tmp_path))
+    kw = dict(do_augment=augment, image_size=(24, 64), seed=4)
+    jds = jsets.KITTISceneFlowDataset(root, **kw)
+    tds = tsets.KITTISceneFlowDataset(root, **kw)
+    assert len(tds) == len(jds) == 3
+    keys = {"image1", "image2", "depth1", "depth2", "flow", "valid",
+            "intrinsics"}
+    for i in (0, 2, 1, 0):
+        want, got = jds[i], tds[i]
+        assert set(got) == set(want) == keys
+        for k in keys:
+            assert got[k].dtype == want[k].dtype, k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        if augment:
+            assert got["image1"].shape == (24, 64, 3)
+            assert got["flow"].shape == (24, 64, 3)
+        else:
+            assert got["image1"].shape == (40, 140, 3)    # 80 sky rows cut
+            assert got["intrinsics"][3] == 60.0 - 80
+        assert set(np.unique(got["valid"])) <= {0.0, 1.0}
+    assert len(tsets.KITTISceneFlowDataset(str(tmp_path / "none"))) == 0
+    # The reader's items collate into the batches the train step takes.
+    batch = next(treader.batch_iterator(tds, 2, shuffle=False))
+    assert batch["image1"].shape[0] == 2 and batch["intrinsics"].shape == (2, 4)
+
+
+def _write_things_tree(root, frames=3, h=40, w=56):
+    """A FlyingThings3D-style tree: clean-pass frames, PFM disparities and
+    .flo flows into the future of one scene, left camera."""
+    import cv2
+    rng = np.random.RandomState(23)
+    rel = os.path.join("TRAIN", "A", "0000")
+    idir = os.path.join(root, "frames_cleanpass", rel, "left")
+    ddir = os.path.join(root, "disparity", rel, "left")
+    fdir = os.path.join(root, "optical_flow", rel, "into_future", "left")
+    for d in (idir, ddir, fdir):
+        os.makedirs(d, exist_ok=True)
+    for i in range(frames):
+        name = f"{i + 6:04d}"
+        cv2.imwrite(os.path.join(idir, name + ".png"),
+                    rng.randint(0, 255, (h, w, 3), dtype=np.uint8))
+        # Disparities are stored negated in places: the reader takes |d|.
+        jcodecs.write_pfm(os.path.join(ddir, name + ".pfm"),
+                          -(5 + 30 * rng.rand(h, w)).astype(np.float32))
+        jcodecs.write_flo(
+            os.path.join(fdir, f"OpticalFlowIntoFuture_{name}_L.flo"),
+            (rng.randn(h, w, 2) * 4).astype(np.float32))
+    return root
+
+
+@pytest.mark.parametrize("augment", [True, False], ids=["augmented", "raw"])
+def test_scene_flow_dataset_matches_the_jax_reader(tmp_path, augment):
+    root = _write_things_tree(str(tmp_path))
+    kw = dict(do_augment=augment, image_size=(24, 32), seed=6)
+    jds = jsets.SceneFlowDataset(root, **kw)
+    tds = tsets.SceneFlowDataset(root, **kw)
+    assert len(tds) == len(jds) == 2              # pairs of 3 frames
+    for i in (0, 1, 0):
+        want, got = jds[i], tds[i]
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        assert (got["depth1"] > 0).all() and (got["valid"] == 1).all()
+        assert got["image1"].shape == ((24, 32, 3) if augment
+                                       else (40, 56, 3))
+
+
+def test_flyingthings_test_split_matches_the_jax_reader(tmp_path):
+    """The 3-D flow is back-projected by the port's own
+    ``ops/projective.backproject_flow3d`` on CPU tensors: float32 products
+    in another association than XLA's, held to rtol 1e-5 + atol 1e-5."""
+    import pickle
+
+    import cv2
+    root = str(tmp_path / "FlyingThings3D")
+    rng = np.random.RandomState(24)
+    h, w = 16, 20
+    rel = os.path.join("TEST", "A", "0000")
+
+    def put(kind, sub, name, arr):
+        d = os.path.join(root, kind, rel, sub)
+        os.makedirs(d, exist_ok=True)
+        if name.endswith(".png"):
+            cv2.imwrite(os.path.join(d, name), arr)
+        else:
+            jcodecs.write_pfm(os.path.join(d, name), arr)
+
+    for frame in ("0006", "0007"):
+        put("frames_cleanpass", "left", frame + ".png",
+            rng.randint(0, 255, (h, w, 3), dtype=np.uint8))
+        put("disparity", "left", frame + ".pfm",
+            (5 + 30 * rng.rand(h, w)).astype(np.float32))
+    put("optical_flow", os.path.join("into_future", "left"),
+        "OpticalFlowIntoFuture_0006_L.pfm",
+        rng.randn(h, w, 3).astype(np.float32))
+    put("disparity_change", os.path.join("into_future", "left"), "0006.pfm",
+        rng.rand(h, w).astype(np.float32))
+    pkl = str(tmp_path / "things_test_data.pickle")
+    with open(pkl, "wb") as f:
+        pickle.dump([("TEST_A_0000_left_0006", np.array([3, 5, 7]),
+                      np.array([530, 531, 532]),
+                      np.array([True, True, False]))], f)
+    jds = jsets.FlyingThingsTest(root, pickle_path=pkl)
+    tds = tsets.FlyingThingsTest(root)            # the pickle beside the root
+    assert len(tds) == len(jds) == 1
+    want, got = jds[0], tds[0]
+    assert set(got) == set(want)
+    for k in want:
+        if k == "flow3d":
+            assert got[k].dtype == np.float32 and np.isfinite(got[k]).all()
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-5)
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    np.testing.assert_array_equal(got["sampled_index"], [[9, 8], [3, 5]])
+
+
+def test_train_raft3d_cli_trains_from_a_kitti_root(tmp_path):
+    """The train CLI on the CPU over the port's reader on a generated
+    KITTI tree: two steps at 64x64, finite metrics, and the two files of the
+    checkpoint (their round trip is in ``test_torch_raft3d_train.py``)."""
+    from sndepth_tpu_torch.cli import train_raft3d
+    root = _write_kitti_training_tree(str(tmp_path / "data"), n=2, h=160,
+                                      w=200)
+    ckpt = str(tmp_path / "ckpt")
+    state, records = train_raft3d.main(
+        ["--root", root, "--ckpt_dir", ckpt, "--batch_size", "1",
+         "--img_height", "64", "--img_width", "64", "--iters", "1",
+         "--max_steps", "2", "--log_every", "1", "--device", "cpu"])
+    assert state.step == 2 and [r["step"] for r in records] == [1, 2]
+    for r in records:
+        assert all(np.isfinite(r[k]) for k in ("loss", "epe2d", "grad_norm"))
+    assert state.model.dtype == torch.bfloat16
+    assert sorted(os.listdir(ckpt)) == ["raft3d.pth", "raft3d_train_state.pt"]

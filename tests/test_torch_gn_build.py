@@ -3,8 +3,10 @@ tensors take, against the JAX package on the same inputs, made from a seed
 with numpy: against the Pallas kernel ``sndepth_tpu.kernels.gn_build
 .gn_build_hg`` (interpret mode on the CPU) and against the blocked XLA
 build ``sndepth_tpu.models.raft3d._hg_xla``; ``gauss_newton_step`` against
-JAX's; gradients against ``jax.grad`` of ``_hg_xla``; and the dispatch
-rules of the wrapper.
+JAX's; gradients against ``jax.grad`` of ``_hg_xla``; the plain version of
+the backward (K8b) against the Pallas backward kernels
+``gn_build_hg_bwd`` (interpret mode) and against ``jax.vjp`` of ``_hg_xla``;
+and the dispatch rules of the wrappers.
 
 Tolerances. H and g: each entry is a float32 sum over up to (2r+1)^2 pairs,
 taken pair by pair in the Pallas kernel, as a Gram product in ``_hg_xla``
@@ -14,8 +16,10 @@ its own size plus 2e-5 of the mean size of its entry position over the
 pixels (the JAX package holds its two versions to 2e-4 + 2e-4 relative).
 ``gauss_newton_step``: atol 2e-5 + rtol 1e-4 on the updated field.
 Gradients: rtol 5e-3 + atol 5e-3 of the largest entry, as the JAX package
-holds its backward kernels to the XLA gradients. Every output and gradient
-is asserted finite.
+holds its backward kernels to the XLA gradients. The plain backward on given
+cotangents: each of the eight outputs to 1e-4 of an entry plus 1e-4 of the
+output's mean size (float32 sums of up to 120 signed pair adjoints taken in
+three different orders). Every output and gradient is asserted finite.
 """
 
 import jax
@@ -25,6 +29,7 @@ import pytest
 import torch
 
 from sndepth_tpu.kernels.gn_build import gn_build_hg as jax_kernel
+from sndepth_tpu.kernels.gn_build import gn_build_hg_bwd as jax_kernel_bwd
 from sndepth_tpu.models import raft3d as jraft
 from sndepth_tpu.ops import se3 as jse3
 from sndepth_tpu_torch.kernels import gn_build as K8
@@ -280,18 +285,188 @@ def test_a_launch_without_a_card_raises_and_counts_nothing():
         K8.gn_build_hg(*meta, 3)
 
 
-def test_a_launch_refuses_inputs_that_want_a_gradient():
-    """The backward kernels are not ported: the launch raises before it
-    builds anything, and does not give way to the plain version."""
-    args = list(_torch(_inputs()))
-    args[0] = args[0].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        K8._launch(*args, 3)
-    with torch.no_grad():
-        # Without a card this now fails on the build, not on the gradient.
-        if not torch.cuda.is_available():
-            with pytest.raises((RuntimeError, OSError), match="nvcc|cannot"):
-                K8._launch(*args, 3)
+BWD_NAMES = ("rot", "trans", "x", "sq", "X", "tgt", "wgt", "intrinsics")
+BWD_CASES = [(3, 1), (3, 2), (100, 1), (100, 2)]     # radius, batch
+
+
+def _cotangents(seed, b, n):
+    rng = np.random.RandomState(100 + seed)
+    return (rng.randn(b, n, 6, 6).astype(np.float32),
+            rng.randn(b, n, 6).astype(np.float32))
+
+
+def _bwd_close(got, want):
+    assert len(got) == len(want) == 8
+    for name, a, b in zip(BWD_NAMES, got, want):
+        a, b = a.detach().numpy(), np.asarray(b)
+        assert a.shape == b.shape, name
+        assert np.isfinite(a).all() and np.isfinite(b).all(), name
+        tol = 1e-4 * np.abs(b) + 1e-4 * np.abs(b).mean()
+        worst = (np.abs(a - b) / np.maximum(tol, 1e-30)).max()
+        assert worst <= 1.0, f"d {name} off by {worst} x the tolerance"
+
+
+@pytest.mark.parametrize("radius,b", BWD_CASES)
+def test_plain_backward_matches_the_pallas_backward(radius, b):
+    """radius 3 masks most pairs, radius 100 none."""
+    args = _inputs(10 + b, b)
+    ct_H, ct_g = _cotangents(radius + b, b, 54)
+    got = K8.gn_build_hg_bwd_reference(*_torch(args), radius,
+                                       torch.from_numpy(ct_H),
+                                       torch.from_numpy(ct_g))
+    want = jax_kernel_bwd(*_jax_f32_grid(args), radius, jnp.asarray(ct_H),
+                          jnp.asarray(ct_g))
+    _bwd_close(got, want)
+
+
+@pytest.mark.parametrize("radius,b", BWD_CASES)
+def test_plain_backward_matches_jax_vjp_of_the_xla_build(radius, b):
+    args = _inputs(20 + b, b)
+    ct_H, ct_g = _cotangents(radius + b + 7, b, 54)
+    full = list(map(jnp.asarray, args))
+
+    def build(*diff):
+        a = list(full)
+        for i, d in zip(DIFF, diff):
+            a[i] = d
+        H, g = jraft._hg_xla(*a, radius, 16)
+        # The XLA build returns H as summed; the port mirrors the upper
+        # triangle, as the kernels do.
+        return jnp.triu(H) + jnp.swapaxes(jnp.triu(H, 1), -1, -2), g
+
+    _, vjp = jax.vjp(build, *(full[i] for i in DIFF))
+    want = vjp((jnp.asarray(ct_H), jnp.asarray(ct_g)))
+    got = K8.gn_build_hg_bwd(*_torch(args), radius, torch.from_numpy(ct_H),
+                             torch.from_numpy(ct_g))       # CPU: plain version
+    _bwd_close(got, want)
+
+
+def test_the_cotangent_of_H_folds_onto_the_upper_triangle():
+    """``fold_cotangents`` is the adjoint of writing 21 sums into both
+    triangles: against autograd through that assembly, exactly."""
+    rng = np.random.RandomState(3)
+    ct_H = torch.from_numpy(rng.randn(2, 5, 6, 6).astype(np.float32))
+    ct_g = torch.from_numpy(rng.randn(2, 5, 6).astype(np.float32))
+    rows, cols = zip(*[(c, d) for c in range(6) for d in range(c, 6)])
+    tri = torch.from_numpy(rng.randn(2, 5, 21).astype(np.float32)
+                           ).requires_grad_(True)
+    H = torch.zeros(2, 5, 6, 6).index_put(
+        (torch.arange(2)[:, None, None], torch.arange(5)[None, :, None],
+         torch.tensor(rows)[None, None], torch.tensor(cols)[None, None]), tri)
+    (K8._mirror(H) * ct_H).sum().backward()
+    folded = K8.fold_cotangents(ct_H, ct_g)
+    assert folded.shape == (2, 5, 27)
+    torch.testing.assert_close(folded[..., :21], tri.grad, rtol=0, atol=0)
+    assert torch.equal(folded[..., 21:], ct_g)
+    # Entry 1 is (0, 1): both off-diagonal cotangents; entry 6 is (1, 1).
+    assert torch.equal(folded[..., 1], ct_H[..., 0, 1] + ct_H[..., 1, 0])
+    assert torch.equal(folded[..., 6], ct_H[..., 1, 1])
+
+
+WANT_SUBSETS = [(False, False, True, True, False, True, True, False),
+                (True, False, False, False, False, False, False, True),
+                (False,) * 7 + (True,)]
+
+
+@pytest.mark.parametrize("want", WANT_SUBSETS)
+def test_the_backward_returns_only_the_gradients_asked_for(want):
+    args = _torch(_inputs(30))
+    ct_H, ct_g = map(torch.from_numpy, _cotangents(30, 1, 54))
+    every = K8.gn_build_hg_bwd(*args, 3, ct_H, ct_g)
+    some = K8.gn_build_hg_bwd(*args, 3, ct_H, ct_g, want)
+    for w, a, b in zip(want, some, every):
+        assert (a is not None) == w
+        if w:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("want", WANT_SUBSETS[:2])
+def test_the_autograd_function_asks_the_backward_for_what_is_needed(
+        monkeypatch, want):
+    """The CUDA path's ``torch.autograd.Function`` with its forward launch
+    replaced by the plain version, so that it runs here: its backward hands
+    ``needs_input_grad`` on, returns gradients of the inputs' type and shape
+    for the inputs that want one, and they equal autograd through the plain
+    build."""
+    asked = []
+    backward = K8.gn_build_hg_bwd
+
+    def record(*a):
+        asked.append(a[-1])
+        return backward(*a)
+
+    monkeypatch.setattr(K8, "_launch", K8.gn_build_hg_reference)
+    monkeypatch.setattr(K8, "gn_build_hg_bwd", record)
+    ct_H, ct_g = map(torch.from_numpy, _cotangents(31, 1, 54))
+    grads = []
+    for build in (K8._GNBuild.apply, K8.gn_build_hg_reference):
+        t = list(_torch(_inputs(31)))
+        for i, w in zip(DIFF, want):
+            if w:
+                t[i] = t[i].clone().requires_grad_(True)
+        H, g = build(*t, 3)
+        leaves = [t[i] for i, w in zip(DIFF, want) if w]
+        grads.append(torch.autograd.grad([H, g], leaves, [ct_H, ct_g]))
+        for leaf, grad in zip(leaves, grads[-1]):
+            assert grad.dtype == leaf.dtype and grad.shape == leaf.shape
+            assert torch.isfinite(grad).all()
+    assert asked == [want]
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_a_backward_launch_without_a_card_raises_and_counts_nothing():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    args = _torch(_inputs())
+    ct27 = K8.fold_cotangents(*map(torch.from_numpy, _cotangents(0, 1, 54)))
+    before = (K8.gn_build_bwd_i.launches, K8.gn_build_bwd_j.launches)
+    for half in (K8.gn_build_bwd_i, K8.gn_build_bwd_j):
+        with pytest.raises((RuntimeError, OSError), match="nvcc|cannot"):
+            half(K8._kernel_inputs(*args), ct27, 3)
+    assert (K8.gn_build_bwd_i.launches, K8.gn_build_bwd_j.launches) == before
+    meta = tuple(a.to("meta") for a in args)
+    with pytest.raises(ValueError, match="no gn_build kernel"):
+        K8.gn_build_hg_bwd(*meta, 3, torch.zeros(1, 54, 6, 6, device="meta"),
+                           torch.zeros(1, 54, 6, device="meta"))
+    # The 16-wide embedding and float64 never reach a kernel.
+    with pytest.raises(ValueError, match="32-wide"):
+        K8._kernel_inputs(*_torch(_inputs(9, emb=16)))
+    with pytest.raises(TypeError, match="float32"):
+        K8._kernel_inputs(*(a.double() if a.is_floating_point() else a
+                            for a in args))
+
+
+def test_the_plain_backward_sums_over_blocks_of_j(monkeypatch):
+    """Beyond 2048 pixels the plain backward takes the gradients block by
+    block; here the thresholds are lowered so that a ragged last block runs
+    at a small size, against the single shot."""
+    args = _torch(_inputs(4, 2, 7, 9))
+    ct_H, ct_g = map(torch.from_numpy, _cotangents(4, 2, 63))
+    one = K8.gn_build_hg_bwd_reference(*args, 3, ct_H, ct_g)
+    monkeypatch.setattr(K8, "_SINGLE_SHOT_MAX", 32)
+    monkeypatch.setattr(K8, "_BLOCK", 20)      # 63 = 3 * 20 + 3
+    blocked = K8.gn_build_hg_bwd_reference(*args, 3, ct_H, ct_g)
+    _bwd_close(blocked, [t.numpy() for t in one])
+
+
+def test_the_plain_backward_is_nan_only_at_a_masked_pair_at_zero_depth():
+    """As in the forward: the plain backward, like the TPU kernels, forms
+    0 * inf = NaN in what belongs to pixel i = 0 and pixel j = 19 of that
+    pair and in the intrinsics (a sum over every pair); everything else is
+    finite. (The CUDA kernels skip the pair and stay finite everywhere: the
+    card check holds that.)"""
+    args = _torch(zero_depth_case())
+    ct_H, ct_g = map(torch.from_numpy, _cotangents(6, 1, 20))
+    drot, dtrans, dx, dsq, dX, dtgt, dwgt, dintr = \
+        K8.gn_build_hg_bwd_reference(*args, 1, ct_H, ct_g)
+    assert not torch.isfinite(drot[0, 0]).all()
+    assert not torch.isfinite(dintr).all()
+    for t in (drot, dtrans):
+        assert torch.isfinite(t[:, 1:]).all()
+    keep = [k for k in range(20) if k not in (0, 19)]
+    for t in (dx, dsq, dX, dtgt, dwgt):
+        assert torch.isfinite(t[:, keep]).all()
 
 
 def test_plain_version_calls_only_plain_versions(monkeypatch):
@@ -301,8 +476,15 @@ def test_plain_version_calls_only_plain_versions(monkeypatch):
     monkeypatch.setattr(K8, "gn_build_hg", poisoned)
     monkeypatch.setattr(K8, "_launch", poisoned)
     monkeypatch.setattr(K8, "_library", poisoned)
+    for name in ("gn_build_hg_bwd", "gn_build_bwd_i", "gn_build_bwd_j",
+                 "_launch_bwd", "_kernel_inputs"):
+        monkeypatch.setattr(K8, name, poisoned)
     H, g = K8.gn_build_hg_reference(*_torch(_inputs()), 3)
     assert torch.isfinite(H).all() and torch.isfinite(g).all()
+    ct_H, ct_g = map(torch.from_numpy, _cotangents(0, 1, 54))
+    for grad in K8.gn_build_hg_bwd_reference(*_torch(_inputs()), 3, ct_H,
+                                             ct_g):
+        assert torch.isfinite(grad).all()
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "grid", "mixed"])

@@ -28,15 +28,17 @@ def _modules():
 
 
 def test_every_module_imports_with_jax_unavailable():
-    """Every module imports, and a stage-2 step, a RAFT3D frame and the
-    CLIs run (so the imports inside functions run too), with JAX and the JAX
-    package blocked."""
+    """Every module imports, and a stage-2 step, a RAFT3D frame, a RAFT3D
+    train step and the CLIs run (so the imports inside functions run too),
+    with JAX and the JAX package blocked."""
     names = _modules()
     for name in ("cli.train_geonet", "cli.benchmark", "cli.kitti_submission",
                  "cli.profile_step", "data.kitti_sequence",
                  "data.raft3d_kitti", "data.frame_codecs", "kernels.gn_build",
                  "models.raft3d", "models.grid_smoother", "ops.se3",
-                 "ops.projective", "ops.resize", "ops.patches", "pipelines"):
+                 "ops.projective", "ops.resize", "ops.patches", "pipelines",
+                 "cli.train_raft3d", "train.raft3d", "data.raft3d_augment",
+                 "data.raft3d_datasets"):
         assert f"sndepth_tpu_torch.{name}" in names, name
     code = ("import sys, tempfile\n"
             f"for m in {BLOCKED!r}:\n"
@@ -72,6 +74,16 @@ def test_every_module_imports_with_jax_unavailable():
             "         '--img_height', '64', '--img_width', '64',\n"
             "         '--max_frames', '1', '--device', 'cpu'])\n"
             "    assert n == 1 and os.path.exists(d + '/out/T/000000.txt')\n"
+            "from sndepth_tpu_torch.cli import train_raft3d\n"
+            "with tempfile.TemporaryDirectory() as d:\n"
+            "    state, records = train_raft3d.main(\n"
+            "        ['--max_steps', '1', '--batch_size', '1', '--iters', '1',\n"
+            "         '--img_height', '64', '--img_width', '64',\n"
+            "         '--log_every', '1', '--root', d + '/none',\n"
+            "         '--ckpt_dir', d + '/ckpt', '--device', 'cpu'])\n"
+            "    assert state.step == 1 and len(records) == 1\n"
+            "    assert records[0]['loss'] == records[0]['loss']\n"
+            "    assert os.path.exists(d + '/ckpt/raft3d.pth')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             f"       {BLOCKED!r}\n"
             "       and sys.modules[m] is not None]\n"
@@ -128,7 +140,8 @@ def _counts():
     return [f.launches for f in (
         K1.photo_pair_sums, K1.photo_sums, K1.photo_pair_weighted_sums,
         K2.smooth_sums, K5.warp_gather, K5.warp_splat, K7.dssim_forward,
-        K7.dssim_backward, K8.gn_build_hg)]
+        K7.dssim_backward, K8.gn_build_hg, K8.gn_build_bwd_i,
+        K8.gn_build_bwd_j)]
 
 
 def test_kernel_launch_without_a_card_raises():
@@ -149,7 +162,13 @@ def test_kernel_launch_without_a_card_raises():
                    lambda: K5._launch_splat(coords, x, 8, 12, "edge_zero"),
                    lambda: K7._launch_forward(x, x),
                    lambda: K7._launch_backward(x, x, x, True, True),
-                   lambda: K8._launch(*_gn_inputs(), 1)):
+                   lambda: K8._launch(*_gn_inputs(), 1),
+                   lambda: K8.gn_build_bwd_i(
+                       K8._kernel_inputs(*_gn_inputs()),
+                       torch.zeros(1, 6, 27), 1),
+                   lambda: K8.gn_build_bwd_j(
+                       K8._kernel_inputs(*_gn_inputs()),
+                       torch.zeros(1, 6, 27), 1)):
         with pytest.raises((RuntimeError, OSError)):
             launch()
     with pytest.raises(ImportError):
@@ -174,6 +193,10 @@ def test_other_devices_raise_rather_than_fall_back():
         K7.dssim_backward(x, x, x)
     with pytest.raises(ValueError):
         K8.gn_build_hg(*_gn_inputs("meta"), 1)
+    with pytest.raises(ValueError):
+        K8.gn_build_hg_bwd(*_gn_inputs("meta"), 1,
+                           torch.zeros(1, 6, 6, 6, device="meta"),
+                           torch.zeros(1, 6, 6, device="meta"))
 
 
 def test_cpu_tensors_take_the_plain_versions_without_counting():
@@ -192,6 +215,10 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     H, g = K8.gn_build_hg(*_gn_inputs(), 1)
     assert H.shape == (1, 6, 6, 6) and g.shape == (1, 6, 6)
     assert torch.isfinite(H).all() and torch.equal(H, H.transpose(-1, -2))
+    grads = K8.gn_build_hg_bwd(*_gn_inputs(), 1, torch.ones(1, 6, 6, 6),
+                               torch.ones(1, 6, 6))
+    assert len(grads) == 8 and grads[2].shape == (1, 6, 32)
+    assert all(torch.isfinite(g).all() for g in grads)
     assert _counts() == before
 
 
@@ -232,6 +259,33 @@ def test_kitti_submission_cli_default_device_needs_a_card(tmp_path):
                                str(tmp_path / "out"), "--img_height", "64",
                                "--img_width", "64"])
     assert not (tmp_path / "out").exists()
+
+
+def test_train_raft3d_cli_default_device_needs_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from sndepth_tpu_torch.cli import train_raft3d
+    with pytest.raises((AssertionError, RuntimeError)):
+        train_raft3d.main(["--max_steps", "1", "--batch_size", "1",
+                           "--img_height", "64", "--img_width", "64",
+                           "--iters", "1", "--root", str(tmp_path / "none"),
+                           "--ckpt_dir", str(tmp_path / "ckpt")])
+    assert not (tmp_path / "ckpt").exists()
+
+
+def test_profile_step_cli_needs_a_card_and_knows_the_train_family(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from sndepth_tpu_torch.cli import profile_step
+    with pytest.raises(SystemExit) as exc:
+        profile_step.main(["--family", "raft3d_train"])
+    assert exc.value.code == 2
+    assert "needs a CUDA device" in capsys.readouterr().err
+    assert profile_step.group_of(
+        "void (anonymous namespace)::gn_bwd_i_kernel<false>(float const*"
+    ).startswith("K8b-i")
+    assert profile_step.group_of("gn_bwd_j_kernel<true>").startswith("K8b-j")
+    assert profile_step.group_of("gn_build_kernel(float").startswith("K8 ")
 
 
 def test_kitti_submission_cli_says_that_data_parallel_waits(capsys):
