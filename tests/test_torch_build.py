@@ -8,6 +8,15 @@ import shutil
 import pytest
 
 from sndepth_tpu_torch.kernels import build
+from sndepth_tpu_torch.utils.threads import torch_threads
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: beside the other test workers on the same cores,
+    a wider pool only stretches every process."""
+    with torch_threads(2):
+        yield
 
 
 @pytest.fixture

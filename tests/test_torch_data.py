@@ -28,6 +28,15 @@ from sndepth_tpu_torch.data import raft3d_datasets as tsets
 from sndepth_tpu_torch.data import raft3d_kitti as tkitti
 from sndepth_tpu_torch.data.synthetic import synthetic_batches
 from sndepth_tpu_torch.train import loop
+from sndepth_tpu_torch.utils.threads import torch_threads
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: beside the other test workers on the same cores,
+    a wider pool only stretches every process."""
+    with torch_threads(2):
+        yield
 
 
 def _write_kitti_tree(root, n=5, frame_w=64, h=40):

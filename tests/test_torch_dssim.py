@@ -20,6 +20,15 @@ from sndepth_tpu.ops import ssim as jssim
 from sndepth_tpu_torch.kernels import dssim as K7
 from sndepth_tpu_torch.ops import ssim as tssim
 from sndepth_tpu_torch.utils.layout import to_nchw, to_nhwc
+from sndepth_tpu_torch.utils.threads import torch_threads
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: beside the other test workers on the same cores,
+    a wider pool only stretches every process."""
+    with torch_threads(2):
+        yield
 
 VAL = dict(atol=1e-6, rtol=1e-5)
 GRAD = dict(atol=2e-4, rtol=1e-3)

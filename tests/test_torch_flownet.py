@@ -18,7 +18,40 @@ from sndepth_tpu.utils.convert_weights import convert_flownet
 from sndepth_tpu_torch.models.dispnet import init_weights
 from sndepth_tpu_torch.models.flownet import FlowNet
 from sndepth_tpu_torch.utils.layout import to_nchw, to_nhwc
+from sndepth_tpu_torch.utils.threads import torch_threads
 from sndepth_tpu_torch.utils.weights import flownet_state_dict_from_jax
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: beside the other test workers on the same cores,
+    a wider pool only stretches every process."""
+    with torch_threads(2):
+        yield
+
+
+def _drawn(shapes, seed, lecun=lambda keys: False):
+    """Parameters of the shapes of ``jax.eval_shape`` of an ``init``, drawn
+    by numpy from the distributions flax draws them from: xavier-uniform
+    kernels (LeCun-normal where ``lecun(keys)``: flax's default), zero
+    biases. Nothing is computed on the JAX side."""
+    rng = np.random.RandomState(seed)
+
+    def fill(path, leaf):
+        keys = [p.key for p in path]
+        shape = leaf.shape
+        if keys[-1] != "kernel":
+            return np.zeros(shape, np.float32)
+        fan_in = int(np.prod(shape[:-1]))
+        fan_out = int(np.prod(shape[:-2])) * shape[-1]
+        if lecun(keys):
+            a = np.clip(rng.randn(*shape), -2, 2) / 0.87962566 / np.sqrt(fan_in)
+        else:
+            lim = np.sqrt(6.0 / (fan_in + fan_out))
+            a = rng.uniform(-lim, lim, shape)
+        return a.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
 def _numpy(tree):
@@ -32,8 +65,9 @@ def _inputs(seed, shape):
 
 def _jax_net_and_params(x, scale, **knobs):
     jnet = JaxFlowNet(flow_scale_factor=scale, dtype=jnp.float32, **knobs)
-    params = _numpy(jax.jit(jnet.init)(jax.random.PRNGKey(1),
-                                       jnp.asarray(x))["params"])
+    heads = lambda keys: len(keys) == 2 and keys[0].startswith("Conv_")
+    params = _drawn(jax.eval_shape(jnet.init, jax.random.PRNGKey(1),
+                                   jnp.asarray(x))["params"], 1, heads)
     return jnet, params
 
 

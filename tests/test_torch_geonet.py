@@ -33,8 +33,41 @@ from sndepth_tpu.train import geonet as jgeo
 from sndepth_tpu_torch.core.config import GeoNetConfig
 from sndepth_tpu_torch.data.synthetic import synthetic_batches
 from sndepth_tpu_torch.train import geonet as tgeo
+from sndepth_tpu_torch.utils.threads import torch_threads
 from sndepth_tpu_torch.utils.weights import (dispnet_state_dict_from_jax,
                                              posenet_state_dict_from_jax)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: beside the other test workers on the same cores,
+    a wider pool only stretches every process."""
+    with torch_threads(2):
+        yield
+
+
+def _drawn(shapes, seed, lecun=lambda keys: False):
+    """Parameters of the shapes of ``jax.eval_shape`` of an ``init``, drawn
+    by numpy from the distributions flax draws them from: xavier-uniform
+    kernels (LeCun-normal where ``lecun(keys)``: flax's default), zero
+    biases. Nothing is computed on the JAX side."""
+    rng = np.random.RandomState(seed)
+
+    def fill(path, leaf):
+        keys = [p.key for p in path]
+        shape = leaf.shape
+        if keys[-1] != "kernel":
+            return np.zeros(shape, np.float32)
+        fan_in = int(np.prod(shape[:-1]))
+        fan_out = int(np.prod(shape[:-2])) * shape[-1]
+        if lecun(keys):
+            a = np.clip(rng.randn(*shape), -2, 2) / 0.87962566 / np.sqrt(fan_in)
+        else:
+            lim = np.sqrt(6.0 / (fan_in + fan_out))
+            a = rng.uniform(-lim, lim, shape)
+        return a.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
 
 B, H, W = 2, 32, 64
 JCFG = JaxGeoNetConfig(batch_size=B, img_height=H, img_width=W,
@@ -69,9 +102,20 @@ def _torch_named(state, attr):
     return out
 
 
+def _jax_state():
+    """``jgeo.create_train_state`` with numpy-drawn weights: the eager
+    flax init of both nets costs seconds and checks nothing here."""
+    shapes = jax.eval_shape(lambda: jgeo.create_train_state(JCFG))
+    params = jax.tree_util.tree_map(jnp.asarray, _drawn(shapes.params, 0))
+    return jgeo.TrainState(
+        step=jnp.zeros((), jnp.int32), params=params,
+        opt_state=jgeo.make_optimizer(JCFG).init(params),
+        rng=jax.random.PRNGKey(JCFG.seed))
+
+
 def _run_steps():
     """Both steps from the same weights, on a good and then a NaN batch."""
-    jstate = jgeo.create_train_state(JCFG)
+    jstate = _jax_state()
     params0 = jax.tree_util.tree_map(np.asarray, jstate.params)
     jstep = jax.jit(functools.partial(jgeo.train_step, config=JCFG))
     batch = _batch()

@@ -46,9 +46,19 @@ from sndepth_tpu_torch.core.config import GeoNetConfig
 from sndepth_tpu_torch.data.synthetic import synthetic_batches
 from sndepth_tpu_torch.train import geonet as tgeo
 from sndepth_tpu_torch.utils.layout import to_nchw, to_nhwc
+from sndepth_tpu_torch.utils.threads import torch_threads
 from sndepth_tpu_torch.utils.weights import (dispnet_state_dict_from_jax,
                                              flownet_state_dict_from_jax,
                                              posenet_state_dict_from_jax)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: beside the other test workers on the same cores,
+    a wider pool only stretches every process."""
+    with torch_threads(2):
+        yield
+
 
 B, H, W = 1, 32, 64
 JCFG = JaxGeoNetConfig(batch_size=B, img_height=H, img_width=W,
@@ -84,9 +94,17 @@ def _torch_named(state, attr):
             for k, p in getattr(state, name).named_parameters()}
 
 
+def _jax_state():
+    """``jgeo.create_train_state`` compiled: the same weights as the eager
+    flax init (bit for bit), in less time. The tolerances below were
+    measured on these weights; FlowNet's gradient tolerance does not hold
+    for every draw of them."""
+    return jax.jit(lambda: jgeo.create_train_state(JCFG))()
+
+
 @pytest.fixture(scope="module")
 def steps():
-    jstate = jgeo.create_train_state(JCFG)
+    jstate = _jax_state()
     params0 = jax.tree_util.tree_map(np.asarray, jstate.params)
     jstep = jax.jit(functools.partial(jgeo.train_step, config=JCFG))
     batch = _batch()

@@ -34,6 +34,15 @@ from sndepth_tpu.models import raft3d as jraft
 from sndepth_tpu.ops import se3 as jse3
 from sndepth_tpu_torch.kernels import gn_build as K8
 from sndepth_tpu_torch.models import raft3d as traft
+from sndepth_tpu_torch.utils.threads import torch_threads
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: beside the other test workers on the same cores,
+    a wider pool only stretches every process."""
+    with torch_threads(2):
+        yield
 
 DIFF = (0, 1, 2, 3, 6, 7, 8, 9)    # rot trans x sq X tgt wgt intrinsics
 

@@ -17,6 +17,15 @@ from sndepth_tpu_torch.kernels import gn_build as K8
 from sndepth_tpu_torch.kernels import photo_loss as K1
 from sndepth_tpu_torch.kernels import smooth_loss as K2
 from sndepth_tpu_torch.kernels import warp as K5
+from sndepth_tpu_torch.utils.threads import torch_threads
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: beside the other test workers on the same cores,
+    a wider pool only stretches every process."""
+    with torch_threads(2):
+        yield
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "sndepth_tpu")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -41,6 +50,8 @@ def test_every_module_imports_with_jax_unavailable():
                  "data.raft3d_datasets"):
         assert f"sndepth_tpu_torch.{name}" in names, name
     code = ("import sys, tempfile\n"
+            "import torch\n"
+            "torch.set_num_threads(2)\n"
             f"for m in {BLOCKED!r}:\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
@@ -89,8 +100,10 @@ def test_every_module_imports_with_jax_unavailable():
             "       and sys.modules[m] is not None]\n"
             "assert not bad, bad\n"
             "print('ok', len(sys.modules))\n")
+    # Two threads, as the test processes beside it have.
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=300, cwd=REPO)
+                          text=True, timeout=300, cwd=REPO, env=env)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1].startswith("ok")
 

@@ -19,8 +19,41 @@ from sndepth_tpu.utils.convert_weights import convert_dispnet, convert_posenet
 from sndepth_tpu_torch.models.dispnet import DispNetS, upsample2x
 from sndepth_tpu_torch.models.posenet import PoseNet
 from sndepth_tpu_torch.utils.layout import to_nchw, to_nhwc
+from sndepth_tpu_torch.utils.threads import torch_threads
 from sndepth_tpu_torch.utils.weights import (dispnet_state_dict_from_jax,
                                              posenet_state_dict_from_jax)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: beside the other test workers on the same cores,
+    a wider pool only stretches every process."""
+    with torch_threads(2):
+        yield
+
+
+def _drawn(shapes, seed, lecun=lambda keys: False):
+    """Parameters of the shapes of ``jax.eval_shape`` of an ``init``, drawn
+    by numpy from the distributions flax draws them from: xavier-uniform
+    kernels (LeCun-normal where ``lecun(keys)``: flax's default), zero
+    biases. Nothing is computed on the JAX side."""
+    rng = np.random.RandomState(seed)
+
+    def fill(path, leaf):
+        keys = [p.key for p in path]
+        shape = leaf.shape
+        if keys[-1] != "kernel":
+            return np.zeros(shape, np.float32)
+        fan_in = int(np.prod(shape[:-1]))
+        fan_out = int(np.prod(shape[:-2])) * shape[-1]
+        if lecun(keys):
+            a = np.clip(rng.randn(*shape), -2, 2) / 0.87962566 / np.sqrt(fan_in)
+        else:
+            lim = np.sqrt(6.0 / (fan_in + fan_out))
+            a = rng.uniform(-lim, lim, shape)
+        return a.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
 
 NARROW = dict(enc_planes=(8, 8, 16, 16, 16, 16, 16),
               dec_planes=(16, 16, 16, 16, 8, 8, 4))
@@ -43,8 +76,8 @@ def test_dispnet_forward_matches_jax(size, planes):
     x = _img(0, (2,) + size + (3,))
     jnet = JaxDispNetS(dtype=jnp.float32, remat=False, s2d_levels=(),
                        **planes)
-    params = _numpy(jax.jit(jnet.init)(jax.random.PRNGKey(1),
-                                       jnp.asarray(x))["params"])
+    params = _drawn(jax.eval_shape(jnet.init, jax.random.PRNGKey(1),
+                                   jnp.asarray(x))["params"], 1)
     want = jax.jit(jnet.apply)({"params": params}, jnp.asarray(x))
 
     net = DispNetS(**planes)
@@ -62,8 +95,8 @@ def test_dispnet_forward_matches_jax(size, planes):
 def test_posenet_forward_matches_jax(size):
     x = _img(2, (2,) + size + (9,))
     jnet = JaxPoseNet(num_source=2, dtype=jnp.float32)
-    params = _numpy(jax.jit(jnet.init)(jax.random.PRNGKey(3),
-                                       jnp.asarray(x))["params"])
+    params = _drawn(jax.eval_shape(jnet.init, jax.random.PRNGKey(3),
+                                   jnp.asarray(x))["params"], 3)
     want = np.asarray(jax.jit(jnet.apply)({"params": params}, jnp.asarray(x)))
     net = PoseNet(num_source=2)
     net.load_state_dict(posenet_state_dict_from_jax(params))
@@ -77,9 +110,10 @@ def test_state_dicts_round_trip_through_the_jax_converter():
     jd = JaxDispNetS(dtype=jnp.float32, remat=False, **NARROW)
     jp = JaxPoseNet(num_source=2, dtype=jnp.float32)
     x = jnp.zeros((1, 32, 64, 3))
-    dparams = _numpy(jax.jit(jd.init)(jax.random.PRNGKey(4), x)["params"])
-    pparams = _numpy(jax.jit(jp.init)(jax.random.PRNGKey(5),
-                                      jnp.zeros((1, 32, 64, 9)))["params"])
+    dparams = _drawn(jax.eval_shape(jd.init, jax.random.PRNGKey(4), x)[
+        "params"], 4)
+    pparams = _drawn(jax.eval_shape(jp.init, jax.random.PRNGKey(5),
+                                    jnp.zeros((1, 32, 64, 9)))["params"], 5)
     dnet, pnet = DispNetS(**NARROW), PoseNet(num_source=2)
     dnet.load_state_dict(dispnet_state_dict_from_jax(dparams))
     pnet.load_state_dict(posenet_state_dict_from_jax(pparams))

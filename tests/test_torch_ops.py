@@ -22,6 +22,15 @@ from sndepth_tpu_torch.ops import pyramid as tpyr
 from sndepth_tpu_torch.ops import ssim as tssim
 from sndepth_tpu_torch.ops import warp as twarp
 from sndepth_tpu_torch.utils.layout import to_nchw, to_nhwc
+from sndepth_tpu_torch.utils.threads import torch_threads
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: beside the other test workers on the same cores,
+    a wider pool only stretches every process."""
+    with torch_threads(2):
+        yield
 
 VAL = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=1e-4, atol=1e-5)

@@ -26,6 +26,15 @@ from sndepth_tpu.ops.ssim import image_similarity as jax_sim
 from sndepth_tpu.ops.warp import bilinear_sampler as jax_sampler
 from sndepth_tpu_torch.kernels import photo_loss as K1
 from sndepth_tpu_torch.utils.layout import to_nchw, to_nhwc
+from sndepth_tpu_torch.utils.threads import torch_threads
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: beside the other test workers on the same cores,
+    a wider pool only stretches every process."""
+    with torch_threads(2):
+        yield
 
 ALPHA = 0.85
 GRAD_TOL = dict(atol=2e-4, rtol=1e-3)
@@ -166,15 +175,28 @@ def _port_single(tgt, src, coords):
     return float(loss.detach()), to_nhwc(c.grad.numpy())
 
 
+def _jax_single(t, s, c):
+    return jax_single(t, s, c, ALPHA, "edge_zero")
+
+
+def _split_single(t, s, c):
+    return jnp.sum(jax_sim(ALPHA, t, jax_sampler(s, c)))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_single_value_and_grad(fn):
+    """One compiled value-and-grad in the coordinates per JAX function."""
+    return jax.jit(jax.value_and_grad(
+        lambda t, s, c: 0.37 * fn(t, s, c), argnums=2))
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_single_loss_matches_jax_kernel_and_split_ops(case):
     """K3 against ``warp_photo_loss`` and against the JAX split ops."""
     tgt, src, coords = _single_case(**CASES[case])
     got, g = _port_single(tgt, src, coords)
-    for fn in (lambda t, s, c: jax_single(t, s, c, ALPHA, "edge_zero"),
-               lambda t, s, c: jnp.sum(jax_sim(ALPHA, t, jax_sampler(s, c)))):
-        want, wg = jax.value_and_grad(
-            lambda c: 0.37 * fn(tgt, src, c))(jnp.asarray(coords))
+    for fn in (_jax_single, _split_single):
+        want, wg = _jax_single_value_and_grad(fn)(tgt, src, coords)
         np.testing.assert_allclose(got, float(want), rtol=2e-5)
         np.testing.assert_allclose(g, np.asarray(wg), **GRAD_TOL)
 
@@ -224,6 +246,19 @@ def _split_weighted(tgt, srcs, cf, cb, wf, wb):
             + jnp.sum(jax_sim(ALPHA, sf, bwd) * wb.reshape(b * ns, h, w, 1)))
 
 
+def _jax_weighted(tgt, srcs, cf, cb, wf, wb):
+    return jax_pair_weighted(tgt, srcs, cf, cb, wf, wb, ALPHA, "edge_zero")
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_weighted_value_and_grad(fn):
+    """One compiled value-and-grad in both coordinate sets per JAX
+    function, shared by the cases of one shape."""
+    return jax.jit(jax.value_and_grad(
+        lambda t, s, a, b, wf, wb: 0.37 * fn(t, s, a, b, wf, wb),
+        argnums=(2, 3)))
+
+
 @pytest.mark.parametrize("kind", ["masks", "random"])
 @pytest.mark.parametrize("ns", [1, 2])
 def test_weighted_pair_loss_matches_jax_kernel_and_split_ops(ns, kind):
@@ -232,12 +267,9 @@ def test_weighted_pair_loss_matches_jax_kernel_and_split_ops(ns, kind):
     tgt, srcs, cf, cb = _case(7 + ns, ns=ns)
     wf, wb = _weights(ns, cf.shape[:-1], kind)
     got, (gf, gb) = _port_weighted(tgt, srcs, cf, cb, wf, wb)
-    for fn in (lambda a, b: jax_pair_weighted(tgt, srcs, a, b, wf, wb, ALPHA,
-                                              "edge_zero"),
-               lambda a, b: _split_weighted(tgt, srcs, a, b, wf, wb)):
-        want, (wgf, wgb) = jax.value_and_grad(
-            lambda a, b: 0.37 * fn(a, b), argnums=(0, 1))(
-                jnp.asarray(cf), jnp.asarray(cb))
+    for fn in (_jax_weighted, _split_weighted):
+        want, (wgf, wgb) = _jax_weighted_value_and_grad(fn)(
+            tgt, srcs, cf, cb, wf, wb)
         np.testing.assert_allclose(got, float(want), rtol=2e-5)
         np.testing.assert_allclose(gf, np.asarray(wgf), **GRAD_TOL)
         np.testing.assert_allclose(gb, np.asarray(wgb), **GRAD_TOL)

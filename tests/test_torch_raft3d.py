@@ -33,7 +33,16 @@ from sndepth_tpu.ops import se3 as jse3
 from sndepth_tpu.utils.convert_weights import convert_raft3d
 from sndepth_tpu_torch.models import raft3d as traft
 from sndepth_tpu_torch.utils.layout import to_nchw, to_nhwc
+from sndepth_tpu_torch.utils.threads import torch_threads
 from sndepth_tpu_torch.utils.weights import raft3d_state_dict_from_jax
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: beside the other test workers on the same cores,
+    a wider pool only stretches every process."""
+    with torch_threads(2):
+        yield
 
 H, W = 64, 80
 NET = dict(atol=1e-4, rtol=1e-4)

@@ -33,6 +33,15 @@ from sndepth_tpu_torch.ops import patches as tpatches
 from sndepth_tpu_torch.ops import projective as tproj
 from sndepth_tpu_torch.ops import resize as tresize
 from sndepth_tpu_torch.utils.layout import to_nchw, to_nhwc
+from sndepth_tpu_torch.utils.threads import torch_threads
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: beside the other test workers on the same cores,
+    a wider pool only stretches every process."""
+    with torch_threads(2):
+        yield
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

@@ -41,19 +41,18 @@ from sndepth_tpu_torch.ops import projective as tpops
 from sndepth_tpu_torch.train import loop
 from sndepth_tpu_torch.train import raft3d as rt
 from sndepth_tpu_torch.utils.layout import to_nchw
+from sndepth_tpu_torch.utils.threads import torch_threads
 from sndepth_tpu_torch.utils.weights import raft3d_state_dict_from_jax
 
 H, W, ITERS = 64, 80, 2
 
 
 @pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """These tests run whole models; beside other test processes on the
-    same cores, two threads each get through sooner than one a core."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(min(before, 2))
-    yield
-    torch.set_num_threads(before)
+def _few_threads():
+    """Two torch threads: beside the other test workers on the same cores,
+    a wider pool only stretches every process."""
+    with torch_threads(2):
+        yield
 
 
 def _t(a):

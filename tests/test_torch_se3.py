@@ -16,6 +16,15 @@ import torch
 
 from sndepth_tpu.ops import se3 as jse3
 from sndepth_tpu_torch.ops import se3 as tse3
+from sndepth_tpu_torch.utils.threads import torch_threads
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: beside the other test workers on the same cores,
+    a wider pool only stretches every process."""
+    with torch_threads(2):
+        yield
 
 VAL = dict(atol=1e-6, rtol=1e-5)
 GRAD = dict(atol=1e-5, rtol=1e-4)

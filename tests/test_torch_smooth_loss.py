@@ -18,6 +18,15 @@ from sndepth_tpu.losses.photometric import smooth_loss as jax_smooth
 from sndepth_tpu_torch.kernels import smooth_loss as K2
 from sndepth_tpu_torch.losses.photometric import smooth_loss
 from sndepth_tpu_torch.utils.layout import to_nchw, to_nhwc
+from sndepth_tpu_torch.utils.threads import torch_threads
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: beside the other test workers on the same cores,
+    a wider pool only stretches every process."""
+    with torch_threads(2):
+        yield
 
 GRAD_TOL = dict(atol=1e-6, rtol=1e-5)
 

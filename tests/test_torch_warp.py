@@ -16,6 +16,8 @@ pixels outside, where those weights reach 60^2 = 3600 and one float32
 rounding of a term is 2.4e-4.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,10 +29,22 @@ from sndepth_tpu.ops import warp as jwarp
 from sndepth_tpu_torch.kernels import warp as K5
 from sndepth_tpu_torch.ops import warp as twarp
 from sndepth_tpu_torch.utils.layout import to_nchw, to_nhwc
+from sndepth_tpu_torch.utils.threads import torch_threads
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: beside the other test workers on the same cores,
+    a wider pool only stretches every process."""
+    with torch_threads(2):
+        yield
 
 MODES = ("edge_zero", "zero_pad")
 JAX_SPLIT = {"edge_zero": jwarp.bilinear_sampler,
              "zero_pad": jwarp.bilinear_sampler_zero_pad}
+# One function object a mode, so that the compiled JAX kernel is reused.
+PALLAS = {mode: functools.partial(jkw.bilinear_sampler, mode=mode)
+          for mode in ("edge_zero", "zero_pad")}
 PORT = {"edge_zero": twarp.bilinear_sampler,
         "zero_pad": twarp.bilinear_sampler_zero_pad}
 PORT_REF = {"edge_zero": twarp.bilinear_sampler_reference,
@@ -56,10 +70,28 @@ def _case(kind, c):
     return imgs, coords.astype(np.float32), cot, atol
 
 
+def _vjp(fn, imgs, coords, cot):
+    out, vjp = jax.vjp(fn, imgs, coords)
+    return (out,) + vjp(cot)
+
+
 def _jax_all(fn, imgs, coords, cot):
-    out, vjp = jax.vjp(fn, jnp.asarray(imgs), jnp.asarray(coords))
-    d_imgs, d_coords = vjp(jnp.asarray(cot))
-    return np.asarray(out), np.asarray(d_imgs), np.asarray(d_coords)
+    """Value and both gradients of the JAX function ``fn``, op by op: XLA's
+    fusion would round the split ops' cancelling border weights otherwise
+    than the port and the Pallas kernel do."""
+    return tuple(np.asarray(a) for a in _vjp(
+        fn, jnp.asarray(imgs), jnp.asarray(coords), jnp.asarray(cot)))
+
+
+_pallas_vjp = jax.jit(_vjp, static_argnums=0)
+
+
+def _pallas_all(mode, imgs, coords, cot):
+    """As :func:`_jax_all` for the Pallas kernel (interpreted), compiled
+    once a mode and shape: op by op it takes seconds a call."""
+    return tuple(np.asarray(a) for a in _pallas_vjp(
+        PALLAS[mode], jnp.asarray(imgs), jnp.asarray(coords),
+        jnp.asarray(cot)))
 
 
 def _port_all(fn, imgs, coords, cot):
@@ -86,8 +118,7 @@ def test_sampler_matches_jax_pallas_kernel(mode, kind, c, monkeypatch):
     """Gather, tangent contraction and splat against the JAX kernels."""
     monkeypatch.setattr(jkw, "_SPLAT", "pallas")
     imgs, coords, cot, atol = _case(kind, c)
-    want = _jax_all(lambda i, cc: jkw.bilinear_sampler(i, cc, mode),
-                    imgs, coords, cot)
+    want = _pallas_all(mode, imgs, coords, cot)
     _compare(_port_all(PORT[mode], imgs, coords, cot), want, atol)
 
 
@@ -124,8 +155,7 @@ def test_border_and_far_out_coordinates_match_jax(mode, monkeypatch):
     cot = np.ones(coords.shape[:3] + (3,), np.float32)
     got = _port_all(PORT[mode], imgs, coords, cot)
     _compare(got, _jax_all(JAX_SPLIT[mode], imgs, coords, cot), 1e-5)
-    _compare(got, _jax_all(lambda i, cc: jkw.bilinear_sampler(i, cc, mode),
-                           imgs, coords, cot), 1e-5)
+    _compare(got, _pallas_all(mode, imgs, coords, cot), 1e-5)
     # The two modes differ exactly on the last row and column: edge_zero
     # zeroes them, zero_pad returns the border pixel with weight 1.
     last_col = got[0][0, 0, 4]          # (x, y) = (w - 1, 0)
