@@ -1313,8 +1313,8 @@ def phase_raft3d_train() -> dict:
     if _used(launches) != want:
         raise AssertionError(f"raft3d train: launches {_used(launches)}, "
                              f"want {want}")
-    if state.step != steps or len(records) != steps:
-        raise AssertionError(f"{state.step} of {steps} train steps ran")
+    if state.calls != steps or len(records) != steps:
+        raise AssertionError(f"{state.calls} of {steps} train steps ran")
     for r in records:
         if not all(_finite(r[k]) for k in ("loss", "epe2d", "grad_norm")):
             raise AssertionError(f"raft3d train step {r['step']}: {r}")

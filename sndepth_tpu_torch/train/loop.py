@@ -112,7 +112,7 @@ def save_raft3d_checkpoint(state: raft3d.RAFT3DTrainState,
     path = os.path.join(ckpt_dir, RAFT3D_MODEL_FILE)
     _save(state.model.state_dict(), path)
     _save({"step": state.step, "notfinite_count": state.notfinite_count,
-           "optimizer": state.optimizer.state_dict()},
+           "calls": state.calls, "optimizer": state.optimizer.state_dict()},
           os.path.join(ckpt_dir, RAFT3D_STATE_FILE))
     return path
 
@@ -128,6 +128,7 @@ def restore_raft3d_checkpoint(state: raft3d.RAFT3DTrainState,
     state.optimizer.load_state_dict(rest["optimizer"])
     state.step = int(rest["step"])
     state.notfinite_count = int(rest["notfinite_count"])
+    state.calls = int(rest.get("calls", state.step))
 
 
 def train_raft3d(batches: Iterator[dict], max_steps: int, *, device,
@@ -154,8 +155,8 @@ def train_raft3d(batches: Iterator[dict], max_steps: int, *, device,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
-    print(f"trained {state.step} steps in {dt:.1f}s "
-          f"({dt / max(state.step, 1) * 1e3:.0f} ms/step)")
+    print(f"trained {state.calls} steps ({state.step} applied) in "
+          f"{dt:.1f}s ({dt / max(state.calls, 1) * 1e3:.0f} ms/step)")
     if ckpt_dir is not None:
         print(f"checkpoint -> {save_raft3d_checkpoint(state, ckpt_dir)}")
     return state, logger.records

@@ -101,11 +101,13 @@ def make_optimizer(params, lr: float = 2e-4,
 @dataclasses.dataclass
 class RAFT3DTrainState:
     """Model, optimizer and counters; :func:`train_step` updates it in
-    place. ``step`` is also the count the schedule is read at."""
+    place. ``step`` counts the updates applied, and the schedule is read at
+    it; ``calls`` counts every call, skipped ones included."""
     model: RAFT3D
     optimizer: torch.optim.AdamW
     step: int = 0
     notfinite_count: int = 0
+    calls: int = 0
 
 
 def create_train_state(model: RAFT3D | None = None, device="cuda",
@@ -140,8 +142,11 @@ def train_step(state: RAFT3DTrainState, batch: dict, iters: int = 12,
     """One optimizer step on a batch on the model's device. The schedule
     runs over ``TOTAL_STEPS`` whatever the length of the run, as the JAX
     step's does. The update is skipped, and the skip counted, when the loss
-    or any gradient is not finite. Returns ``{"loss", "epe2d",
-    "grad_norm"}``, detached."""
+    or any gradient is not finite; a skipped update moves neither the
+    optimizer's count nor the schedule's (``state.step``), as optax's
+    ``apply_if_finite`` leaves the JAX GeoNet step's, and only
+    ``state.calls`` counts it. Returns ``{"loss", "epe2d", "grad_norm"}``,
+    detached."""
     params = [p for p in state.model.parameters() if p.requires_grad]
     state.optimizer.zero_grad(set_to_none=True)
     loss, metrics = raft3d_loss(state.model, batch, iters, gamma)
@@ -150,18 +155,19 @@ def train_step(state: RAFT3DTrainState, batch: dict, iters: int = 12,
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     norm = clip_by_global_norm_([p.grad for p in params])
+    state.calls += 1
     # The norm is finite exactly when every gradient entry is.
     if bool(torch.isfinite(loss) & torch.isfinite(norm)):
         for group in state.optimizer.param_groups:
             group["lr"] = onecycle_lr(state.step)
         state.optimizer.step()
+        state.step += 1
         state.notfinite_count = 0
     else:
         state.notfinite_count += 1
         if state.notfinite_count > MAX_CONSECUTIVE_SKIPS:
             raise FloatingPointError(
                 f"{state.notfinite_count} consecutive non-finite steps")
-    state.step += 1
     return {"loss": metrics["loss"].detach(),
             "epe2d": metrics["epe2d"].detach(), "grad_norm": norm}
 

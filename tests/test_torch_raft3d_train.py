@@ -445,7 +445,8 @@ def test_a_nonfinite_step_is_skipped_and_counted(steps, monkeypatch):
     bad["depth1"][0, 11, 13] = float("nan")
     metrics = rt.train_step(state, bad, iters=1)
     assert not np.isfinite(float(metrics["loss"]))
-    assert state.notfinite_count == 1 and state.step == 2
+    assert state.notfinite_count == 1 and state.step == 1
+    assert state.calls == 2
     for k, v in state.model.state_dict().items():
         assert torch.equal(v, before[k]), k
     monkeypatch.setattr(rt, "MAX_CONSECUTIVE_SKIPS", 1)
@@ -454,6 +455,26 @@ def test_a_nonfinite_step_is_skipped_and_counted(steps, monkeypatch):
     good = {k: _t(v) for k, v in steps["batch"].items()}
     metrics = rt.make_train_step(iters=1)(state, good)
     assert np.isfinite(float(metrics["loss"])) and state.notfinite_count == 0
+
+
+def test_a_skipped_step_moves_neither_the_count_nor_the_schedule(steps):
+    """As optax's ``apply_if_finite``: after a skipped update the next one
+    is read at the count of the updates applied, and AdamW's own count
+    matches it; only ``calls`` counts the skip."""
+    state = steps["state"]
+    applied, calls = state.step, state.calls
+    bad = {k: _t(v).clone() for k, v in steps["batch"].items()}
+    bad["depth1"][0, 3, 5] = float("nan")
+    rt.train_step(state, bad, iters=1)
+    assert state.step == applied and state.calls == calls + 1
+    good = {k: _t(v) for k, v in steps["batch"].items()}
+    rt.train_step(state, good, iters=1)
+    assert state.step == applied + 1 and state.calls == calls + 2
+    assert rt.onecycle_lr(applied) != rt.onecycle_lr(applied + 1)
+    for group in state.optimizer.param_groups:
+        assert group["lr"] == rt.onecycle_lr(applied)
+    for moments in state.optimizer.state.values():
+        assert int(moments["step"]) == state.step
 
 
 # ----------------------------------------------------------------------
@@ -480,7 +501,7 @@ def test_checkpoint_round_trip_resumes_bit_for_bit(steps, saved):
     assert path.endswith("raft3d.pth")
     fresh = rt.create_train_state(device="cpu", seed=5)
     loop.restore_raft3d_checkpoint(fresh, ckpt_dir)
-    assert fresh.step == state.step
+    assert fresh.step == state.step and fresh.calls == state.calls
     assert fresh.notfinite_count == state.notfinite_count
     for (n, a), b in zip(state.model.state_dict().items(),
                          fresh.model.state_dict().values()):
