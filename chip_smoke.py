@@ -16,9 +16,12 @@ fails unless every phase passes:
              ns=2 on all 4 scales (rigid-flow and wild out-of-image
              coordinates); then both timed with CUDA events at B=4 and B=128
   smooth     K2 (smoothness, Triton) the same way, N = 3B
-  warp       K5 (bilinear gather, both modes, with tangents) and K6 (its
-             splat) against their plain versions at the stage-2 shapes, with
-             small, rigid-flow-like and wild coordinates
+  warp       K5 (bilinear gather, both modes), K5b (its coordinate
+             gradient) and K6 (its splat) against their plain versions at
+             the stage-2 shapes, with small, rigid (over a noisy and over a
+             smooth depth) and wild coordinates, and the share of K6's tiles
+             that accumulate in shared memory; the autograd function around
+             them against autograd through the plain sampler
   dssim      K7 (DSSIM map and its adjoint) against autograd through the
              plain version
   photo_modes  K3 (one direction) and K4 (weighted pair) of the photo kernel
@@ -38,8 +41,9 @@ fails unless every phase passes:
              and the least time the card could take (bytes over 3.35 TB/s
              against operations over 67 TFLOP/s float32)
   kernel_times_raft3d  the same for K8 at both RAFT3D sizes (operations
-             counted over the in-radius pairs), for K5 as the depth sampler
-             calls it, and for K8b-i and K8b-j at the training sizes, asked
+             counted over the in-radius pairs), for K5 and K5b as the depth
+             sampler calls them, with the host's share of a call, and for
+             K8b-i and K8b-j at the training sizes, asked
              for all gradients and for the train step's subset
   step, step_flow  one float32 train step at 128x416, B=2, from the same
              seeded weights on the CPU (plain versions) and on the GPU
@@ -96,11 +100,14 @@ FLOW_BATCH = 32                 # the flow family's batch; n = 2 * 32 pairs
 # Launches one stage-2 train step makes (2 sources, 4 scales): K1 on scales
 # 1-3; K2 on 4 depth pyramids and 2 channels x 2 directions x 4 scales of
 # flow; K3 on scale 0; K4 on 4 scales; K5 for 2 image warps and 2 x 4 warps
-# of a flow by a flow; K6 for the 8 warped flows; K7 for 2 error maps,
-# forward and backward.
+# of a flow by a flow; K5b for the same 10, whose coordinates (a rigid flow
+# from the depth and pose nets, a full flow) all want a gradient; K6 for the
+# 8 warped flows (the warped frames are data); K7 for 2 error maps, forward
+# and backward.
 FLOW_STEP_LAUNCHES = {"photo_pair": 3, "smooth": 20, "photo_single": 1,
                       "photo_pair_weighted": 4, "warp_gather": 10,
-                      "warp_splat": 8, "dssim_fwd": 2, "dssim_bwd": 2}
+                      "warp_coord_grad": 10, "warp_splat": 8,
+                      "dssim_fwd": 2, "dssim_bwd": 2}
 REPORT: dict = {}
 
 
@@ -118,8 +125,18 @@ def emit(phase: str, **record) -> None:
     write_report()
 
 
+# Cycles of the spin that each timed call is enqueued behind: ~0.2 ms at the
+# H100's 1.98 GHz, longer than any wrapper takes to enqueue its launches.
+SPIN_CYCLES = 400_000
+
+
 def time_ms(fn, reps: int = 20) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()``, after a warm-up."""
+    """Median of ``reps`` CUDA-event timings of ``fn()``, after a warm-up.
+    Each call is enqueued behind a spin on the card, so the window opens
+    when the card gets to it and not while the host is still in the
+    wrapper: it holds the card's time for the call, or, for a function of
+    more launches than the spin hides, what the host adds after it. The
+    host's own time a call is :func:`_host_us`'s."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -127,6 +144,7 @@ def time_ms(fn, reps: int = 20) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -185,7 +203,9 @@ def _counters() -> dict:
     return {"photo_pair": K1.photo_pair_sums, "smooth": K2.smooth_sums,
             "photo_single": K1.photo_sums,
             "photo_pair_weighted": K1.photo_pair_weighted_sums,
-            "warp_gather": K5.warp_gather, "warp_splat": K5.warp_splat,
+            "warp_gather": K5.warp_gather,
+            "warp_coord_grad": K5.warp_coord_grad,
+            "warp_splat": K5.warp_splat,
             "dssim_fwd": K7.dssim_forward, "dssim_bwd": K7.dssim_backward,
             "gn_build": K8.gn_build_hg, "gn_build_bwd_i": K8.gn_build_bwd_i,
             "gn_build_bwd_j": K8.gn_build_bwd_j}
@@ -216,10 +236,15 @@ def _pyramid_inputs(b: int, seed: int):
 
 
 def _coords(b: int, ns: int, h: int, w: int, k: "torch.Tensor", s: int,
-            gen, wild: bool):
+            gen, wild: bool, smooth: bool = False):
     """Forward/backward coords (B, ns, 2, h, w): grid + rigid flow from a
-    seeded pose and depth, or grid + uniform noise of +-60 pixels."""
+    seeded pose and depth, or grid + uniform noise of +-60 pixels. The
+    depth is drawn a pixel at a time (inverse depth uniform in 0.01-10, so
+    neighbouring flows differ by tens of pixels), or with ``smooth`` on a
+    grid 16 times coarser and upsampled (2-50 m, a flow that varies over
+    tens of pixels, as a depth network's does)."""
     import torch
+    import torch.nn.functional as F
     from sndepth_tpu_torch.ops.camera import (compute_multi_scale_intrinsics,
                                               compute_rigid_flow)
     from sndepth_tpu_torch.ops.warp import pixel_grid
@@ -233,8 +258,14 @@ def _coords(b: int, ns: int, h: int, w: int, k: "torch.Tensor", s: int,
             * torch.tensor([0.4, 0.1, 0.4, 0.02, 0.02, 0.02])).to(DEV)
     out = []
     for reverse in (False, True):
-        depth = (1.0 / (torch.rand(b * ns, h, w, generator=gen) * 10 + 0.01)
-                 ).to(DEV)
+        if smooth:
+            coarse = torch.rand(b * ns, 1, max(h // 16, 2), max(w // 16, 2),
+                                generator=gen) * 48 + 2
+            depth = F.interpolate(coarse, size=(h, w), mode="bilinear",
+                                  align_corners=True)[:, 0].to(DEV)
+        else:
+            depth = (1.0 / (torch.rand(b * ns, h, w, generator=gen) * 10
+                            + 0.01)).to(DEV)
         flow = compute_rigid_flow(pose, depth, ks, reverse)
         out.append((grid + flow).reshape(b, ns, 2, h, w).contiguous())
     return tuple(out)
@@ -339,10 +370,10 @@ def phase_smooth() -> dict:
     return {"max_abs_err": max_err, "timings": timings}
 
 
-def _pair_inputs(nb: int, seed: int, gen):
+def _pair_inputs(nb: int, seed: int, gen, smooth: bool = False):
     """Stage-2 style inputs of n = 2 * nb (target, source) pairs per scale:
     tgt, src (n, 3, h, w) and forward/backward coords (n, 2, h, w) from
-    seeded rigid flows."""
+    seeded rigid flows (over a smooth depth with ``smooth``)."""
     from sndepth_tpu_torch.ops.warp import pixel_grid
     batch, pyr = _pyramid_inputs(nb, seed)
     out = []
@@ -357,7 +388,8 @@ def _pair_inputs(nb: int, seed: int, gen):
         grid = pixel_grid(h, w, device=DEV)
         cf, cb = ((grid + (c.reshape(-1, 2, h, w) - grid).clamp(-60.0, 60.0))
                   .contiguous() for c in _coords(
-                      nb, 2, h, w, batch["intrinsics"], s, gen, False))
+                      nb, 2, h, w, batch["intrinsics"], s, gen, False,
+                      smooth))
         out.append((tgt, src, cf, cb))
     return out
 
@@ -392,57 +424,85 @@ def _sampler_inputs(h8: int, w8: int, gen):
     return depth, (pixel_grid(h8, w8, device=DEV) + offset.to(DEV))
 
 
+def _splat_tiles(coords, g, hs: int, ws: int, mode: str):
+    """K6 in its tile path, which it takes for a plane too large for shared
+    memory, at any plane size."""
+    from sndepth_tpu_torch.kernels import warp as K5
+    return K5._launch_splat(coords, g, hs, ws, mode, plane_cells=0)
+
+
+def _splat_path(hs: int, ws: int) -> str:
+    """The path K6 takes for (hs, ws) source planes on this card: ``plane``
+    where one fits a block's shared memory, else ``tiles``."""
+    import torch
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    return "plane" if (hs * ws + 3) // 4 * 16 <= limit else "tiles"
+
+
 def phase_warp() -> dict:
-    """K5 and K6 against their plain versions at the stage-2 shapes, and K5
-    as the RAFT3D frame calls it."""
+    """K5 (the gather), K5b (its coordinate gradient) and K6 (its splat)
+    against their plain versions at the stage-2 shapes, the autograd
+    function around them against autograd through the plain sampler, and
+    K5 and K5b as the RAFT3D frame calls them."""
     import torch
     from sndepth_tpu_torch.kernels import warp as K5
     from sndepth_tpu_torch.ops.warp import pixel_grid
     gen = torch.Generator().manual_seed(3)
     pairs = _pair_inputs(FLOW_BATCH, 21, gen)
+    smooth_pairs = _pair_inputs(FLOW_BATCH, 23, gen, smooth=True)
     tgt0, src0, cf0, cb0 = pairs[0]
     small = (pixel_grid(*SCALES[0], device=DEV)
              + (torch.rand(cf0.shape, generator=gen) * 3 - 1.5).to(DEV))
     cases = [("image_small_flow", src0, small), ("image_rigid", src0, cf0),
+             ("image_smooth_rigid", src0, smooth_pairs[0][2]),
              ("image_wild", src0, _wild(cf0, gen)),
              # a target plane of another size than the source plane
              ("image_half_size_target", src0, pairs[1][2] * 2.0)]
-    for s, (_, _, cf, cb) in enumerate(pairs):
-        h, w = SCALES[s]
+    for s, (h, w) in enumerate(SCALES):
         grid = pixel_grid(h, w, device=DEV)
         # a flow warped by a flow, as the consistency masks do
-        cases.append((f"flow_scale{s}", (cb - grid).contiguous(), cf))
+        for kind, (_, _, cf, cb) in (("", pairs[s]),
+                                     ("smooth_", smooth_pairs[s])):
+            cases.append((f"flow_{kind}scale{s}", (cb - grid).contiguous(),
+                          cf))
     cases.append(("flow_small_flow", src0[:, :2].contiguous(), small))
-    checks, gather_err, splat_err, far_err = [], 0.0, 0.0, 0.0
+    checks = []
+    gather_err = coord_err = splat_err = far_err = autograd_err = 0.0
     for name, imgs, coords in cases:
         g = torch.randn(imgs.shape[0], imgs.shape[1], *coords.shape[2:],
                         generator=gen).to(DEV)
+        hs, ws = imgs.shape[2:]
         for mode in K5.MODES:
-            got = K5.warp_gather(imgs, coords, mode, True)
-            want = K5.warp_gather_reference(imgs, coords, mode, True)
+            got = K5.warp_gather(imgs, coords, mode)
+            want = K5.warp_gather_reference(imgs, coords, mode)
+            dc_k = K5.warp_coord_grad(imgs, coords, g, mode)
+            dc_p = K5.warp_coord_grad_reference(imgs, coords, g, mode)
             torch.cuda.synchronize()
-            _assert_finite(f"K5 {name} {mode}", *got)
-            # The kernel repeats the plain version's arithmetic step by step
+            _assert_finite(f"K5 {name} {mode}", got, dc_k)
+            # The kernels repeat the plain versions' arithmetic step by step
             # (no fused multiply-add), so only the last bits may differ.
-            for a, b in zip(got, want):
-                torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
-            err5 = max(_max_err(a, b) for a, b in zip(got, want))
-            hs, ws = imgs.shape[2:]
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+            torch.testing.assert_close(dc_k, dc_p, atol=1e-5, rtol=1e-5)
+            err5, err5b = _max_err(got, want), _max_err(dc_k, dc_p)
+            # K6 in the path these planes take and in its tile path.
             d_k = K5.warp_splat(coords, g, hs, ws, mode)
+            d_t = _splat_tiles(coords, g, hs, ws, mode)
             d_p = K5.warp_splat_reference(coords, g, hs, ws, mode)
             d_64 = K5.warp_splat_reference(coords.double(), g.double(), hs,
                                            ws, mode)
             torch.cuda.synchronize()
-            _assert_finite(f"K6 {name} {mode}", d_k)
+            _assert_finite(f"K6 {name} {mode}", d_k, d_t)
             # Atomic adds sum in an order that changes from run to run, in
             # the kernel and in index_add_ alike; where clamped far-out taps
             # pile onto a border pixel the terms are large and cancel. The
             # kernel may be off the float32 plain version by a few times
             # what that version is off a float64 evaluation.
-            err6 = _max_err(d_k, d_p)
+            err6, err6_t = _max_err(d_k, d_p), _max_err(d_t, d_p)
             tol6 = 1e-5 + 4.0 * _max_err(d_p.double(), d_64)
-            if err6 > tol6:
-                raise AssertionError(f"K6 {name} {mode}: {err6} > {tol6}")
+            if max(err6, err6_t) > tol6:
+                raise AssertionError(f"K6 {name} {mode}: {err6} (tile path "
+                                     f"{err6_t}) > {tol6}")
+            err6 = max(err6, err6_t)
             # Far-out edge_zero taps weigh up to the distance squared (3600
             # here): their error measures float32 cancellation and is kept
             # apart from that of the cases whose weights stay near [0, 1],
@@ -450,52 +510,79 @@ def phase_warp() -> dict:
             w_max = max(float(w.abs().max())
                         for w in K5._taps(coords, hs, ws, mode)[1])
             far = w_max > 4.0
-            checks.append({"case": name, "mode": mode, "gather_err": err5,
-                           "splat_err": err6, "splat_tol": tol6,
-                           "max_tap_weight": w_max, "far_out": far})
+            # The autograd function around the kernels against autograd
+            # through the plain sampler: samples and coordinate gradients to
+            # 1e-4; image gradients to 1e-4 where the weights stay near
+            # [0, 1], else to K6's tolerance above (they are K6's output).
+            res = []
+            for fn in (K5.bilinear_sample, K5.sampler_reference):
+                i = imgs.clone().requires_grad_(True)
+                c = coords.clone().requires_grad_(True)
+                out = fn(i, c, mode)
+                out.backward(g)
+                res.append((out.detach(), c.grad, i.grad))
+                del out, i, c
+            (out_a, dc_a, di_a), (out_r, dc_r, di_r) = res
+            torch.testing.assert_close(out_a, out_r, atol=1e-4, rtol=1e-4)
+            torch.testing.assert_close(dc_a, dc_r, atol=1e-4, rtol=1e-4)
+            if far:
+                err_i = _max_err(di_a, d_p)
+                if err_i > tol6:
+                    raise AssertionError(f"autograd {name} {mode}: image "
+                                         f"gradient {err_i} > {tol6}")
+            else:
+                torch.testing.assert_close(di_a, di_r, atol=1e-4, rtol=1e-4)
+            err_ag = max(_max_err(out_a, out_r), _max_err(dc_a, dc_r))
+            del res, out_a, dc_a, di_a, out_r, dc_r, di_r, d_k, d_t, d_p, d_64
+            checks.append({
+                "case": name, "mode": mode, "gather_err": err5,
+                "coord_grad_err": err5b, "splat_err": err6,
+                "splat_tile_path_err": err6_t, "splat_tol": tol6,
+                "autograd_err": err_ag, "max_tap_weight": w_max,
+                "far_out": far, "splat_path": _splat_path(hs, ws),
+                "tile_path_shared_share": K5.splat_shared_share(
+                    coords, hs, ws, imgs.shape[1], mode)})
             gather_err = max(gather_err, err5)
+            coord_err = max(coord_err, err5b)
+            autograd_err = max(autograd_err, err_ag)
             if far:
                 far_err = max(far_err, err6)
             else:
                 splat_err = max(splat_err, err6)
-    # K5 as ``depth_sampler`` calls it 16 times a RAFT3D frame: zero_pad
-    # mode, one channel, no tangents, at both frame sizes' 1/8 grids. Held
-    # to the same tolerance as above.
+    # K5 and K5b as ``depth_sampler`` calls them 16 times a RAFT3D frame:
+    # zero_pad mode, one channel, at both frame sizes' 1/8 grids. Held to
+    # the same tolerances as above.
     sampler = []
     for h, w in RAFT_SIZES:
         depth, coords = _sampler_inputs(h // 8, w // 8, gen)
-        got = K5.warp_gather(depth, coords, "zero_pad", False)[0]
-        want = K5.warp_gather_reference(depth, coords, "zero_pad", False)[0]
+        g = torch.randn(depth.shape, generator=gen).to(DEV)
+        got = K5.warp_gather(depth, coords, "zero_pad")
+        want = K5.warp_gather_reference(depth, coords, "zero_pad")
+        dc_k = K5.warp_coord_grad(depth, coords, g, "zero_pad")
+        dc_p = K5.warp_coord_grad_reference(depth, coords, g, "zero_pad")
         torch.cuda.synchronize()
-        _assert_finite(f"K5 zero_pad {tuple(depth.shape)}", got)
+        _assert_finite(f"K5 zero_pad {tuple(depth.shape)}", got, dc_k)
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(dc_k, dc_p, atol=1e-5, rtol=1e-5)
         xy = coords.permute(0, 2, 3, 1)
         outside = ((xy < -1) | (xy > xy.new_tensor([w // 8, h // 8]))).any(-1)
-        if not (outside.any() and (got[0, 0][outside[0]] == 0).all()):
+        if not (outside.any() and (got[0, 0][outside[0]] == 0).all()
+                and (dc_k.permute(0, 2, 3, 1)[outside] == 0).all()):
             raise AssertionError("K5 zero_pad: a sample wholly outside the "
-                                 "image must read 0, and the case needs one")
-        err5 = _max_err(got, want)
+                                 "image must read 0 and have no coordinate "
+                                 "gradient, and the case needs one")
+        err5, err5b = _max_err(got, want), _max_err(dc_k, dc_p)
         sampler.append({"shape": "x".join(map(str, depth.shape)),
                         "mode": "zero_pad", "gather_err": err5,
+                        "coord_grad_err": err5b,
                         "outside_share": float(outside.float().mean())})
         gather_err = max(gather_err, err5)
-    # The autograd function around both kernels against autograd through
-    # the plain sampler: gradients to the warped planes and to the
-    # coordinates. Two bounded planes and small flows, so that neither far-out
-    # taps nor large values leave cancelling terms for the rounding to show in.
-    imgs, coords = src0[:, :2].contiguous(), small
-    cot = torch.randn(imgs.shape, generator=gen).to(DEV)
-    grads = []
-    for fn in (K5.bilinear_sample, K5.sampler_reference):
-        i = imgs.clone().requires_grad_(True)
-        c = coords.clone().requires_grad_(True)
-        (fn(i, c, "edge_zero") * cot).sum().backward()
-        grads.append((i.grad, c.grad))
-    for a, b in zip(*grads):
-        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        coord_err = max(coord_err, err5b)
     emit("warp", checks=checks, raft3d_sampler=sampler,
-         splat_far_out_max_abs_err=far_err)
-    return {"warp_gather": gather_err, "warp_splat": splat_err}
+         splat_far_out_max_abs_err=far_err,
+         autograd_max_abs_err=autograd_err)
+    return {"warp_gather": gather_err, "warp_coord_grad": coord_err,
+            "warp_splat": splat_err}
 
 
 def phase_dssim() -> dict:
@@ -505,7 +592,7 @@ def phase_dssim() -> dict:
     from sndepth_tpu_torch.kernels import warp as K5
     gen = torch.Generator().manual_seed(4)
     tgt0, src0, cf0, _ = _pair_inputs(FLOW_BATCH, 22, gen)[0]
-    warped = K5.warp_gather_reference(src0, cf0, "edge_zero", False)[0]
+    warped = K5.warp_gather_reference(src0, cf0, "edge_zero")
     checks, fwd_err, bwd_err = [], 0.0, 0.0
     for name, x, y in (("warped", tgt0, warped), ("frames", tgt0, src0),
                        ("equal_windows_tie", tgt0, tgt0.clone()),
@@ -1012,15 +1099,13 @@ def _gn_bwd_times() -> tuple[dict, dict]:
 
 def phase_kernel_times_raft3d() -> dict:
     """K8 at the two sizes the RAFT3D frame gives it (B = 1, radius 32),
-    beside its plain version and its bound; and K5 as ``depth_sampler``
-    calls it (``zero_pad``, one channel, no tangents). No single PyTorch
-    call computes the build, so it has no library time."""
+    beside its plain version and its bound; and K5 and K5b as
+    ``depth_sampler`` would call them (``zero_pad``, one channel). No single
+    PyTorch call computes the build, so it has no library time."""
     import torch
-    import torch.nn.functional as F
     from sndepth_tpu_torch.kernels import gn_build as K8
-    from sndepth_tpu_torch.kernels import warp as K5
     gen = torch.Generator().manual_seed(7)
-    shapes, sampler = [], []
+    shapes, sampler = [], {"warp_gather": [], "warp_coord_grad": []}
     for h, w in RAFT_SIZES:
         h8, w8 = h // 8, w // 8
         args = _gn_inputs(1, h8, w8, 60)
@@ -1037,19 +1122,11 @@ def phase_kernel_times_raft3d() -> dict:
                 lambda: K8.gn_build_hg_reference(*args, GN_RADIUS), 5),
             **_bound(n_bytes, GN_PAIR_FLOPS * pairs), "library_ms": None})
         depth, coords = _sampler_inputs(h8, w8, gen)
-        norm = torch.stack([coords[:, 0] * (2.0 / (w8 - 1)) - 1.0,
-                            coords[:, 1] * (2.0 / (h8 - 1)) - 1.0], -1)
-        out = K5.warp_gather(depth, coords, "zero_pad", False)[0]
-        sampler.append({
-            "shape": f"1x1x{h8}x{w8}",
-            "ms": time_ms(lambda: K5.warp_gather(depth, coords, "zero_pad",
-                                                 False), 10),
-            "plain_ms": time_ms(lambda: K5.warp_gather_reference(
-                depth, coords, "zero_pad", False), 5),
-            **_bound(_nbytes(depth, coords, out), h8 * w8 * 39),
-            "library_ms": time_ms(lambda: F.grid_sample(
-                depth, norm, mode="bilinear", padding_mode="zeros",
-                align_corners=True), 10)})
+        gather, coord = _sampler_rows(depth, coords, gen, "zero_pad",
+                                      host=True)
+        label = f"1x1x{h8}x{w8}"
+        sampler["warp_gather"].append({"shape": label, **gather})
+        sampler["warp_coord_grad"].append({"shape": label, **coord})
     t_bytes = sum(r["bytes_ms"] for r in shapes)
     t_flops = sum(r["flops_ms"] for r in shapes)
     total = {"ms": sum(r["ms"] for r in shapes),
@@ -1059,7 +1136,7 @@ def phase_kernel_times_raft3d() -> dict:
              "library_ms": None}
     bwd_rows, bwd_totals = _gn_bwd_times()
     emit("kernel_times_raft3d", gn_build=shapes, gn_build_total=total,
-         warp_gather_zero_pad_c1=sampler, **bwd_rows,
+         warp_zero_pad_c1=sampler, torch=torch.__version__, **bwd_rows,
          gn_build_bwd_totals=bwd_totals)
     return {"gn_build": total, **bwd_totals}, sampler
 
@@ -1194,7 +1271,10 @@ RAFT_TRAIN_STEP_TOL = {"loss_rel": 1e-4, "epe2d_rel": 1e-4,
 RAFT_TRAIN_ITERS = 12           # the train CLI's default
 # One train step launches K8 and K5 (depth_sampler) once an iteration in the
 # forward pass and K8b-i and K8b-j once an iteration in the backward pass.
-# The sampled plane (1 / depth2) is data, so K6 never launches.
+# The sampled plane (1 / depth2) is data, so K6 never launches; the sampled
+# coordinates come from the field detached at the top of each iteration and
+# from data, so K5b never launches either (the comparison of the counts is
+# exact, so a launch of either would fail it).
 RAFT_TRAIN_STEP_LAUNCHES = {"gn_build": RAFT_TRAIN_ITERS,
                             "gn_build_bwd_i": RAFT_TRAIN_ITERS,
                             "gn_build_bwd_j": RAFT_TRAIN_ITERS,
@@ -1438,7 +1518,8 @@ RAFT_STEP_TOL = {
     "bilaplacian_forward_2_iters": {"tau_max": 1e-3, "phi_max": 2e-5},
 }
 RAFT_ITERS = 16                 # refinement iterations a frame
-# K8 and K5 (depth_sampler, zero_pad) launch once an iteration each.
+# K8 and K5 (depth_sampler, zero_pad) launch once an iteration each; an
+# inference frame differentiates nothing, so K5b and K6 never launch.
 RAFT_FRAME_LAUNCHES = {"gn_build": RAFT_ITERS, "warp_gather": RAFT_ITERS}
 
 
@@ -1515,12 +1596,94 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn`` takes to return (the enqueue, not
+    the card's work), over ``calls`` calls after a synchronise."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def _sampler_rows(imgs, coords, gen, mode: str = "edge_zero",
+                  host: bool = False) -> tuple[dict, dict]:
+    """Times of K5 (the gather, in ``mode`` as the path runs it, and in
+    zero_pad) and K5b (its coordinate gradient) on ``imgs`` at ``coords``,
+    beside their plain versions, bounds and the PyTorch calls that compute
+    the zero_pad functions: ``F.grid_sample`` for the gather and
+    ``grid_sampler_2d_backward`` asked for the grid's gradient alone for
+    K5b, and the two in turn against K5 + K5b in zero_pad mode. The
+    normalised grid is formed outside the timed calls."""
+    import torch
+    import torch.nn.functional as F
+    from sndepth_tpu_torch.kernels import warp as K5
+    b, c, hs, ws = imgs.shape
+    npix = coords.shape[2] * coords.shape[3]
+    g = torch.randn(b, c, *coords.shape[2:], generator=gen).to(DEV)
+    out = torch.empty_like(g)
+    d_coords = torch.empty_like(coords)
+    norm = torch.stack([coords[:, 0] * (2.0 / (ws - 1)) - 1.0,
+                        coords[:, 1] * (2.0 / (hs - 1)) - 1.0], -1)
+    bwd = torch.ops.aten.grid_sampler_2d_backward
+
+    def grid_sample():
+        return F.grid_sample(imgs, norm, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    def grid_sample_bwd():
+        return bwd(g, imgs, norm, 0, 0, True, [False, True])
+
+    def fwd(m="zero_pad"):
+        return K5.warp_gather(imgs, coords, m)
+
+    def coord_grad(m="zero_pad"):
+        return K5.warp_coord_grad(imgs, coords, g, m)
+
+    x, y = coords[:, 0], coords[:, 1]
+    gather = {
+        # Samples wholly outside the image: zero_pad reads their clamped
+        # taps and multiplies them by 0, as the plain version does;
+        # grid_sample skips those loads.
+        "outside_share": float(((x < -1) | (x > ws) | (y < -1) | (y > hs))
+                               .float().mean()),
+        "ms": time_ms(lambda: fwd(mode), 10),
+        "plain_ms": time_ms(
+            lambda: K5.warp_gather_reference(imgs, coords, mode), 5),
+        **_bound(_nbytes(imgs, coords, out), b * npix * (20 + 7 * c)),
+        "library_ms": time_ms(grid_sample, 10)}
+    coord = {
+        "ms": time_ms(lambda: coord_grad(mode), 10),
+        "plain_ms": time_ms(lambda: K5.warp_coord_grad_reference(
+            imgs, coords, g, mode), 5),
+        **_bound(_nbytes(imgs, coords, g, d_coords),
+                 b * npix * (20 + 22 * c)),
+        "library_ms": time_ms(grid_sample_bwd, 10),
+        "fwd_bwd_zero_pad_ms": time_ms(lambda: (fwd(), coord_grad()), 10),
+        "library_fwd_bwd_ms": time_ms(
+            lambda: (grid_sample(), grid_sample_bwd()), 10)}
+    if mode != "zero_pad":
+        gather["zero_pad_ms"] = time_ms(fwd, 10)
+        coord["zero_pad_ms"] = time_ms(coord_grad, 10)
+    if host:
+        # What a call costs the host alone: at the smallest grids the
+        # kernels take less than this, so the timed window holds it.
+        gather["host_us"] = _host_us(fwd)
+        gather["library_host_us"] = _host_us(grid_sample)
+        coord["host_us"] = _host_us(coord_grad)
+        coord["library_host_us"] = _host_us(grid_sample_bwd)
+    return gather, coord
+
+
 def phase_kernel_times() -> dict:
     """Every kernel once at each distinct shape that one stage-2 step at
     B = FLOW_BATCH gives it, beside its plain version, its bound and, where
     one PyTorch call computes the same function, that call."""
     import torch
-    import torch.nn.functional as F
     from sndepth_tpu_torch.kernels import dssim as K7
     from sndepth_tpu_torch.kernels import photo_loss as K1
     from sndepth_tpu_torch.kernels import smooth_loss as K2
@@ -1530,6 +1693,7 @@ def phase_kernel_times() -> dict:
     nb = FLOW_BATCH
     batch, pyr = _pyramid_inputs(nb, seed=31)
     pairs = _pair_inputs(nb, 31, gen)
+    smooth_pairs = _pair_inputs(nb, 32, gen, smooth=True)
     rows: dict[str, list] = {name: [] for name in FLOW_STEP_LAUNCHES}
 
     def add(name, label, kernel, plain, bound, library=None):
@@ -1538,42 +1702,55 @@ def phase_kernel_times() -> dict:
             "plain_ms": time_ms(plain, 5), **bound,
             "library_ms": None if library is None else time_ms(library, 10)})
 
-    def gather_case(imgs, coords, label):
-        b, c, hs, ws = imgs.shape
-        npix = coords.shape[2] * coords.shape[3]
-        out = torch.empty(b, c, *coords.shape[2:], device=DEV)
-        # grid_sample computes the zero_pad mode from normalised
-        # coordinates, without tangents; the grid is formed outside the
-        # timed call.
-        norm = torch.stack([coords[:, 0] * (2.0 / (ws - 1)) - 1.0,
-                            coords[:, 1] * (2.0 / (hs - 1)) - 1.0], -1)
-        add("warp_gather", label,
-            lambda: K5.warp_gather(imgs, coords, "edge_zero", True),
-            lambda: K5.warp_gather_reference(imgs, coords, "edge_zero", True),
-            _bound(_nbytes(imgs, coords, out) + 2 * _nbytes(out),
-                   b * npix * (20 + 19 * c)),
-            lambda: F.grid_sample(imgs, norm, mode="bilinear",
-                                  padding_mode="zeros", align_corners=True))
-        rows["warp_gather"][-1]["zero_pad_no_tangents_ms"] = time_ms(
-            lambda: K5.warp_gather(imgs, coords, "zero_pad", False), 10)
+    def gather_case(imgs, coords, label, smooth_coords):
+        gather, coord = _sampler_rows(imgs, coords, gen, host=True)
+        gather_s, coord_s = _sampler_rows(imgs, smooth_coords, gen)
+        for name, row, row_s in (("warp_gather", gather, gather_s),
+                                 ("warp_coord_grad", coord, coord_s)):
+            rows[name].append({"shape": label, **row, **{
+                f"smooth_{k}": v for k, v in row_s.items()
+                if k.endswith("ms") or k == "outside_share"}})
 
-    def splat_case(imgs, coords, label):
+    def splat_case(imgs, coords, label, smooth_coords):
         b, c, hs, ws = imgs.shape
         g = torch.randn(b, c, *coords.shape[2:], generator=gen).to(DEV)
-        idx, (wx0, wx1, wy0, wy1), _ = K5._taps(coords, hs, ws, "edge_zero")
-        base = (torch.arange(b, device=DEV) * (hs * ws))[:, None]
-        index = torch.cat([(i + base).reshape(-1) for i in idx])
-        values = torch.cat([(w * g).permute(0, 2, 3, 1).reshape(-1, c)
-                            for w in (wx0 * wy0, wx0 * wy1, wx1 * wy0,
-                                      wx1 * wy1)])
         out = torch.zeros(b * hs * ws, c, device=DEV)
-        # One index_add_ of the four taps' weighted cotangents, indices and
-        # values formed outside the timed call.
-        add("warp_splat", label,
-            lambda: K5.warp_splat(coords, g, hs, ws, "edge_zero"),
-            lambda: K5.warp_splat_reference(coords, g, hs, ws, "edge_zero"),
-            _bound(_nbytes(coords, g, imgs), b * g[0, 0].numel() * (20 + 8 * c)),
-            lambda: out.index_add_(0, index, values))
+        row = {}
+        for kind, crd in (("", coords), ("smooth_", smooth_coords)):
+            idx, (wx0, wx1, wy0, wy1), _ = K5._taps(crd, hs, ws, "edge_zero")
+            base = (torch.arange(b, device=DEV) * (hs * ws))[:, None]
+            index = torch.cat([(i + base).reshape(-1) for i in idx])
+            values = torch.cat([(w * g).permute(0, 2, 3, 1).reshape(-1, c)
+                                for w in (wx0 * wy0, wx0 * wy1, wx1 * wy0,
+                                          wx1 * wy1)])
+            def splat():
+                return K5.warp_splat(crd, g, hs, ws, "edge_zero")
+
+            # One index_add_ of the four taps' weighted cotangents, indices
+            # and values formed outside the timed call. The tile path's time
+            # (with its zeroing) is what a plane too large for shared memory
+            # would cost a pixel.
+            def library():
+                return out.index_add_(0, index, values)
+
+            row[f"{kind}ms"] = time_ms(splat, 10)
+            row[f"{kind}tile_path_ms"] = time_ms(
+                lambda: _splat_tiles(crd, g, hs, ws, "edge_zero"), 10)
+            row.update({
+                f"{kind}library_ms": time_ms(library, 10),
+                f"{kind}tile_path_shared_share": K5.splat_shared_share(
+                    crd, hs, ws, c, "edge_zero")})
+            if not kind:
+                row["host_us"] = _host_us(splat)
+                row["library_host_us"] = _host_us(library)
+            del index, values
+        rows["warp_splat"].append({
+            "shape": label, "path": _splat_path(hs, ws), "ms": row.pop("ms"),
+            "plain_ms": time_ms(lambda: K5.warp_splat_reference(
+                coords, g, hs, ws, "edge_zero"), 5),
+            **_bound(_nbytes(coords, g, imgs),
+                     b * g[0, 0].numel() * (20 + 8 * c)),
+            "library_ms": row.pop("library_ms"), **row})
 
     for s, (h, w) in enumerate(SCALES):
         tgt, src, cf, cb = pairs[s]
@@ -1585,8 +1762,8 @@ def phase_kernel_times() -> dict:
                 lambda: K1.photo_sums(src, tgt, cb, ALPHA),
                 lambda: K1.photo_sums_reference(src, tgt, cb, ALPHA),
                 _bound(_nbytes(tgt, src, cb, cb), PHOTO_FLOPS * n * hw))
-            gather_case(src, cf, f"{n}x3x{h}x{w}")
-            warped = K5.warp_gather_reference(src, cf, "edge_zero", False)[0]
+            gather_case(src, cf, f"{n}x3x{h}x{w}", smooth_pairs[s][2])
+            warped = K5.warp_gather_reference(src, cf, "edge_zero")
             g = torch.randn(tgt.shape, generator=gen).to(DEV)
             add("dssim_fwd", f"{n}x3x{h}x{w}",
                 lambda: K7.dssim_forward(tgt, warped),
@@ -1619,8 +1796,8 @@ def phase_kernel_times() -> dict:
             _bound(_nbytes(tgt, src, cf, cb, cf, cb, wf, wb),
                    (PHOTO_FLOPS + 2) * 2 * n * hw))
         flow = (cb - pixel_grid(h, w, device=DEV)).contiguous()
-        gather_case(flow, cf, f"{n}x2x{h}x{w}")
-        splat_case(flow, cf, f"{n}x2x{h}x{w}")
+        gather_case(flow, cf, f"{n}x2x{h}x{w}", smooth_pairs[s][2])
+        splat_case(flow, cf, f"{n}x2x{h}x{w}", smooth_pairs[s][2])
         # K2 on the depth pyramid (3 views a sample) and on one flow channel.
         for planes, img in ((nb * 3, pyr[s].contiguous()), (n, tgt)):
             depth = (torch.rand(planes, 1, h, w, generator=gen) * 10
@@ -1641,7 +1818,8 @@ def phase_kernel_times() -> dict:
             "bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
             "library_ms": None if None in lib else sum(lib)}
-    emit("kernel_times", batch=nb, shapes=rows, totals=totals)
+    emit("kernel_times", batch=nb, torch=torch.__version__, shapes=rows,
+         totals=totals)
     return totals
 
 
@@ -1882,6 +2060,8 @@ def main() -> int:
                                 "sndepth_tpu/kernels/photo_loss.py:586"),
         "warp_gather": ("cuda", csrc + "warp.cu",
                         "sndepth_tpu/kernels/warp.py:895"),
+        "warp_coord_grad": ("cuda", csrc + "warp.cu",
+                            "sndepth_tpu/kernels/warp.py:895"),
         "warp_splat": ("cuda", csrc + "warp.cu",
                        "sndepth_tpu/kernels/warp.py:1294"),
         "dssim_fwd": ("cuda", csrc + "dssim.cu",
@@ -1904,11 +2084,12 @@ def main() -> int:
                         "stage1_launches": stage1_launches.get(name, 0),
                         "max_abs_err": errs[name], **times[name]})
     # K5 runs on both paths: `launches` is the stage-2 train run's count,
-    # `raft3d_launches` that of the RAFT3D frames (zero_pad mode, C = 1).
-    # and `raft3d_zero_pad_c1` its times at those shapes.
-    k5 = next(k for k in kernels if k["name"] == "warp_gather")
-    k5["raft3d_launches"] = raft_launches["warp_gather"]
-    k5["raft3d_zero_pad_c1"] = sampler_times
+    # `raft3d_launches` that of the RAFT3D frames (zero_pad mode, C = 1),
+    # and `raft3d_zero_pad_c1` its times at those shapes, and K5b's.
+    for k in kernels:
+        if k["name"] in sampler_times:
+            k["raft3d_launches"] = raft_launches.get(k["name"], 0)
+            k["raft3d_zero_pad_c1"] = sampler_times[k["name"]]
     # K8 and K5 also run on the training path: their launches there.
     for k in kernels:
         if k["name"] in ("gn_build", "warp_gather"):

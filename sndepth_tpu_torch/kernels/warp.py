@@ -1,9 +1,11 @@
-"""Bilinear warp gather (K5) and its image-gradient splat (K6).
+"""Bilinear warp gather (K5), its coordinate gradient (K5b) and its
+image-gradient splat (K6).
 
 Replace the Pallas TPU kernels of ``sndepth_tpu/kernels/warp.py``:
 :func:`bilinear_sampler` (``_forward`` -> ``_fwd_kernel``, tap arithmetic
-``_tap_setup``) and ``_scatter_d_imgs`` -> ``_splat`` (``_splat_kernel``),
-with the CUDA C++ kernels ``csrc/warp.cu`` for Hopper (sm_90a).
+``_tap_setup``, and the tangent contraction of its VJP) and
+``_scatter_d_imgs`` -> ``_splat`` (``_splat_kernel``), with the CUDA C++
+kernels ``csrc/warp.cu`` for Hopper (sm_90a).
 
 The gather samples ``imgs`` at pixel ``coords`` in one of two modes:
 
@@ -19,23 +21,31 @@ The gather samples ``imgs`` at pixel ``coords`` in one of two modes:
     each corner, so an integer coordinate on the last row or column returns
     that pixel with weight 1; an invalid corner contributes no derivative.
 
-Under differentiation in the coordinates the gather also writes the tangent
-planes ``Tx = d out / dx`` and ``Ty = d out / dy`` from the same four loads,
-so the coordinate gradient is the elementwise contraction ``sum_c g * Tx``,
-``sum_c g * Ty``. The image gradient is the splat: the scatter-add of
-``w_tap * g`` into the source plane, with the same taps.
+The gather writes the samples only. The coordinate gradient is a kernel of
+its own that reads the four taps again and contracts their tangents
+``d out / dx``, ``d out / dy`` with the cotangent over the channels, in
+ascending order; the image gradient is the splat, the scatter-add of
+``w_tap * g`` into the source plane with the same taps. So the autograd
+function keeps ``(imgs, coords)`` for its backward and no tangent planes.
 
-What bounds them on the card: DRAM bytes. A gather with tangents reads 8
-bytes of coordinates a pixel and writes 12 C (4 C without tangents); the
-source plane comes through L2 because neighbouring pixels hit neighbouring
-taps. The splat reads 8 + 4 C and adds into 4 C bytes a pixel through
-atomics. The design is therefore one thread per target pixel with
-coalesced coordinate loads and stores and nothing staged in shared memory.
-The splat's float atomics add in an order that changes from run to run, so
-its last bits do too.
+What bounds them on the card: DRAM bytes. The gather reads 8 bytes of
+coordinates a pixel and writes 4 C; the coordinate gradient reads 8 + 4 C
+and writes 8; the source plane comes through L2 because neighbouring pixels
+hit neighbouring taps. Both take four consecutive pixels a thread on a
+large problem (B Ht Wt from 2^20, where scattered taps want many loads in
+flight) and two on a smaller one (more threads fill the card), with
+vector loads and stores, where the plane size allows it. The splat reads
+8 + 4 C bytes a pixel and writes 4 C a source cell. Where a (b, c) source
+plane fits the card's shared memory (58K cells on an H100), one block
+builds it whole there and stores it; a larger plane takes the tile
+path, which accumulates a tile's taps in shared memory where their bounding
+box fits (:func:`splat_shared_share` says which tiles do) and adds into
+zeroed planes in device memory. Its float atomics add in an order that
+changes from run to run, so its last bits do too.
 
 Layouts: imgs (B, C, Hs, Ws), coords (B, 2, Ht, Wt) with channels (x, y) in
-source pixels, out / Tx / Ty / g (B, C, Ht, Wt); float32, contiguous.
+source pixels, out / g (B, C, Ht, Wt), d coords (B, 2, Ht, Wt); float32,
+contiguous.
 """
 
 from __future__ import annotations
@@ -50,29 +60,32 @@ _lib = None
 
 
 def _check(imgs, coords, mode: str, g=None) -> None:
+    """Raise on what the kernels do not take. It runs before every launch,
+    so it reads each attribute once."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
-    if imgs is not None and imgs.dim() != 4:
-        raise ValueError("expected imgs (B, C, Hs, Ws)")
-    if coords.dim() != 4 or coords.shape[1] != 2:
+    cs = coords.shape
+    if len(cs) != 4 or cs[1] != 2:
         raise ValueError("expected coords (B, 2, Ht, Wt)")
-    named = [("imgs", imgs), ("coords", coords), ("g", g)]
-    for name, t in named:
+    device = coords.device
+    for name, t in (("imgs", imgs), ("coords", coords), ("g", g)):
         if t is None:
             continue
-        if t.shape[0] != coords.shape[0]:
-            raise ValueError(f"{name} batch {t.shape[0]} does not match "
-                             f"coords batch {coords.shape[0]}")
+        shape = t.shape
+        if len(shape) != 4:
+            raise ValueError(f"expected {name} (B, C, H, W)")
+        if shape[0] != cs[0]:
+            raise ValueError(f"{name} batch {shape[0]} does not match "
+                             f"coords batch {cs[0]}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.device != coords.device:
+        if t.device != device:
             raise ValueError("all inputs must be on one device")
-    if g is not None and (g.dim() != 4
-                          or tuple(g.shape[2:]) != tuple(coords.shape[2:])):
+    if g is not None and g.shape[2:] != cs[2:]:
         raise ValueError(f"g {tuple(g.shape)} does not match coords "
-                         f"{tuple(coords.shape)}")
+                         f"{tuple(cs)}")
 
 
 def _taps(coords: torch.Tensor, hs: int, ws: int, mode: str):
@@ -127,23 +140,34 @@ def sampler_reference(imgs: torch.Tensor, coords: torch.Tensor,
             + (wx1 * wy0) * i10 + (wx1 * wy1) * i11)
 
 
-def warp_gather_reference(imgs, coords, mode: str, need_grad: bool):
-    """Plain PyTorch version of the gather kernel: (out, Tx, Ty), the
-    tangents ``None`` unless ``need_grad``. Nothing here is differentiable:
-    the tangents are formed explicitly, as the kernel forms them."""
+def _tangents(imgs, coords, mode: str):
+    """The samples and their tangents ``d out / dx``, ``d out / dy``
+    (each (B, C, Ht, Wt)), formed explicitly as the kernels form them."""
     hs, ws = imgs.shape[2:]
     ht, wt = coords.shape[2:]
-    with torch.no_grad():
-        idx, (wx0, wx1, wy0, wy1), (dx0, dx1, dy0, dy1) = _taps(
-            coords, hs, ws, mode)
-        i00, i01, i10, i11 = _gather_taps(imgs, idx, ht, wt)
-        out = ((wx0 * wy0) * i00 + (wx0 * wy1) * i01
-               + (wx1 * wy0) * i10 + (wx1 * wy1) * i11)
-        if not need_grad:
-            return out, None, None
-        tx = wy0 * (dx1 * i10 - dx0 * i00) + wy1 * (dx1 * i11 - dx0 * i01)
-        ty = wx0 * (dy1 * i01 - dy0 * i00) + wx1 * (dy1 * i11 - dy0 * i10)
+    idx, (wx0, wx1, wy0, wy1), (dx0, dx1, dy0, dy1) = _taps(
+        coords, hs, ws, mode)
+    i00, i01, i10, i11 = _gather_taps(imgs, idx, ht, wt)
+    out = ((wx0 * wy0) * i00 + (wx0 * wy1) * i01
+           + (wx1 * wy0) * i10 + (wx1 * wy1) * i11)
+    tx = wy0 * (dx1 * i10 - dx0 * i00) + wy1 * (dx1 * i11 - dx0 * i01)
+    ty = wx0 * (dy1 * i01 - dy0 * i00) + wx1 * (dy1 * i11 - dy0 * i10)
     return out, tx, ty
+
+
+def warp_gather_reference(imgs, coords, mode: str):
+    """Plain PyTorch version of the gather kernel (not differentiable)."""
+    with torch.no_grad():
+        return _tangents(imgs, coords, mode)[0]
+
+
+def warp_coord_grad_reference(imgs, coords, g, mode: str):
+    """Plain PyTorch version of the coordinate-gradient kernel: the
+    cotangent g (B, C, Ht, Wt) contracted with the tangents over the
+    channels -> (B, 2, Ht, Wt), channels (d x, d y)."""
+    with torch.no_grad():
+        _, tx, ty = _tangents(imgs, coords, mode)
+        return torch.stack([(g * tx).sum(1), (g * ty).sum(1)], 1)
 
 
 def warp_splat_reference(coords, g, hs: int, ws: int, mode: str):
@@ -166,66 +190,127 @@ def warp_splat_reference(coords, g, hs: int, ws: int, mode: str):
     return out.reshape(b, hs, ws, c).permute(0, 3, 1, 2).contiguous()
 
 
+# The splat's target tile (rows, columns) and the shared-memory budget of
+# its tap box, in floats: kTileH, kTileW and kBoxFloats of csrc/warp.cu.
+SPLAT_TILE = (8, 32)
+SPLAT_BOX_FLOATS = 4096
+
+
+def splat_shared_share(coords, hs: int, ws: int, c: int, mode: str) -> float:
+    """The share of the tile path's tiles whose tap box times ``c`` fits
+    its shared-memory budget, computed from the coordinates as the kernel
+    decides it; the other tiles add straight into device memory."""
+    b, _, ht, wt = coords.shape
+    th, tw = SPLAT_TILE
+    idx, _, _ = _taps(coords, hs, ws, mode)
+    p00, p01, p10 = (i.reshape(b, ht, wt) for i in idx[:3])
+    corners = (p00 % ws, p00 // ws, p10 % ws, p01 // ws)   # x0, y0, x1, y1
+    # Pad the target to whole tiles with values that leave a box unchanged.
+    ph, pw = -ht % th, -wt % tw
+    big = hs * ws
+    boxes = []
+    for k, v in enumerate(corners):
+        pad = big if k < 2 else -1
+        v = torch.nn.functional.pad(v, (0, pw, 0, ph), value=pad)
+        v = v.reshape(b, (ht + ph) // th, th, (wt + pw) // tw, tw)
+        boxes.append(v.amin((2, 4)) if k < 2 else v.amax((2, 4)))
+    x0, y0, x1, y1 = boxes
+    cells = (x1 - x0 + 1) * (y1 - y0 + 1)
+    return float((cells * c <= SPLAT_BOX_FLOATS).float().mean())
+
+
 def _library() -> ctypes.CDLL:
     """The built kernel library, with the launchers' C signatures set."""
     global _lib
     if _lib is None:
         from sndepth_tpu_torch.kernels.build import load_library
         lib = load_library(_SOURCE)
-        lib.warp_gather_launch.restype = ctypes.c_int
-        lib.warp_gather_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        lib.warp_splat_launch.restype = ctypes.c_int
-        lib.warp_splat_launch.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        for name, pointers, ints in (("warp_gather_launch", 3, 7),
+                                     ("warp_coord_grad_launch", 4, 7),
+                                     ("warp_splat_launch", 3, 8)):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
+                           + [ctypes.c_void_p])
         _lib = lib
     return _lib
 
 
-def _launch_gather(imgs, coords, mode: str, need_grad: bool):
+def _run(launch, what: str, device: int, *args) -> None:
+    """Call ``launch(*args, stream)`` on the current stream of card
+    ``device`` and raise on a CUDA error. The card is made current only
+    when it is not already: entering ``torch.cuda.device`` costs more host
+    time than the smallest launches take on the card."""
+    if torch._C._cuda_getDevice() != device:
+        with torch.cuda.device(device):
+            return _run(launch, what, device, *args)
+    rc = launch(*args, torch._C._cuda_getCurrentRawStream(device))
+    if rc != 0:
+        raise RuntimeError(f"warp {what} launch failed: CUDA error {rc}")
+
+
+def _launch_gather(imgs, coords, mode: str):
     b, c, hs, ws = imgs.shape
     ht, wt = coords.shape[2:]
     lib = _library()
-    out = torch.empty(b, c, ht, wt, dtype=torch.float32, device=imgs.device)
-    tx = torch.empty_like(out) if need_grad else None
-    ty = torch.empty_like(out) if need_grad else None
-    with torch.cuda.device(imgs.device):
-        rc = lib.warp_gather_launch(
-            imgs.data_ptr(), coords.data_ptr(), out.data_ptr(),
-            tx.data_ptr() if need_grad else None,
-            ty.data_ptr() if need_grad else None,
-            b, c, hs, ws, ht, wt, MODES[mode],
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"warp gather launch failed: CUDA error {rc}")
+    out = imgs.new_empty((b, c, ht, wt))
+    _run(lib.warp_gather_launch, "gather", imgs.get_device(), imgs.data_ptr(),
+         coords.data_ptr(), out.data_ptr(), b, c, hs, ws, ht, wt, MODES[mode])
     warp_gather.launches += 1
-    return out, tx, ty
+    return out
 
 
-def _launch_splat(coords, g, hs: int, ws: int, mode: str):
+def _launch_coord_grad(imgs, coords, g, mode: str):
+    b, c, hs, ws = imgs.shape
+    ht, wt = coords.shape[2:]
+    lib = _library()
+    d_coords = coords.new_empty((b, 2, ht, wt))
+    _run(lib.warp_coord_grad_launch, "coordinate gradient", imgs.get_device(),
+         imgs.data_ptr(), coords.data_ptr(), g.data_ptr(), d_coords.data_ptr(),
+         b, c, hs, ws, ht, wt, MODES[mode])
+    warp_coord_grad.launches += 1
+    return d_coords
+
+
+def _launch_splat(coords, g, hs: int, ws: int, mode: str,
+                  plane_cells: int = 2**31 - 1):
+    """The splat's launch: the plane path for planes of at most
+    ``plane_cells`` cells that fit the card's shared memory, else the tile
+    path (``plane_cells=0`` forces it, to hold it against the plain version
+    at any size)."""
     b, c, ht, wt = g.shape
     lib = _library()
-    d_imgs = torch.zeros(b, c, hs, ws, dtype=torch.float32, device=g.device)
-    with torch.cuda.device(g.device):
-        rc = lib.warp_splat_launch(
-            coords.data_ptr(), g.data_ptr(), d_imgs.data_ptr(),
-            b, c, hs, ws, ht, wt, MODES[mode],
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"warp splat launch failed: CUDA error {rc}")
+    # The kernel writes every cell (the tile path zeroes them first).
+    d_imgs = g.new_empty((b, c, hs, ws))
+    _run(lib.warp_splat_launch, "splat", g.get_device(), coords.data_ptr(),
+         g.data_ptr(), d_imgs.data_ptr(), b, c, hs, ws, ht, wt, MODES[mode],
+         plane_cells)
     warp_splat.launches += 1
     return d_imgs
 
 
-def warp_gather(imgs, coords, mode: str, need_grad: bool = False):
-    """(out, Tx, Ty) of the gather; Tx, Ty are ``None`` unless
-    ``need_grad``. A CUDA tensor launches the kernel, and any failure
-    raises; a CPU tensor takes the plain version."""
+def warp_gather(imgs, coords, mode: str):
+    """The samples (B, C, Ht, Wt) of ``imgs`` at ``coords``. A CUDA tensor
+    launches the kernel, and any failure raises; a CPU tensor takes the
+    plain version."""
     _check(imgs, coords, mode)
-    if imgs.device.type == "cuda":
-        return _launch_gather(imgs, coords, mode, need_grad)
+    if imgs.is_cuda:
+        return _launch_gather(imgs, coords, mode)
     if imgs.device.type == "cpu":
-        return warp_gather_reference(imgs, coords, mode, need_grad)
+        return warp_gather_reference(imgs, coords, mode)
+    raise ValueError(f"no warp kernel for device {imgs.device}")
+
+
+def warp_coord_grad(imgs, coords, g, mode: str):
+    """The coordinate gradient (B, 2, Ht, Wt) of the gather for the
+    cotangent ``g``. Dispatches by device as :func:`warp_gather`."""
+    _check(imgs, coords, mode, g)
+    if imgs.shape[1] != g.shape[1]:
+        raise ValueError(f"g has {g.shape[1]} channels, imgs {imgs.shape[1]}")
+    if imgs.is_cuda:
+        return _launch_coord_grad(imgs, coords, g, mode)
+    if imgs.device.type == "cpu":
+        return warp_coord_grad_reference(imgs, coords, g, mode)
     raise ValueError(f"no warp kernel for device {imgs.device}")
 
 
@@ -233,7 +318,7 @@ def warp_splat(coords, g, hs: int, ws: int, mode: str):
     """The image gradient (B, C, hs, ws) of the gather for the cotangent
     ``g``. Dispatches by device as :func:`warp_gather`."""
     _check(None, coords, mode, g)
-    if g.device.type == "cuda":
+    if g.is_cuda:
         return _launch_splat(coords, g, hs, ws, mode)
     if g.device.type == "cpu":
         return warp_splat_reference(coords, g, hs, ws, mode)
@@ -241,32 +326,30 @@ def warp_splat(coords, g, hs: int, ws: int, mode: str):
 
 
 warp_gather.launches = 0
+warp_coord_grad.launches = 0
 warp_splat.launches = 0
 
 
 class _BilinearSample(torch.autograd.Function):
-    """Forward: the gather, with tangents when the coordinates want a
-    gradient. Backward: the contraction of the cotangent with the saved
-    tangents for the coordinates, and the splat for the images only when
-    they want a gradient."""
+    """Forward: the gather. Backward: the coordinate-gradient kernel for
+    the coordinates and the splat for the images, each only when its input
+    wants a gradient. Saves the inputs, no tangent planes."""
 
     @staticmethod
     def forward(ctx, imgs, coords, mode):
-        out, tx, ty = warp_gather(imgs, coords, mode, ctx.needs_input_grad[1])
         ctx.mode = mode
-        ctx.src_hw = tuple(imgs.shape[2:])
-        ctx.save_for_backward(coords, tx, ty)
-        return out
+        ctx.save_for_backward(imgs, coords)
+        return warp_gather(imgs, coords, mode)
 
     @staticmethod
     def backward(ctx, g):
-        coords, tx, ty = ctx.saved_tensors
+        imgs, coords = ctx.saved_tensors
         g = g.contiguous()
         d_imgs = d_coords = None
         if ctx.needs_input_grad[0]:
-            d_imgs = warp_splat(coords, g, *ctx.src_hw, ctx.mode)
+            d_imgs = warp_splat(coords, g, *imgs.shape[2:], ctx.mode)
         if ctx.needs_input_grad[1]:
-            d_coords = torch.stack([(g * tx).sum(1), (g * ty).sum(1)], 1)
+            d_coords = warp_coord_grad(imgs, coords, g, ctx.mode)
         return d_imgs, d_coords, None
 
 

@@ -152,7 +152,8 @@ def _gn_inputs(device="cpu"):
 def _counts():
     return [f.launches for f in (
         K1.photo_pair_sums, K1.photo_sums, K1.photo_pair_weighted_sums,
-        K2.smooth_sums, K5.warp_gather, K5.warp_splat, K7.dssim_forward,
+        K2.smooth_sums, K5.warp_gather, K5.warp_coord_grad, K5.warp_splat,
+        K7.dssim_forward,
         K7.dssim_backward, K8.gn_build_hg, K8.gn_build_bwd_i,
         K8.gn_build_bwd_j)]
 
@@ -170,8 +171,9 @@ def test_kernel_launch_without_a_card_raises():
     for launch in (lambda: K1._launch(tgt, srcs, cf, cb, 0.85),
                    lambda: K1._launch(tgt, srcs, cf, None, 0.85),
                    lambda: K1._launch(tgt, srcs, cf, cb, 0.85, w, w),
-                   lambda: K5._launch_gather(x, coords, "edge_zero", True),
-                   lambda: K5._launch_gather(x, coords, "zero_pad", False),
+                   lambda: K5._launch_gather(x, coords, "edge_zero"),
+                   lambda: K5._launch_gather(x, coords, "zero_pad"),
+                   lambda: K5._launch_coord_grad(x, coords, x, "edge_zero"),
                    lambda: K5._launch_splat(coords, x, 8, 12, "edge_zero"),
                    lambda: K7._launch_forward(x, x),
                    lambda: K7._launch_backward(x, x, x, True, True),
@@ -199,6 +201,8 @@ def test_other_devices_raise_rather_than_fall_back():
     with pytest.raises(ValueError):
         K5.warp_gather(x, coords, "edge_zero")
     with pytest.raises(ValueError):
+        K5.warp_coord_grad(x, coords, x, "edge_zero")
+    with pytest.raises(ValueError):
         K5.warp_splat(coords, x, 8, 12, "edge_zero")
     with pytest.raises(ValueError):
         K7.dssim_forward(x, x)
@@ -220,8 +224,8 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     assert float(sx) == 0.0 and float(sy) == 0.0
     x = torch.zeros(2, 3, 8, 12)
     coords = torch.zeros(2, 2, 8, 12)
-    out, tx, ty = K5.warp_gather(x, coords, "zero_pad", True)
-    assert out.shape == tx.shape == ty.shape == (2, 3, 8, 12)
+    assert K5.warp_gather(x, coords, "zero_pad").shape == (2, 3, 8, 12)
+    assert K5.warp_coord_grad(x, coords, x, "zero_pad").shape == (2, 2, 8, 12)
     assert K5.warp_splat(coords, x, 5, 7, "edge_zero").shape == (2, 3, 5, 7)
     assert K7.dssim_forward(x, x).shape == (2, 3, 8, 12)
     assert K7.dssim_backward(x, x, x)[1].shape == (2, 3, 8, 12)

@@ -294,7 +294,8 @@ def test_plain_versions_call_only_plain_versions(monkeypatch):
     def boom(*args, **kwargs):
         raise AssertionError("a plain version reached a kernel wrapper")
 
-    for mod, name in ((K5, "warp_gather"), (K5, "warp_splat"),
+    for mod, name in ((K5, "warp_gather"), (K5, "warp_coord_grad"),
+                      (K5, "warp_splat"),
                       (K7, "dssim_forward"), (K7, "dssim_backward")):
         monkeypatch.setattr(mod, name, boom)
     tgt, srcs, cf, cb = (torch.from_numpy(to_nchw(a)) for a in _case(11))

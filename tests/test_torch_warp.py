@@ -1,9 +1,9 @@
-"""The port's bilinear samplers (K5) and their image gradient (K6) on the
-CPU, where the wrappers take the kernels' plain versions, against the JAX
-Pallas kernels (``sndepth_tpu.kernels.warp``, run by the Pallas interpreter
-on the CPU, with the Pallas splat forced) and against the JAX split ops
-(``sndepth_tpu.ops.warp``), in both modes: values, coordinate gradients and
-image gradients.
+"""The port's bilinear samplers (K5), their coordinate gradient (K5b) and
+their image gradient (K6) on the CPU, where the wrappers take the kernels'
+plain versions, against the JAX Pallas kernels (``sndepth_tpu.kernels.warp``,
+run by the Pallas interpreter on the CPU, with the Pallas splat forced) and
+against the JAX split ops (``sndepth_tpu.ops.warp``), in both modes: values,
+coordinate gradients and image gradients.
 
 Tolerances: values atol 1e-5 (the JAX kernel's own tolerance against its
 split ops, four-term float32 sums in another order). Coordinate gradients
@@ -174,36 +174,124 @@ def test_tangents_differ_between_modes_outside_the_image():
     clamped weights, zero_pad only that of its one valid corner."""
     imgs = torch.arange(1.0, 13.0).reshape(1, 1, 3, 4)
     coords = torch.tensor([-0.5, 1.0]).reshape(1, 2, 1, 1)
-    out_e, tx_e, _ = K5.warp_gather(imgs, coords, "edge_zero", True)
-    out_z, tx_z, _ = K5.warp_gather(imgs, coords, "zero_pad", True)
+    g = torch.ones(1, 1, 1, 1)
+    out_e = K5.warp_gather(imgs, coords, "edge_zero")
+    out_z = K5.warp_gather(imgs, coords, "zero_pad")
+    dx_e, dy_e = K5.warp_coord_grad_reference(imgs, coords, g, "edge_zero")[0]
+    dx_z, _ = K5.warp_coord_grad_reference(imgs, coords, g, "zero_pad")[0]
     # edge_zero: both corners clamp to column 0, weights 0.5 and -0.5.
-    assert float(out_e) == 0.0 and float(tx_e) == 0.0
+    assert float(out_e) == 0.0 and float(dx_e) == 0.0 and float(dy_e) == 0.0
     # zero_pad: only column 0 is valid, weight 0.5, derivative +1.
-    assert float(out_z) == 0.5 * 5.0 and float(tx_z) == 5.0
+    assert float(out_z) == 0.5 * 5.0 and float(dx_z) == 5.0
 
 
 @pytest.mark.parametrize("mode", MODES)
 def test_kernel_plain_versions_return_what_the_kernels_write(mode):
-    """warp_gather without tangents, with tangents, and warp_splat against
-    autograd through the plain sampler."""
+    """warp_gather, warp_coord_grad and warp_splat against autograd through
+    the plain sampler."""
     imgs, coords, cot, atol = _case("random", 2)
     ti = torch.from_numpy(to_nchw(imgs))
     tc = torch.from_numpy(to_nchw(coords))
     tg = torch.from_numpy(to_nchw(cot))
-    out, tx, ty = K5.warp_gather(ti, tc, mode, True)
-    plain, none_x, none_y = K5.warp_gather(ti, tc, mode, False)
-    assert none_x is None and none_y is None
-    torch.testing.assert_close(out, plain, rtol=0, atol=0)
+    out = K5.warp_gather(ti, tc, mode)
+    torch.testing.assert_close(out, K5.warp_gather_reference(ti, tc, mode),
+                               rtol=0, atol=0)
     ti_, tc_ = ti.clone().requires_grad_(True), tc.clone().requires_grad_(True)
     ref = K5.sampler_reference(ti_, tc_, mode)
     d_i, d_c = torch.autograd.grad(ref, (ti_, tc_), tg)
     torch.testing.assert_close(out, ref.detach(), atol=1e-6, rtol=0)
-    torch.testing.assert_close(
-        torch.stack([(tg * tx).sum(1), (tg * ty).sum(1)], 1), d_c,
-        atol=1e-4, rtol=0)
+    torch.testing.assert_close(K5.warp_coord_grad(ti, tc, tg, mode), d_c,
+                               atol=1e-4, rtol=0)
     torch.testing.assert_close(
         K5.warp_splat(tc, tg, imgs.shape[1], imgs.shape[2], mode), d_i,
         atol=atol, rtol=0)
+
+
+def _far_coords(rng, b, ht, wt, h, w):
+    """Coordinates up to 3 image sizes outside the image on every side."""
+    lo, hi = -3.0 * max(h, w), 4.0 * max(h, w)
+    return rng.uniform(lo, hi, (b, ht, wt, 2)).astype(np.float32)
+
+
+@pytest.mark.parametrize("where", ["border", "far"])
+@pytest.mark.parametrize("mode", MODES)
+def test_coord_grad_plain_version_matches_autograd(mode, where):
+    """The coordinate gradient's plain version (tangents contracted over the
+    channels) against autograd through ``sampler_reference``, on the border
+    cases and on random far-out coordinates. atol 1e-5 + rtol 1e-5: the
+    same products summed in another grouping."""
+    rng = np.random.RandomState(13)
+    h, w, c = 7, 9, 3
+    if where == "border":
+        coords = _border_coords(h, w)
+    else:
+        coords = _far_coords(rng, 2, 5, 6, h, w)
+    b = coords.shape[0]
+    imgs = (rng.rand(b, h, w, c) + 0.5).astype(np.float32)
+    cot = (rng.rand(b, *coords.shape[1:3], c) * 2 - 1).astype(np.float32)
+    ti = torch.from_numpy(to_nchw(imgs))
+    tc = torch.from_numpy(to_nchw(coords))
+    tg = torch.from_numpy(to_nchw(cot))
+    tc_ = tc.clone().requires_grad_(True)
+    want, = torch.autograd.grad(K5.sampler_reference(ti, tc_, mode), tc_, tg)
+    got = K5.warp_coord_grad_reference(ti, tc, tg, mode)
+    assert got.shape == tc.shape and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_autograd_function_saves_no_tangent_planes():
+    """The backward keeps the inputs, images and coordinates, and nothing
+    the size of C sample planes."""
+    imgs, coords, _, _ = _case("smooth", 3)
+    ti = torch.from_numpy(to_nchw(imgs)).requires_grad_(True)
+    tc = torch.from_numpy(to_nchw(coords)).requires_grad_(True)
+    out = K5.bilinear_sample(ti, tc, "edge_zero")
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 2
+    assert saved[0].data_ptr() == ti.data_ptr() and saved[0].shape == ti.shape
+    assert saved[1].data_ptr() == tc.data_ptr() and saved[1].shape == tc.shape
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_nan_coordinate_gives_nan_gradient_at_that_pixel_only(mode):
+    imgs, coords, cot, _ = _case("smooth", 2)
+    coords = coords.copy()
+    coords[1, 5, 7] = np.nan
+    ti = torch.from_numpy(to_nchw(imgs))
+    tc = torch.from_numpy(to_nchw(coords)).requires_grad_(True)
+    out = K5.bilinear_sample(ti, tc, mode)
+    (out * torch.from_numpy(to_nchw(cot))).sum().backward()
+    bad = torch.zeros(tc.shape, dtype=torch.bool)
+    bad[1, :, 5, 7] = True
+    assert torch.isnan(tc.grad[bad]).all()
+    assert torch.isfinite(tc.grad[~bad]).all()
+    assert torch.isnan(out[1, :, 5, 7]).all()
+    assert torch.isfinite(out.detach()[~bad[:, :1].expand_as(out)]).all()
+
+
+def test_splat_shared_share_follows_the_tap_boxes():
+    """Small flows keep every tile's tap box in the shared-memory budget;
+    coordinates spread over the image put none there; the budget is in
+    floats, so more channels fit fewer cells."""
+    b, h, w = 1, 20, 70
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    grid = torch.from_numpy(np.stack([xs, ys])[None].repeat(b, 0))
+    rng = np.random.RandomState(4)
+    small = grid + torch.from_numpy(
+        rng.uniform(-1.5, 1.5, grid.shape).astype(np.float32))
+    assert K5.splat_shared_share(small, h, w, 2, "edge_zero") == 1.0
+    spread = torch.from_numpy(_far_coords(rng, b, h, w, 60, 200)).permute(
+        0, 3, 1, 2).contiguous()
+    assert K5.splat_shared_share(spread, 60, 200, 1, "zero_pad") == 0.0
+    # Coordinates stretched 3 times in x and 6 in y: a whole tile's box is
+    # 97 x 49 cells, over the budget at any C; the ragged edge's smaller
+    # boxes fit at C = 1 and not at C = 4.
+    tiles = grid.clone()
+    tiles[:, 0] = tiles[:, 0] * 3.0
+    tiles[:, 1] = tiles[:, 1] * 6.0
+    share_1 = K5.splat_shared_share(tiles, 200, 300, 1, "edge_zero")
+    share_4 = K5.splat_shared_share(tiles, 200, 300, 4, "edge_zero")
+    assert share_4 < share_1
 
 
 def test_images_get_no_splat_when_they_want_no_gradient(monkeypatch):
