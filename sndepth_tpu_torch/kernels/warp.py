@@ -198,8 +198,9 @@ SPLAT_BOX_FLOATS = 4096
 
 def splat_shared_share(coords, hs: int, ws: int, c: int, mode: str) -> float:
     """The share of the tile path's tiles whose tap box times ``c`` fits
-    its shared-memory budget, computed from the coordinates as the kernel
-    decides it; the other tiles add straight into device memory."""
+    its shared-memory budget; the other tiles add straight into device
+    memory. The boxes are those of every sample's four taps: the kernel
+    leaves out samples that add nothing, so its share can only be higher."""
     b, _, ht, wt = coords.shape
     th, tw = SPLAT_TILE
     idx, _, _ = _taps(coords, hs, ws, mode)
