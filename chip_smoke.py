@@ -15,6 +15,7 @@ fails unless every phase passes:
   photo      K1 (pair photo loss, CUDA) against its plain version at B=4,
              ns=2 on all 4 scales (rigid-flow and wild out-of-image
              coordinates); then both timed with CUDA events at B=4 and B=128
+             (stage 1's batch) beside the bound, a scale and the 4 in all
   smooth     K2 (smoothness, Triton) the same way, N = 3B
   warp       K5 (bilinear gather, both modes), K5b (its coordinate
              gradient) and K6 (its splat) against their plain versions at
@@ -30,7 +31,7 @@ fails unless every phase passes:
              version at n = 832 and n = 7332, radius 32 and 3, B = 1 and 2,
              and on the inputs a real iteration of the model hands it; H
              symmetric bit for bit
-  gn_build_bwd  K8b-i and K8b-j (the backward of the build, CUDA) against
+  gn_build_bwd  K8b (the backward of the build, one CUDA kernel) against
              autograd through the plain version at n = 832, 3328 and 7332,
              radius 32 and 3, B = 1 and 2: all eight gradients and the
              train step's subset, on random cotangents and on what a real
@@ -43,8 +44,9 @@ fails unless every phase passes:
   kernel_times_raft3d  the same for K8 at both RAFT3D sizes (operations
              counted over the in-radius pairs), for K5 and K5b as the depth
              sampler calls them, with the host's share of a call, and for
-             K8b-i and K8b-j at the training sizes, asked
-             for all gradients and for the train step's subset
+             K8b at the training sizes, asked for all gradients and for the
+             train step's subset, with the share of its running lanes that
+             are in the radius
   step, step_flow  one float32 train step at 128x416, B=2, from the same
              seeded weights on the CPU (plain versions) and on the GPU
              (kernels), stage 1 and stage 2
@@ -68,8 +70,9 @@ fails unless every phase passes:
              back: 16 launches of K8 and of K5 a frame
   raft3d_train  RAFT3D training through ``cli/train_raft3d.py`` on the
              synthetic stream at its defaults: finite loss, moving
-             parameters, 12 launches a step of K8, K8b-i, K8b-j and K5 and
-             none of K6, ms/step and peak memory; the step alone on
+             parameters, 12 launches a step of K8, K8b and K5 and none of
+             K6, every kernel launch of one step counted by the profiler,
+             ms/step and peak memory; the step alone on
              card-resident batches at 256x832, B = 2 and 376x1248, B = 1;
              the written ``raft3d.pth`` served for one frame by the
              submission writer
@@ -168,7 +171,7 @@ def phase_env() -> str:
 
 
 CUDA_SOURCES = ("photo_pair.cu", "warp.cu", "dssim.cu", "gn_build.cu",
-                "gn_build_bwd_i.cu", "gn_build_bwd_j.cu")
+                "gn_build_bwd.cu")
 
 
 def phase_build() -> None:
@@ -207,8 +210,7 @@ def _counters() -> dict:
             "warp_coord_grad": K5.warp_coord_grad,
             "warp_splat": K5.warp_splat,
             "dssim_fwd": K7.dssim_forward, "dssim_bwd": K7.dssim_backward,
-            "gn_build": K8.gn_build_hg, "gn_build_bwd_i": K8.gn_build_bwd_i,
-            "gn_build_bwd_j": K8.gn_build_bwd_j}
+            "gn_build": K8.gn_build_hg, "gn_build_bwd": K8.gn_build_bwd}
 
 
 def reset_launches() -> None:
@@ -275,6 +277,16 @@ def _max_err(a, b) -> float:
     return float((a - b).abs().max())
 
 
+def _scale_total(per_scale: list) -> dict:
+    """A kernel's times over the scales of one step, and its bound."""
+    t_bytes = sum(r["bytes_ms"] for r in per_scale)
+    t_flops = sum(r["flops_ms"] for r in per_scale)
+    return {"kernel_ms": sum(r["kernel_ms"] for r in per_scale),
+            "plain_ms": sum(r["plain_ms"] for r in per_scale),
+            "bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+
+
 def phase_photo() -> dict:
     import torch
     from sndepth_tpu_torch.kernels import photo_loss as K1
@@ -319,8 +331,11 @@ def phase_photo() -> dict:
                 "kernel_ms": time_ms(lambda: K1._launch(tgt, srcs, cf, cb,
                                                         ALPHA)),
                 "plain_ms": time_ms(lambda: K1.photo_pair_sums_reference(
-                    tgt, srcs, cf, cb, ALPHA))})
+                    tgt, srcs, cf, cb, ALPHA)),
+                **_bound(_nbytes(tgt, srcs, cf, cb, cf, cb),
+                         PHOTO_FLOPS * 2 * bt * ns * h * w)})
         timings[f"B{bt}"] = per_scale
+        timings[f"B{bt}_total"] = _scale_total(per_scale)
     emit("photo", checks=checks, timings=timings)
     return {"max_abs_err": max_err, "loss_max_rel_err": max_loss_rel,
             "timings": timings}
@@ -364,8 +379,11 @@ def phase_smooth() -> dict:
                 "hw": [h, w],
                 "kernel_ms": time_ms(lambda: K2._launch(depth, img)),
                 "plain_ms": time_ms(lambda: K2.smooth_sums_reference(
-                    depth, img))})
+                    depth, img)),
+                **_bound(_nbytes(depth, img, depth, depth),
+                         SMOOTH_FLOPS * img.shape[0] * h * w)})
         timings[f"B{bt}"] = per_scale
+        timings[f"B{bt}_total"] = _scale_total(per_scale)
     emit("smooth", checks=checks, timings=timings)
     return {"max_abs_err": max_err, "timings": timings}
 
@@ -916,9 +934,8 @@ def _gn_bwd_model_case():
 
 
 def phase_gn_build_bwd() -> dict:
-    """K8b-i and K8b-j against the plain version (autograd through the plain
-    build) on the card: all eight gradients, and the subset a train step
-    asks for."""
+    """K8b against the plain version (autograd through the plain build) on
+    the card: all eight gradients, and the subset a train step asks for."""
     import torch
     from sndepth_tpu_torch.kernels import gn_build as K8
     gen = torch.Generator().manual_seed(8)
@@ -960,7 +977,7 @@ def phase_gn_build_bwd() -> dict:
     run("model_iteration_16x52", args, radius, ct_H, ct_g, want)
     run("model_iteration_16x52_all", args, radius, ct_H, ct_g, (True,) * 8)
 
-    # How far float32 itself is from the sums: kernels and plain version
+    # How far float32 itself is from the sums: kernel and plain version
     # against a float64 evaluation of the plain version, at 32x104, B = 2.
     args = _gn_inputs(2, 32, 104, 90)
     ct_H, ct_g = cotangents(2, 32 * 104)
@@ -978,7 +995,7 @@ def phase_gn_build_bwd() -> dict:
 
     # A pair (i = 0, j = 831) outside radius 3 whose transformed depth is
     # exactly 0: the plain version forms 0 * inf = NaN in what belongs to
-    # pixel 0, to pixel 831 and in the intrinsics; the kernels skip the pair,
+    # pixel 0, to pixel 831 and in the intrinsics; the kernel skips the pair,
     # stay finite everywhere and equal the plain version elsewhere.
     args = list(_gn_inputs(1, 16, 52, 70))
     args[0][:] = torch.eye(3, device=DEV)
@@ -996,12 +1013,12 @@ def phase_gn_build_bwd() -> dict:
         raise AssertionError("the plain backward is finite at the zero-depth "
                              "pair: the case does not test what it says")
 
-    # Through autograd: the Function's backward reaches the same kernels and
+    # Through autograd: the Function's backward launches the kernel once and
     # hands back gradients of the inputs' type, None where none is wanted.
     args = list(_gn_inputs(1, 16, 52, 91))
     for k in (2, 3, 7, 8):
         args[k] = args[k].clone().requires_grad_(True)
-    before = (K8.gn_build_bwd_i.launches, K8.gn_build_bwd_j.launches)
+    before = K8.gn_build_bwd.launches
     H, g = K8.gn_build_hg(*args, GN_RADIUS)
     ct_H, ct_g = cotangents(1, 832)
     grads = torch.autograd.grad([H, g], [args[k] for k in (2, 3, 7, 8)],
@@ -1009,52 +1026,50 @@ def phase_gn_build_bwd() -> dict:
     ref = K8.gn_build_hg_bwd_reference(*args, GN_RADIUS, ct_H, ct_g)
     _gn_bwd_compare("autograd", [None, None, grads[0], grads[1], None,
                                  grads[2], grads[3], None], ref)
-    after = (K8.gn_build_bwd_i.launches, K8.gn_build_bwd_j.launches)
-    if after != (before[0] + 1, before[1] + 1) or any(
+    after = K8.gn_build_bwd.launches
+    if after != before + 1 or any(
             g.dtype != torch.float32 for g in grads):
         raise AssertionError(f"autograd through K8: launches {before} -> "
                              f"{after}")
     emit("gn_build_bwd", checks=checks, float64=f64,
          tolerance=f"{GN_BWD_TOL} * |entry| + {GN_BWD_TOL} * mean |entry "
                    "position|")
-    return {"gn_build_bwd_i": worst["abs"], "gn_build_bwd_j": worst["abs"],
+    return {"gn_build_bwd": worst["abs"],
             "gn_build_bwd_err_over_tol": worst["scaled"]}
 
 
-# Float32 operations of one in-radius pair in the backward kernels, counted
-# from their arithmetic (csrc/gn_pair.cuh and the two kernels). Both halves:
-# the embedding product (64), distance and sigmoid (~8), the transformed
-# point and its inverse (~20), the 13 Jacobian entries and 3 residuals (~36),
-# v = A J over the non-zero columns (59 multiply-adds, 118), the quadratic
-# forms and cg . J (~52), q, S and d dist (~21), and the 32 multiply-adds of
-# d x (64) and d sq (1): 384. The j half adds d tgt and d wgt (9). The
-# geometry chain (d J, d r -> d P, d intrinsics: ~150) comes with d rot,
-# d trans and d intrinsics (25) in the i half, with d X (15) in the j half.
-GN_BWD_PAIR_FLOPS = {("i", "train"): 384, ("i", "all"): 559,
-                     ("j", "train"): 393, ("j", "all"): 558}
-# What each half is asked for: (rot, trans, x, sq, intrinsics) of the i
-# half, (X, x, sq, tgt, wgt) of the j half.
-GN_BWD_WANT = {("i", "train"): (False, False, True, True, False),
-               ("i", "all"): (True,) * 5,
-               ("j", "train"): (False, True, True, True, True),
-               ("j", "all"): (True,) * 5}
+# Float32 operations of one in-radius pair in the backward kernel, counted
+# from its arithmetic (csrc/gn_build_bwd.cu and csrc/gn_pair.cuh), with the
+# embedding product and the d x sum counted once for both roles of the pair:
+# the embedding product (64), distance and sigmoid (~8); then for each role,
+# the transformed point and its inverse (~20), the 13 Jacobian entries and 3
+# residuals (~36), v = A J over the non-zero columns (59 multiply-adds,
+# 118), the quadratic forms and cg . J (~52), q and S (~15): 2 x 241; d dist
+# of both (4), the 32 multiply-adds of d x (64), d sq (1), d tgt and d wgt
+# (9): 632. All gradients add each role's geometry chain (d J, d r -> d P,
+# d intrinsics: ~150), d rot, d trans and d intrinsics (25) and d X (15):
+# 972. The two kernels it replaced counted 384 (i) + 393 (j) = 777 a pair
+# for the train step's gradients, 559 + 558 = 1117 for all: each computed
+# the embedding product, the sigmoid and a d x sum of its own.
+GN_BWD_PAIR_FLOPS = {"train": 632, "all": 972}
+GN_BWD_HALVES_PAIR_FLOPS = {"train": 384 + 393, "all": 559 + 558}
+GN_BWD_SUBSETS = {"train": GN_BWD_TRAIN, "all": (True,) * 8}
 # The build's sizes on the training path: the train CLI's default batch
 # (256x832, B = 2) and a KITTI frame (376x1248, B = 1); 128x416 besides.
 GN_BWD_SIZES = ((2, 256, 832), (1, 376, 1248), (1, 128, 416))
 
 
 def _gn_bwd_times() -> tuple[dict, dict]:
-    """K8b-i and K8b-j at the sizes above (radius 32), asked for all their
-    gradients and for the train step's subset, beside the plain version
-    (one autograd pass gives all eight gradients, so both halves share its
-    time) and the bound. Returns the rows by kernel and, for the kernels
-    line, each kernel's totals over the first two sizes with the train
-    step's subset: what one step at each size launches."""
+    """K8b at the sizes above (radius 32), asked for all its gradients and
+    for the train step's subset, beside the plain version, the bound (also
+    by the two replaced kernels' count of operations) and the share of the
+    kernel's running lanes in the radius. Returns the rows and, for the
+    kernels line, the totals over the first two sizes with the train step's
+    subset: what one step at each size launches."""
     import torch
     from sndepth_tpu_torch.kernels import gn_build as K8
     gen = torch.Generator().manual_seed(9)
-    halves = {"i": K8.gn_build_bwd_i, "j": K8.gn_build_bwd_j}
-    rows = {"gn_build_bwd_i": [], "gn_build_bwd_j": []}
+    rows = []
     for b, h, w in GN_BWD_SIZES:
         h8, w8 = h // 8, w // 8
         n = h8 * w8
@@ -1062,39 +1077,35 @@ def _gn_bwd_times() -> tuple[dict, dict]:
         ct_H = torch.randn(b, n, 6, 6, generator=gen).to(DEV)
         ct_g = torch.randn(b, n, 6, generator=gen).to(DEV)
         kargs = K8._kernel_inputs(*args)
-        ct27 = K8.fold_cotangents(ct_H, ct_g).contiguous()
         pairs = b * _in_radius_pairs(h8, w8, GN_RADIUS)
+        share = K8.lane_share(args[4].cpu(), args[5].cpu(), GN_RADIUS)
         plain_ms = time_ms(lambda: K8.gn_build_hg_bwd_reference(
             *args, GN_RADIUS, ct_H, ct_g), 3)
-        for half, fn in halves.items():
-            for subset in ("train", "all"):
-                want = GN_BWD_WANT[half, subset]
-                out = fn(kargs, ct27, GN_RADIUS, want)
-                n_bytes = _nbytes(*kargs, ct27,
-                                  *(t for t in out if t is not None))
-                rows[f"gn_build_bwd_{half}"].append({
-                    "shape": f"{b}x{n} ({h8}x{w8})", "gradients": subset,
-                    "in_radius_pairs": pairs,
-                    "ms": time_ms(lambda: fn(kargs, ct27, GN_RADIUS, want),
-                                  10),
-                    "plain_ms": plain_ms,
-                    **_bound(n_bytes, GN_BWD_PAIR_FLOPS[half, subset] * pairs),
-                    "library_ms": None})
-    totals = {}
+        for subset, want in GN_BWD_SUBSETS.items():
+            out = K8.gn_build_bwd(kargs, ct_H, ct_g, GN_RADIUS, want)
+            n_bytes = _nbytes(*kargs, ct_H, ct_g,
+                              *(t for t in out if t is not None))
+            halves = _bound(n_bytes, GN_BWD_HALVES_PAIR_FLOPS[subset] * pairs)
+            rows.append({
+                "shape": f"{b}x{n} ({h8}x{w8})", "gradients": subset,
+                "in_radius_pairs": pairs, "lane_share_in_radius": share,
+                "ms": time_ms(
+                    lambda: K8.gn_build_bwd(kargs, ct_H, ct_g, GN_RADIUS,
+                                            want), 10),
+                "plain_ms": plain_ms,
+                **_bound(n_bytes, GN_BWD_PAIR_FLOPS[subset] * pairs),
+                "halves_flops_ms": halves["flops_ms"], "library_ms": None})
     main = {f"{b}x{(h // 8) * (w // 8)} ({h // 8}x{w // 8})"
             for b, h, w in GN_BWD_SIZES[:2]}
-    for name, shapes in rows.items():
-        used = [r for r in shapes
-                if r["gradients"] == "train" and r["shape"] in main]
-        t_bytes = sum(r["bytes_ms"] for r in used)
-        t_flops = sum(r["flops_ms"] for r in used)
-        totals[name] = {
-            "ms": sum(r["ms"] for r in used),
-            "plain_ms": sum(r["plain_ms"] for r in used),
-            "bound_ms": max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "library_ms": None}
-    return rows, totals
+    used = [r for r in rows if r["gradients"] == "train" and r["shape"] in main]
+    t_bytes = sum(r["bytes_ms"] for r in used)
+    t_flops = sum(r["flops_ms"] for r in used)
+    total = {"ms": sum(r["ms"] for r in used),
+             "plain_ms": sum(r["plain_ms"] for r in used),
+             "bound_ms": max(t_bytes, t_flops),
+             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+             "library_ms": None}
+    return {"gn_build_bwd": rows}, {"gn_build_bwd": total}
 
 
 def phase_kernel_times_raft3d() -> dict:
@@ -1270,14 +1281,13 @@ RAFT_TRAIN_STEP_TOL = {"loss_rel": 1e-4, "epe2d_rel": 1e-4,
                        "param_over_lr": 2.01, "param_frac_off": 0.01}
 RAFT_TRAIN_ITERS = 12           # the train CLI's default
 # One train step launches K8 and K5 (depth_sampler) once an iteration in the
-# forward pass and K8b-i and K8b-j once an iteration in the backward pass.
+# forward pass and K8b once an iteration in the backward pass.
 # The sampled plane (1 / depth2) is data, so K6 never launches; the sampled
 # coordinates come from the field detached at the top of each iteration and
 # from data, so K5b never launches either (the comparison of the counts is
 # exact, so a launch of either would fail it).
 RAFT_TRAIN_STEP_LAUNCHES = {"gn_build": RAFT_TRAIN_ITERS,
-                            "gn_build_bwd_i": RAFT_TRAIN_ITERS,
-                            "gn_build_bwd_j": RAFT_TRAIN_ITERS,
+                            "gn_build_bwd": RAFT_TRAIN_ITERS,
                             "warp_gather": RAFT_TRAIN_ITERS}
 
 
@@ -1374,10 +1384,11 @@ def phase_raft3d_train() -> dict:
     """The RAFT3D training path at full width through its entry points: the
     train CLI on the synthetic stream (256x832, B = 2, 12 iterations, bf16),
     the step alone on card-resident batches at that size and at 376x1248,
-    B = 1, and the written checkpoint served for one frame by the
-    submission writer."""
+    B = 1, every kernel launch of one step by the profiler, and the written
+    checkpoint served for one frame by the submission writer."""
     import torch
-    from sndepth_tpu_torch.cli import kitti_submission, train_raft3d
+    from sndepth_tpu_torch.cli import kitti_submission, profile_step
+    from sndepth_tpu_torch.cli import train_raft3d
     from sndepth_tpu_torch.models import raft3d
     steps = 4
     ckpt_dir = os.path.join(WORK_DIR, "ckpt_raft3d")
@@ -1421,6 +1432,12 @@ def phase_raft3d_train() -> dict:
 
     device_steps = [_raft3d_device_step(2, 256, 832),
                     _raft3d_device_step(1, 376, 1248)]
+    # Every kernel launch of one warm step at the CLI's defaults, by the
+    # profiler.
+    profile = profile_step.main(["--family", "raft3d_train", "--steps", "1"])
+    step_profile = {k: profile[k] for k in (
+        "launches_per_step", "kernel_ms_per_step", "wall_ms_per_step",
+        "idle_share", "ms_by_group")}
 
     # The checkpoint the CLI wrote, served for one frame.
     root = os.path.join(WORK_DIR, "raft_datasets")
@@ -1435,7 +1452,7 @@ def phase_raft3d_train() -> dict:
     emit("raft3d_train", steps=steps, batch=2, hw=[256, 832],
          iters=RAFT_TRAIN_ITERS, records=records, launches=_used(launches),
          cli_ms_per_step=cli_ms, cli_peak_memory_bytes=peak,
-         device_batch_steps=device_steps,
+         device_batch_steps=device_steps, step_profile=step_profile,
          parameter_tensors=len(moved), parameter_tensors_still=still,
          largest_parameter_move=max(moved.values()),
          served_artifacts=artifacts)
@@ -2045,8 +2062,7 @@ def main() -> int:
     raft_launches = phase_raft3d()
     launches["gn_build"] = raft_launches["gn_build"]
     raft_train_launches = phase_raft3d_train()
-    for name in ("gn_build_bwd_i", "gn_build_bwd_j"):
-        launches[name] = raft_train_launches[name]
+    launches["gn_build_bwd"] = raft_train_launches["gn_build_bwd"]
 
     csrc = "sndepth_tpu_torch/kernels/csrc/"
     where = {
@@ -2070,10 +2086,8 @@ def main() -> int:
                       "sndepth_tpu/kernels/dssim.py:134"),
         "gn_build": ("cuda", csrc + "gn_build.cu",
                      "sndepth_tpu/kernels/gn_build.py:244"),
-        "gn_build_bwd_i": ("cuda", csrc + "gn_build_bwd_i.cu",
-                           "sndepth_tpu/kernels/gn_build.py:267"),
-        "gn_build_bwd_j": ("cuda", csrc + "gn_build_bwd_j.cu",
-                           "sndepth_tpu/kernels/gn_build.py:292"),
+        "gn_build_bwd": ("cuda", csrc + "gn_build_bwd.cu",
+                         "sndepth_tpu/kernels/gn_build.py:267 and :292"),
     }
     kernels = []
     for name, (route, source, replaces) in where.items():
@@ -2096,7 +2110,7 @@ def main() -> int:
             k["raft3d_train_launches"] = raft_train_launches[k["name"]]
         if k["name"] == "gn_build":
             k["err_over_tolerance"] = errs["gn_build_err_over_tol"]
-        if k["name"].startswith("gn_build_bwd"):
+        if k["name"] == "gn_build_bwd":
             k["err_over_tolerance"] = errs["gn_build_bwd_err_over_tol"]
     # K6's max_abs_err is over the cases whose tap weights stay near [0, 1];
     # the far-out edge_zero cases are held to their own tolerance.

@@ -33,8 +33,7 @@ GROUPS = (
     ("K6 warp_splat", ("warp_splat_kernel",)),
     ("K7 dssim", ("dssim_fwd_kernel", "dssim_bwd_kernel")),
     ("K8 gn_build", ("gn_build_kernel",)),
-    ("K8b-i gn_build_bwd_i", ("gn_bwd_i_kernel",)),
-    ("K8b-j gn_build_bwd_j", ("gn_bwd_j_kernel",)),
+    ("K8b gn_build_bwd", ("gn_bwd_kernel",)),
     ("layout transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),
     ("adam", ("multi_tensor", "adam", "foreach")),
     ("convolutions", ("gemm", "conv", "cutlass", "cudnn", "xmma", "wgrad",

@@ -3,8 +3,8 @@
 Each source compiles on first use into a shared library with a plain C
 interface under ``build/`` at the repository root, named by a hash of the
 source, of the ``csrc/`` headers it includes (directly or through another
-header) and of the compiler flags, so a change to any of them rebuilds and
-an unchanged source is reused. The library is loaded with ``ctypes``;
+header) and of its compiler flags (:func:`nvcc_flags`), so a change to any
+of them rebuilds and an unchanged source is reused. The library is loaded with ``ctypes``;
 nothing here includes PyTorch's headers, which keeps a build to seconds.
 """
 
@@ -27,6 +27,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               # the plain PyTorch versions do, so exact DSSIM ties (equal
               # windows) stay exact ties on the card.
               "-fmad=false", "-Xptxas", "-v"]
+# Sources with no exact tie to keep, built with fused multiply-adds.
+FMAD_SOURCES = ("gn_build_bwd.cu",)
+
+
+def nvcc_flags(source: str) -> list[str]:
+    """The compiler flags of ``csrc/<source>``."""
+    if source in FMAD_SOURCES:
+        return [f for f in NVCC_FLAGS if f != "-fmad=false"]
+    return list(NVCC_FLAGS)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -59,7 +68,7 @@ def source_closure(source: str) -> list[str]:
 
 def library_path(source: str) -> str:
     """Where the library of ``source`` (a file name in ``csrc/``) goes."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(nvcc_flags(source)).encode())
     for name in source_closure(source):
         with open(os.path.join(CSRC, name), "rb") as f:
             digest.update(name.encode() + b"\0" + f.read())
@@ -76,7 +85,8 @@ def compile_source(source: str) -> tuple[str, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)],
+        [nvcc_path(), *nvcc_flags(source), "-o", tmp,
+         os.path.join(CSRC, source)],
         capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")

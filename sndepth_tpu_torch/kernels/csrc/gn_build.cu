@@ -8,8 +8,8 @@
 // reprojection residuals of T_i applied to the point X_j against tgt_j, each
 // pair weighted by sigmoid(2 x_i.x_j - sq_i - sq_j) * wgt_j per residual
 // channel. It writes H (B, n, 6, 6) with both triangles from the same sums,
-// so H is symmetric bit for bit, and g (B, n, 6). Its backward is the pair of
-// kernels in gn_build_bwd_i.cu and gn_build_bwd_j.cu, which keep this design.
+// so H is symmetric bit for bit, and g (B, n, 6). Its backward is the kernel
+// in gn_build_bwd.cu.
 //
 // What bounds it: operations. A pair in the radius costs ~250 float32
 // operations (64 of them the 32-wide embedding product) against 176 bytes of

@@ -1,6 +1,7 @@
 // The adjoint of one pair (i, j) of the dense-SE3 Gauss-Newton build,
-// derived by hand and shared by the two backward kernels
-// (gn_build_bwd_i.cu, gn_build_bwd_j.cu).
+// derived by hand, and the block helpers of the backward kernel
+// (gn_build_bwd.cu), which evaluates it twice for each pair (p, q) it
+// visits: once with p as i and once with p as j.
 //
 // The forward (gn_build.cu) adds, for a pair inside the radius,
 //     tri[p(c,d)] += attn w_m J_mc J_md   (c <= d),   g[c] += attn w_m J_mc r_m

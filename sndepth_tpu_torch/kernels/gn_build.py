@@ -3,10 +3,10 @@
 Replaces the Pallas TPU kernels of ``sndepth_tpu/kernels/gn_build.py``
 (:func:`gn_build_hg` -> ``_gn_pallas`` -> ``_kernel``, pair arithmetic
 ``_pair_contribs``; :func:`gn_build_hg_bwd` -> ``_gn_bwd_i_pallas`` and
-``_gn_bwd_j_pallas``) with the CUDA C++ kernels ``csrc/gn_build.cu``,
-``csrc/gn_build_bwd_i.cu`` and ``csrc/gn_build_bwd_j.cu`` for Hopper
-(sm_90a). For every pixel i it accumulates, over the pixels j within
-``radius`` grid units of i on both axes, the 6x6 normal equations H_i and
+``_gn_bwd_j_pallas``) with the CUDA C++ kernels ``csrc/gn_build.cu`` and
+``csrc/gn_build_bwd.cu`` for Hopper (sm_90a). For every pixel i it
+accumulates, over the pixels j within ``radius`` grid units of i on both
+axes, the 6x6 normal equations H_i and
 the right-hand side g_i of the reprojection residuals of T_i applied to the
 point X_j against the target tgt_j:
 
@@ -32,16 +32,15 @@ The kernels are written for the 32-wide embedding and float32.
 Gradients. :func:`gn_build_hg` is differentiable on both devices in its eight
 float inputs (the grid positions only feed the radius test): on the CPU by
 autograd through the plain version, on a CUDA tensor through a
-``torch.autograd.Function`` whose backward is :func:`gn_build_hg_bwd`, two
-kernel launches. Both take the cotangent of H folded onto the 21
-upper-triangle sums that the forward mirrors into both triangles
-(:func:`fold_cotangents`). ``gn_build_bwd_i`` sums the hand-derived adjoint of
-a pair (``csrc/gn_pair.cuh``) over j into d rot, d trans, d x_i, d sq_i and
-d intrinsics; ``gn_build_bwd_j`` sums it over i into d X, d x_j, d sq_j,
-d tgt, d wgt; d x and d sq are the two halves added. A gradient nobody wants
-is neither computed nor written, and a launch none of whose gradients is
-wanted is not made. As in the forward, a pair outside the radius adds
-exactly nothing, also where its depth is 0.
+``torch.autograd.Function`` whose backward is :func:`gn_build_hg_bwd`, one
+kernel launch (:func:`gn_build_bwd`). The kernel makes one pass over the
+pairs: a pixel p owns what is its as i of pair (p, q) (d rot, d trans, its
+share of d intrinsics) and as j of pair (q, p) (d X, d tgt, d wgt), and d x,
+d sq from both, summing the hand-derived adjoint of a pair
+(``csrc/gn_pair.cuh``) over the pixels q in the radius. A gradient nobody
+wants is not written, and a backward none of whose gradients is wanted
+launches nothing. As in the forward, a pair outside the radius adds exactly
+nothing, also where its depth is 0.
 """
 
 from __future__ import annotations
@@ -58,10 +57,10 @@ _SINGLE_SHOT_MAX = 2048
 _BLOCK = 1024
 # The pointers each kernel's C launcher ``<name>_launch`` in
 # ``csrc/<name>.cu`` takes before (b, n, radius, stream).
-_POINTERS = {"gn_build": 12, "gn_build_bwd_i": 16, "gn_build_bwd_j": 16}
-# The 21 upper-triangle entries (c, d), c <= d, row-major: the order of the
-# forward's sums and of the folded cotangents.
-_TRI_ROWS, _TRI_COLS = zip(*[(c, d) for c in range(6) for d in range(c, 6)])
+_POINTERS = {"gn_build": 12, "gn_build_bwd": 20}
+# A warp of the backward kernel owns a patch of PATCH_ROWS x PATCH_COLS grid
+# pixels (:func:`owner_pixels`).
+PATCH_ROWS, PATCH_COLS = 8, 4
 
 
 def _check(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4) -> None:
@@ -158,19 +157,6 @@ def gn_build_hg_reference(rot, trans, x, sq, gy, gx, X, tgt, wgt,
     return _mirror(H), g
 
 
-def fold_cotangents(ct_H: torch.Tensor, ct_g: torch.Tensor) -> torch.Tensor:
-    """(B, n, 27): the cotangent of H (B, n, 6, 6) folded onto the 21
-    upper-triangle sums that the forward mirrors into both triangles (an
-    off-diagonal sum gets ``ct_H[c, d] + ct_H[d, c]``, a diagonal one
-    ``ct_H[c, c]`` once), then the cotangent of g (B, n, 6)."""
-    rows, cols = list(_TRI_ROWS), list(_TRI_COLS)
-    upper = ct_H[..., rows, cols]
-    lower = ct_H[..., cols, rows]
-    diagonal = torch.tensor([c == d for c, d in zip(rows, cols)],
-                            device=ct_H.device)
-    return torch.cat([torch.where(diagonal, upper, upper + lower), ct_g], -1)
-
-
 def gn_build_hg_bwd_reference(rot, trans, x, sq, gy, gx, X, tgt, wgt,
                               intrinsics4, radius: int, ct_H, ct_g):
     """Plain version of the backward: ``torch.autograd.grad`` through the
@@ -243,60 +229,92 @@ def _launch(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4,
     return H, g
 
 
-def _launch_bwd(wrapper, args, ct27, outputs, radius):
-    """Launch the backward kernel named as ``wrapper`` on the prepared
-    inputs; ``outputs`` are the tensors it writes, ``None`` for a gradient
-    to skip."""
-    name = wrapper.__name__
+def owner_pixels(gy: torch.Tensor) -> torch.Tensor:
+    """The pixel each owner slot k of the backward kernel takes (slot k is
+    lane k % 32 of block k // 32), as the kernel's ``owner_pixel`` maps it:
+    the grid width w is the first index where ``gy`` changes (n if none);
+    the full rows are cut into bands of 8 rows, each band into patches of 8
+    rows x 4 columns left to right (the last one narrower where 4 does not
+    divide w), a patch's pixels row-major; a last, partial grid row keeps
+    its order. A permutation of [0, n) for any ``gy``."""
+    n = gy.shape[0]
+    changed = torch.nonzero(gy[1:] != gy[0])
+    w = int(changed[0, 0]) + 1 if len(changed) else n
+    rows = n // w
+    k = torch.arange(n, device=gy.device)
+    kk = k[:rows * w]
+    band = kk // (PATCH_ROWS * w)
+    hb = (rows - PATCH_ROWS * band).clamp(max=PATCH_ROWS)
+    o = kk - band * PATCH_ROWS * w
+    ncg = w // PATCH_COLS
+    in_groups = hb * PATCH_COLS * ncg
+    g = o // (hb * PATCH_COLS)
+    i = o - g * hb * PATCH_COLS
+    rest = o - in_groups
+    wl = max(w - PATCH_COLS * ncg, 1)
+    inside = o < in_groups
+    r = torch.where(inside, i // PATCH_COLS, rest // wl)
+    c = torch.where(inside, g * PATCH_COLS + i % PATCH_COLS,
+                    PATCH_COLS * ncg + rest % wl)
+    return torch.cat([(PATCH_ROWS * band + r) * w + c, k[rows * w:]])
+
+
+def lane_share(gy: torch.Tensor, gx: torch.Tensor, radius: int) -> float:
+    """Of the lanes that run a pair in the backward kernel, the share whose
+    pair is within the radius. A warp owns 32 slots of
+    :func:`owner_pixels` and steps through every streamed pixel that one of
+    its lanes reaches, all 32 lanes at once."""
+    pix = owner_pixels(gy)
+    n = pix.shape[0]
+    gy, gx = gy.to(torch.float64), gx.to(torch.float64)
+    inside = running = 0
+    for w0 in range(0, n, EMB):
+        own = pix[w0:w0 + EMB]
+        reach = (((gy[own, None] - gy[None]).abs() <= radius)
+                 & ((gx[own, None] - gx[None]).abs() <= radius))
+        inside += int(reach.sum())
+        running += EMB * int(reach.any(0).sum())
+    return inside / running
+
+
+def gn_build_bwd(args, ct_H, ct_g, radius: int, want=(True,) * 8):
+    """The backward kernel on a CUDA device, one launch: (d rot, d trans,
+    d x, d sq, d X, d tgt, d wgt, d intrinsics4), ``None`` where ``want`` is
+    false. ``args`` come from ``_kernel_inputs``; ``ct_H`` (B, n, 6, 6) and
+    ``ct_g`` (B, n, 6) are float32 and contiguous."""
+    # The kernel copies rows of x and ct_H 16 bytes at a time, ct_g 8.
+    args = list(args)
+    args[2], ct_H, ct_g = (t if t.data_ptr() % 16 == 0 else t.clone()
+                           for t in (args[2], ct_H, ct_g))
     sq = args[3]
     b, n = sq.shape
-    launch = _library(name)
+    shapes = [(b, n, 3, 3), (b, n, 3), (b, n, EMB), (b, n), (b, n, 3),
+              (b, n, 3), (b, n, 3), (b, n, 4)]
+    out = [torch.empty(shape, dtype=torch.float32, device=sq.device) if w
+           else None for w, shape in zip(want, shapes)]
+    launch = _library("gn_build_bwd")
     with torch.cuda.device(sq.device):
-        rc = launch(*(t.data_ptr() for t in args), ct27.data_ptr(),
-                    *(None if t is None else t.data_ptr() for t in outputs),
+        rc = launch(*(t.data_ptr() for t in args), ct_H.data_ptr(),
+                    ct_g.data_ptr(),
+                    *(None if t is None else t.data_ptr() for t in out),
                     b, n, float(radius),
                     torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    wrapper.launches += 1
-
-
-def _outputs(want, shapes, device):
-    return [torch.empty(shape, dtype=torch.float32, device=device) if w
-            else None for w, shape in zip(want, shapes)]
-
-
-def gn_build_bwd_i(args, ct27, radius: int, want=(True,) * 5):
-    """The per-i half on a CUDA device: (d rot, d trans, d x_i, d sq_i,
-    d intrinsics4) summed over j, ``None`` where ``want`` is false. ``args``
-    come from ``_kernel_inputs``, ``ct27`` from :func:`fold_cotangents`."""
-    b, n = args[3].shape
-    out = _outputs(want, [(b, n, 3, 3), (b, n, 3), (b, n, EMB), (b, n),
-                          (b, n, 4)], args[3].device)
-    _launch_bwd(gn_build_bwd_i, args, ct27, out, radius)
-    if out[4] is not None:
-        # The kernel writes each i's share; the sum over i is taken in one
-        # order from run to run.
-        out[4] = out[4].sum(1)
-    return out
-
-
-def gn_build_bwd_j(args, ct27, radius: int, want=(True,) * 5):
-    """The per-j half on a CUDA device: (d X, d x_j, d sq_j, d tgt, d wgt)
-    summed over i, ``None`` where ``want`` is false."""
-    b, n = args[3].shape
-    out = _outputs(want, [(b, n, 3), (b, n, EMB), (b, n), (b, n, 3),
-                          (b, n, 3)], args[3].device)
-    _launch_bwd(gn_build_bwd_j, args, ct27, out, radius)
-    return out
+        raise RuntimeError(f"gn_build_bwd launch failed: CUDA error {rc}")
+    gn_build_bwd.launches += 1
+    if out[7] is not None:
+        # The kernel writes each pixel's share; the sum over the pixels is
+        # taken in one order from run to run.
+        out[7] = out[7].sum(1)
+    return tuple(out)
 
 
 def gn_build_hg_bwd(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4,
                     radius: int, ct_H, ct_g, want=(True,) * 8):
     """Backward of :func:`gn_build_hg`: (d rot, d trans, d x, d sq, d X,
     d tgt, d wgt, d intrinsics4), ``None`` where ``want`` is false. CUDA
-    tensors launch the two kernels (each only if one of its gradients is
-    wanted), and any failure raises; CPU tensors take the plain version."""
+    tensors launch the kernel once (not at all if nothing is wanted), and
+    any failure raises; CPU tensors take the plain version."""
     _check(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4)
     if sq.device.type == "cpu":
         grads = gn_build_hg_bwd_reference(rot, trans, x, sq, gy, gx, X, tgt,
@@ -305,24 +323,13 @@ def gn_build_hg_bwd(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4,
         return tuple(g if w else None for g, w in zip(grads, want))
     if sq.device.type != "cuda":
         raise ValueError(f"no gn_build kernel for device {sq.device}")
+    if not any(want):
+        return (None,) * 8
     args = _kernel_inputs(rot, trans, x, sq, gy, gx, X, tgt, wgt,
                           intrinsics4)
-    ct27 = fold_cotangents(ct_H.float(), ct_g.float()).contiguous()
-    w_rot, w_trans, w_x, w_sq, w_X, w_tgt, w_wgt, w_intr = want
-    drot = dtrans = dx = dsq = dX = dtgt = dwgt = dintr = None
-    want_i = (w_rot, w_trans, w_x, w_sq, w_intr)
-    if any(want_i):
-        drot, dtrans, dx, dsq, dintr = gn_build_bwd_i(args, ct27, radius,
-                                                      want_i)
-    want_j = (w_X, w_x, w_sq, w_tgt, w_wgt)
-    if any(want_j):
-        dX, dx_j, dsq_j, dtgt, dwgt = gn_build_bwd_j(args, ct27, radius,
-                                                     want_j)
-        if w_x:
-            dx += dx_j
-        if w_sq:
-            dsq += dsq_j
-    return drot, dtrans, dx, dsq, dX, dtgt, dwgt, dintr
+    ct_H, ct_g = (t.detach().to(torch.float32).contiguous()
+                  for t in (ct_H, ct_g))
+    return gn_build_bwd(args, ct_H, ct_g, radius, want)
 
 
 class _GNBuild(torch.autograd.Function):
@@ -364,5 +371,4 @@ def gn_build_hg(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4,
 
 
 gn_build_hg.launches = 0
-gn_build_bwd_i.launches = 0
-gn_build_bwd_j.launches = 0
+gn_build_bwd.launches = 0

@@ -75,3 +75,14 @@ def test_source_and_flags_rename_the_library(csrc_copy, monkeypatch):
 def test_flags_keep_the_target_and_the_unfused_arithmetic():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert "-fmad=false" in build.NVCC_FLAGS
+
+
+def test_only_the_gauss_newton_backward_fuses_multiply_adds():
+    """The photo, DSSIM and warp kernels keep their exact ties with
+    ``-fmad=false``; the Gauss-Newton backward has none to keep."""
+    for source in ("photo_pair.cu", "dssim.cu", "warp.cu", "gn_build.cu"):
+        assert build.nvcc_flags(source) == build.NVCC_FLAGS
+    fused = build.nvcc_flags("gn_build_bwd.cu")
+    assert "-fmad=false" not in fused
+    assert fused == [f for f in build.NVCC_FLAGS if f != "-fmad=false"]
+    assert "arch=compute_90a,code=sm_90a" in fused

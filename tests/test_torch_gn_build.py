@@ -350,31 +350,9 @@ def test_plain_backward_matches_jax_vjp_of_the_xla_build(radius, b):
     _bwd_close(got, want)
 
 
-def test_the_cotangent_of_H_folds_onto_the_upper_triangle():
-    """``fold_cotangents`` is the adjoint of writing 21 sums into both
-    triangles: against autograd through that assembly, exactly."""
-    rng = np.random.RandomState(3)
-    ct_H = torch.from_numpy(rng.randn(2, 5, 6, 6).astype(np.float32))
-    ct_g = torch.from_numpy(rng.randn(2, 5, 6).astype(np.float32))
-    rows, cols = zip(*[(c, d) for c in range(6) for d in range(c, 6)])
-    tri = torch.from_numpy(rng.randn(2, 5, 21).astype(np.float32)
-                           ).requires_grad_(True)
-    H = torch.zeros(2, 5, 6, 6).index_put(
-        (torch.arange(2)[:, None, None], torch.arange(5)[None, :, None],
-         torch.tensor(rows)[None, None], torch.tensor(cols)[None, None]), tri)
-    (K8._mirror(H) * ct_H).sum().backward()
-    folded = K8.fold_cotangents(ct_H, ct_g)
-    assert folded.shape == (2, 5, 27)
-    torch.testing.assert_close(folded[..., :21], tri.grad, rtol=0, atol=0)
-    assert torch.equal(folded[..., 21:], ct_g)
-    # Entry 1 is (0, 1): both off-diagonal cotangents; entry 6 is (1, 1).
-    assert torch.equal(folded[..., 1], ct_H[..., 0, 1] + ct_H[..., 1, 0])
-    assert torch.equal(folded[..., 6], ct_H[..., 1, 1])
-
-
 WANT_SUBSETS = [(False, False, True, True, False, True, True, False),
                 (True, False, False, False, False, False, False, True),
-                (False,) * 7 + (True,)]
+                (False,) * 7 + (True,), (False,) * 8]
 
 
 @pytest.mark.parametrize("want", WANT_SUBSETS)
@@ -428,12 +406,12 @@ def test_a_backward_launch_without_a_card_raises_and_counts_nothing():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     args = _torch(_inputs())
-    ct27 = K8.fold_cotangents(*map(torch.from_numpy, _cotangents(0, 1, 54)))
-    before = (K8.gn_build_bwd_i.launches, K8.gn_build_bwd_j.launches)
-    for half in (K8.gn_build_bwd_i, K8.gn_build_bwd_j):
+    ct_H, ct_g = map(torch.from_numpy, _cotangents(0, 1, 54))
+    before = K8.gn_build_bwd.launches
+    for want in ((True,) * 8, WANT_SUBSETS[0]):
         with pytest.raises((RuntimeError, OSError), match="nvcc|cannot"):
-            half(K8._kernel_inputs(*args), ct27, 3)
-    assert (K8.gn_build_bwd_i.launches, K8.gn_build_bwd_j.launches) == before
+            K8.gn_build_bwd(K8._kernel_inputs(*args), ct_H, ct_g, 3, want)
+    assert K8.gn_build_bwd.launches == before
     meta = tuple(a.to("meta") for a in args)
     with pytest.raises(ValueError, match="no gn_build kernel"):
         K8.gn_build_hg_bwd(*meta, 3, torch.zeros(1, 54, 6, 6, device="meta"),
@@ -485,8 +463,7 @@ def test_plain_version_calls_only_plain_versions(monkeypatch):
     monkeypatch.setattr(K8, "gn_build_hg", poisoned)
     monkeypatch.setattr(K8, "_launch", poisoned)
     monkeypatch.setattr(K8, "_library", poisoned)
-    for name in ("gn_build_hg_bwd", "gn_build_bwd_i", "gn_build_bwd_j",
-                 "_launch_bwd", "_kernel_inputs"):
+    for name in ("gn_build_hg_bwd", "gn_build_bwd", "_kernel_inputs"):
         monkeypatch.setattr(K8, name, poisoned)
     H, g = K8.gn_build_hg_reference(*_torch(_inputs()), 3)
     assert torch.isfinite(H).all() and torch.isfinite(g).all()
@@ -509,3 +486,47 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         args[9] = args[9].to("meta")
     with pytest.raises((TypeError, ValueError)):
         K8.gn_build_hg(*args, 3)
+
+
+def _grid(h, w):
+    return (torch.arange(h).repeat_interleave(w).float(),
+            torch.arange(w).repeat(h).float())
+
+
+# The training and frame grids (n = 832, 3328, 7332), a height that is not
+# a multiple of the patch's 8 rows and a width not of its 4 columns, a grid
+# stored column-major (gy is not row-major: the width found is 1) and one
+# whose gy never changes (the width found is n).
+OWNER_CASES = {"16x52": _grid(16, 52), "32x104": _grid(32, 104),
+               "47x156": _grid(47, 156), "13x7": _grid(13, 7),
+               "column_major_9x6": tuple(t.reshape(9, 6).t().reshape(-1)
+                                         for t in _grid(9, 6)),
+               "one_row_50": (torch.zeros(50), torch.arange(50.0))}
+
+
+@pytest.mark.parametrize("case", sorted(OWNER_CASES))
+def test_the_owner_map_of_the_backward_kernel_is_a_bijection(case):
+    """The host mirror of the kernel's owner map: every pixel has exactly
+    one owner slot, for any ``gy``; the kernel's sums do not depend on the
+    map (the radius test reads gy and gx), only its speed does."""
+    gy, gx = OWNER_CASES[case]
+    pixels = K8.owner_pixels(gy)
+    n = gy.shape[0]
+    assert pixels.shape == (n,)
+    assert torch.equal(pixels.sort().values, torch.arange(n))
+    if case == "32x104":
+        # The first warp owns rows 0-7 of columns 0-3, row-major.
+        want = (torch.arange(8)[:, None] * 104 + torch.arange(4)).reshape(-1)
+        assert torch.equal(pixels[:32], want)
+
+
+@pytest.mark.parametrize("h,w,least", [(32, 104, 0.96), (47, 156, 0.90)])
+def test_the_patch_map_keeps_running_lanes_in_the_radius(monkeypatch, h, w,
+                                                         least):
+    """At radius 32, of the lanes that run a pair, at least 96% (32x104)
+    and 90% (47x156) are in the radius with a warp owning 8 x 4 pixels,
+    against 66% with 32 pixels of a row."""
+    gy, gx = _grid(h, w)
+    assert K8.lane_share(gy, gx, 32) >= least
+    monkeypatch.setattr(K8, "owner_pixels", lambda g: torch.arange(len(g)))
+    assert 0.65 <= K8.lane_share(gy, gx, 32) <= 0.66

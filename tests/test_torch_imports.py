@@ -154,8 +154,7 @@ def _counts():
         K1.photo_pair_sums, K1.photo_sums, K1.photo_pair_weighted_sums,
         K2.smooth_sums, K5.warp_gather, K5.warp_coord_grad, K5.warp_splat,
         K7.dssim_forward,
-        K7.dssim_backward, K8.gn_build_hg, K8.gn_build_bwd_i,
-        K8.gn_build_bwd_j)]
+        K7.dssim_backward, K8.gn_build_hg, K8.gn_build_bwd)]
 
 
 def test_kernel_launch_without_a_card_raises():
@@ -178,12 +177,9 @@ def test_kernel_launch_without_a_card_raises():
                    lambda: K7._launch_forward(x, x),
                    lambda: K7._launch_backward(x, x, x, True, True),
                    lambda: K8._launch(*_gn_inputs(), 1),
-                   lambda: K8.gn_build_bwd_i(
+                   lambda: K8.gn_build_bwd(
                        K8._kernel_inputs(*_gn_inputs()),
-                       torch.zeros(1, 6, 27), 1),
-                   lambda: K8.gn_build_bwd_j(
-                       K8._kernel_inputs(*_gn_inputs()),
-                       torch.zeros(1, 6, 27), 1)):
+                       torch.zeros(1, 6, 6, 6), torch.zeros(1, 6, 6), 1)):
         with pytest.raises((RuntimeError, OSError)):
             launch()
     with pytest.raises(ImportError):
@@ -299,9 +295,10 @@ def test_profile_step_cli_needs_a_card_and_knows_the_train_family(capsys):
     assert exc.value.code == 2
     assert "needs a CUDA device" in capsys.readouterr().err
     assert profile_step.group_of(
-        "void (anonymous namespace)::gn_bwd_i_kernel<false>(float const*"
-    ).startswith("K8b-i")
-    assert profile_step.group_of("gn_bwd_j_kernel<true>").startswith("K8b-j")
+        "void (anonymous namespace)::gn_bwd_kernel<false, false>(float const*"
+    ).startswith("K8b ")
+    assert profile_step.group_of("gn_bwd_kernel<true, true>").startswith(
+        "K8b ")
     assert profile_step.group_of("gn_build_kernel(float").startswith("K8 ")
 
 
