@@ -267,13 +267,14 @@ def lane_share(gy: torch.Tensor, gx: torch.Tensor, radius: int) -> float:
     pix = owner_pixels(gy)
     n = pix.shape[0]
     gy, gx = gy.to(torch.float64), gx.to(torch.float64)
+    lanes = PATCH_ROWS * PATCH_COLS
     inside = running = 0
-    for w0 in range(0, n, EMB):
-        own = pix[w0:w0 + EMB]
+    for w0 in range(0, n, lanes):
+        own = pix[w0:w0 + lanes]
         reach = (((gy[own, None] - gy[None]).abs() <= radius)
                  & ((gx[own, None] - gx[None]).abs() <= radius))
         inside += int(reach.sum())
-        running += EMB * int(reach.any(0).sum())
+        running += lanes * int(reach.any(0).sum())
     return inside / running
 
 
