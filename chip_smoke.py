@@ -99,6 +99,9 @@ SCALES = ((128, 416), (64, 208), (32, 104), (16, 52))
 ALPHA = 0.85
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+# A product in float32 accuracy on the tensor cores: three TF32 products
+# (lo.hi + hi.lo + hi.hi) at the dense TF32 rate.
+TF32X3_FLOPS_PER_S = 495e12 / 3
 FLOW_BATCH = 32                 # the flow family's batch; n = 2 * 32 pairs
 # Launches one stage-2 train step makes (2 sources, 4 scales): K1 on scales
 # 1-3; K2 on 4 depth pyramids and 2 channels x 2 directions x 4 scales of
@@ -1038,21 +1041,33 @@ def phase_gn_build_bwd() -> dict:
             "gn_build_bwd_err_over_tol": worst["scaled"]}
 
 
-# Float32 operations of one in-radius pair in the backward kernel, counted
-# from its arithmetic (csrc/gn_build_bwd.cu and csrc/gn_pair.cuh), with the
-# embedding product and the d x sum counted once for both roles of the pair:
-# the embedding product (64), distance and sigmoid (~8); then for each role,
-# the transformed point and its inverse (~20), the 13 Jacobian entries and 3
-# residuals (~36), v = A J over the non-zero columns (59 multiply-adds,
-# 118), the quadratic forms and cg . J (~52), q and S (~15): 2 x 241; d dist
-# of both (4), the 32 multiply-adds of d x (64), d sq (1), d tgt and d wgt
-# (9): 632. All gradients add each role's geometry chain (d J, d r -> d P,
-# d intrinsics: ~150), d rot, d trans and d intrinsics (25) and d X (15):
-# 972. The two kernels it replaced counted 384 (i) + 393 (j) = 777 a pair
-# for the train step's gradients, 559 + 558 = 1117 for all: each computed
-# the embedding product, the sigmoid and a d x sum of its own.
-GN_BWD_PAIR_FLOPS = {"train": 632, "all": 972}
+# Float32 operations the backward needs for an in-radius ordered pair
+# (i, j), counted from the arithmetic of csrc/gn_pair.cuh. The attention is
+# symmetric (dist_ij = dist_ji), so the embedding product 2 x_i . x_j and
+# the sigmoid are needed once per unordered pair: 32 and ~4 an ordered
+# pair. Then the pair's adjoint, once (241: the transformed point and its
+# inverse ~20, the 13 Jacobian entries and 3 residuals ~36, v = A J over
+# the non-zero columns 118, the quadratic forms and cg . J ~52, q and S
+# ~15); d dist (2); d x_i and d x_j from dd_ij + dd_ji (32 multiply-adds
+# each, once per unordered pair: 64); d sq (1); d tgt and d wgt (9): 353,
+# of which the two matrix products (96) count at the tensor cores' rate for
+# float32 accuracy. All gradients add the pair's geometry chain (d J, d r ->
+# d P, d intrinsics ~150), d rot, d trans and d intrinsics (25) and d X
+# (15): 543.
+GN_BWD_PAIR_FLOPS = {"train": 353, "all": 543}
+GN_BWD_PAIR_MMA_FLOPS = 96
+# What the kernels do besides, reported apart from the bound. The one-pass
+# kernel's visit of (p, q) evaluates the embedding product, the sigmoid and
+# the adjoint of both (p, q) and (q, p), so each of these runs twice for
+# every pair, once for each owner (+32, +4, +241 and +2 for d dist): 632 a
+# visit, 972 with both geometry chains (2 x 150 + 40), of which 128 on the
+# tensor cores. The two kernels it replaced did 384 (i) + 393 (j) = 777,
+# 559 + 558 = 1117 for all, each with an embedding product and a d x sum of
+# its own (256).
+GN_BWD_KERNEL_PAIR_FLOPS = {"train": 632, "all": 972}
+GN_BWD_KERNEL_PAIR_MMA_FLOPS = 128
 GN_BWD_HALVES_PAIR_FLOPS = {"train": 384 + 393, "all": 559 + 558}
+GN_BWD_HALVES_PAIR_MMA_FLOPS = 256
 GN_BWD_SUBSETS = {"train": GN_BWD_TRAIN, "all": (True,) * 8}
 # The build's sizes on the training path: the train CLI's default batch
 # (256x832, B = 2) and a KITTI frame (376x1248, B = 1); 128x416 besides.
@@ -1061,9 +1076,10 @@ GN_BWD_SIZES = ((2, 256, 832), (1, 376, 1248), (1, 128, 416))
 
 def _gn_bwd_times() -> tuple[dict, dict]:
     """K8b at the sizes above (radius 32), asked for all its gradients and
-    for the train step's subset, beside the plain version, the bound (also
-    by the two replaced kernels' count of operations) and the share of the
-    kernel's running lanes in the radius. Returns the rows and, for the
+    for the train step's subset, beside the plain version, the bound, the
+    time of the operations the kernel does (both adjoints of a pair) and of
+    those the two replaced kernels did, at the same rates, and the share of
+    the kernel's running lanes in the radius. Returns the rows and, for the
     kernels line, the totals over the first two sizes with the train step's
     subset: what one step at each size launches."""
     import torch
@@ -1085,7 +1101,10 @@ def _gn_bwd_times() -> tuple[dict, dict]:
             out = K8.gn_build_bwd(kargs, ct_H, ct_g, GN_RADIUS, want)
             n_bytes = _nbytes(*kargs, ct_H, ct_g,
                               *(t for t in out if t is not None))
-            halves = _bound(n_bytes, GN_BWD_HALVES_PAIR_FLOPS[subset] * pairs)
+            done = _bound(n_bytes, GN_BWD_KERNEL_PAIR_FLOPS[subset] * pairs,
+                          GN_BWD_KERNEL_PAIR_MMA_FLOPS * pairs)
+            halves = _bound(n_bytes, GN_BWD_HALVES_PAIR_FLOPS[subset] * pairs,
+                            GN_BWD_HALVES_PAIR_MMA_FLOPS * pairs)
             rows.append({
                 "shape": f"{b}x{n} ({h8}x{w8})", "gradients": subset,
                 "in_radius_pairs": pairs, "lane_share_in_radius": share,
@@ -1093,7 +1112,9 @@ def _gn_bwd_times() -> tuple[dict, dict]:
                     lambda: K8.gn_build_bwd(kargs, ct_H, ct_g, GN_RADIUS,
                                             want), 10),
                 "plain_ms": plain_ms,
-                **_bound(n_bytes, GN_BWD_PAIR_FLOPS[subset] * pairs),
+                **_bound(n_bytes, GN_BWD_PAIR_FLOPS[subset] * pairs,
+                         GN_BWD_PAIR_MMA_FLOPS * pairs),
+                "kernel_flops_ms": done["flops_ms"],
                 "halves_flops_ms": halves["flops_ms"], "library_ms": None})
     main = {f"{b}x{(h // 8) * (w // 8)} ({h // 8}x{w // 8})"
             for b, h, w in GN_BWD_SIZES[:2]}
@@ -1600,13 +1621,15 @@ def phase_raft3d() -> dict:
 PHOTO_FLOPS, DSSIM_FWD_FLOPS, DSSIM_BWD_FLOPS, SMOOTH_FLOPS = 600, 100, 170, 40
 
 
-def _bound(n_bytes: float, flops: float) -> dict:
+def _bound(n_bytes: float, flops: float, mma_flops: float = 0.0) -> dict:
     """The least time (ms) the card could take: each input read once and
     each output written once at the memory rate, against the operations at
-    the float32 rate."""
+    the float32 rate, those of them in matrix products (``mma_flops``) at
+    the tensor cores' rate for float32 accuracy."""
     return {"bytes": n_bytes, "flops": flops,
             "bytes_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
-            "flops_ms": flops / FP32_FLOPS_PER_S * 1e3}
+            "flops_ms": ((flops - mma_flops) / FP32_FLOPS_PER_S
+                         + mma_flops / TF32X3_FLOPS_PER_S) * 1e3}
 
 
 def _nbytes(*tensors) -> int:

@@ -15,12 +15,17 @@
 // its gradients is wanted (the training path wants x, sq, tgt and wgt: the
 // pose is detached, depth and intrinsics are data).
 //
-// What bounds it: operations. A pair in the radius costs ~630 float32
-// operations for the training path's gradients (two adjoints of ~240, the
-// 32-wide embedding product and the 32-wide d x sum; ~970 with both
-// geometry chains) against inputs of a few megabytes that stay in L2: 0.110
-// ms at 2 x 3328 on an H100, which the kernel takes 0.525 ms for (21%; the
-// two kernels it replaced took 1.231). What the design does about it:
+// What bounds it: operations. For the training path's gradients the
+// function needs ~350 float32 operations an ordered pair in the radius (one
+// adjoint of ~240; the embedding product and the sigmoid once per unordered
+// pair; the d x sum), ~100 of them in two matrix products that the tensor
+// cores can take, against inputs of a few megabytes that stay in L2: 0.052
+// ms at 2 x 3328 on an H100 (chip_smoke.py GN_BWD_PAIR_FLOPS), which the
+// kernel takes 0.525 ms for (10%; the two kernels it replaced took 1.231).
+// One owner a sum costs work besides: a visit of (p, q) runs the adjoint,
+// the embedding product and the sigmoid of both (p, q) and (q, p), so each
+// runs twice a pair (~630 operations a visit, 0.097 ms at the same rates).
+// What the design does about it:
 //   * One pass, both roles. The attention is symmetric (dist_pq = dist_qp,
 //     and so is the radius test), so a block that owns pixels p evaluates
 //     pair (p, q) with p as i and pair (q, p) with p as j from one staging
@@ -46,12 +51,11 @@
 //     overwrites with dd_pq + dd_qp, the A operand of the d x product. The
 //     d x sums stay in shared memory between tiles, so the pair loop keeps
 //     only the owner's pose, cotangents, point, target and confidence and
-//     7 running sums in registers. Chosen by a measurement
-//     (tools/compare_gn_bwd.py, H100 80GB HBM3 at 700 W): the same kernel
-//     with both products on the float32 pipe (-DGN_BWD_FMA_PRODUCTS, the
-//     owner's embedding in registers, four independent partial sums a dot)
-//     took 0.622 ms against 0.525 at 2 x 3328 and 1.005 against 0.823 at
-//     1 x 7332 (train step's gradients). The split form's d x is ~4e-5 of
+//     7 running sums in registers. Chosen by a measurement (H100 80GB HBM3
+//     at 700 W): the same kernel with both products on the float32 pipe
+//     (the owner's embedding in registers, four independent partial sums a
+//     dot) took 0.622 ms against 0.525 at 2 x 3328 and 1.005 against 0.823
+//     at 1 x 7332 (train step's gradients). The split form's d x is ~4e-5 of
 //     the mean entry off a float64 evaluation, the float32 plain version's
 //     ~8e-6 (chip_smoke.py's gn_build_bwd phase).
 //   * The next tile of 64 streamed pixels is copied into a second buffer
@@ -78,7 +82,7 @@
 // stores of 44 bytes (train step's gradients, no geometry chain), 48 (the
 // j role's chain), 120 (the i role's) and 168 (both); 160 bytes of static
 // and 111,872 of dynamic shared memory a block. Times: H100 80GB HBM3 at
-// 700 W, tools/compare_gn_bwd.py.
+// 700 W, CUDA events (PERF.md names the runs).
 
 #include <stdint.h>
 
@@ -216,7 +220,6 @@ __device__ __forceinline__ void dot_products(const float* __restrict__ tile,
                                              const float* __restrict__ xlo,
                                              float* __restrict__ D, int warp,
                                              int lane) {
-#ifndef GN_BWD_FMA_PRODUCTS
     const int g = lane >> 2, t = lane & 3;
     float c[2][4] = {};
 #pragma unroll
@@ -249,29 +252,6 @@ __device__ __forceinline__ void dot_products(const float* __restrict__ tile,
         D[(2 * t) * SD + o + 8] = c[mt][2];
         D[(2 * t + 1) * SD + o + 8] = c[mt][3];
     }
-#else
-    // The same products on the float32 pipe: the owner's embedding (held
-    // unsplit in xhi) in registers, four independent partial sums a dot.
-    const float4* own = reinterpret_cast<const float4*>(xhi + lane * SO);
-    float4 e[EMB / 4];
-#pragma unroll
-    for (int c = 0; c < EMB / 4; ++c) e[c] = own[c];
-#pragma unroll
-    for (int i = 0; i < QW; ++i) {
-        const float4* q = reinterpret_cast<const float4*>(
-            tile + row_at(warp + JL * i));
-        float s[4] = {};
-#pragma unroll
-        for (int c = 0; c < EMB / 4; ++c) {
-            const float4 v = q[c];
-            s[0] = fmaf(e[c].x, v.x, s[0]);
-            s[1] = fmaf(e[c].y, v.y, s[1]);
-            s[2] = fmaf(e[c].z, v.z, s[2]);
-            s[3] = fmaf(e[c].w, v.w, s[3]);
-        }
-        D[i * SD + lane] = (s[0] + s[1]) + (s[2] + s[3]);
-    }
-#endif
 }
 
 // acc[o][e] += sum_q D[q][o] x_q[e] over the warp's QW streamed pixels.
@@ -279,7 +259,6 @@ __device__ __forceinline__ void dx_products(const float* __restrict__ tile,
                                             const float* __restrict__ D,
                                             float* __restrict__ acc, int warp,
                                             int lane) {
-#ifndef GN_BWD_FMA_PRODUCTS
     const int g = lane >> 2, t = lane & 3;
     // B (k = streamed, n = embedding).
     uint32_t bh[EMB / 8][2], bl[EMB / 8][2];
@@ -310,26 +289,6 @@ __device__ __forceinline__ void dx_products(const float* __restrict__ tile,
             cp[8 * SA + 1] = c[3];
         }
     }
-#else
-    float dd[QW];
-#pragma unroll
-    for (int i = 0; i < QW; ++i) dd[i] = D[i * SD + lane];
-    float4* row = reinterpret_cast<float4*>(acc + lane * SA);
-#pragma unroll
-    for (int c = 0; c < EMB / 4; ++c) {
-        float4 a = row[c];
-#pragma unroll
-        for (int i = 0; i < QW; ++i) {
-            const float4 v = reinterpret_cast<const float4*>(
-                tile + row_at(warp + JL * i))[c];
-            a.x = fmaf(dd[i], v.x, a.x);
-            a.y = fmaf(dd[i], v.y, a.y);
-            a.z = fmaf(dd[i], v.z, a.z);
-            a.w = fmaf(dd[i], v.w, a.w);
-        }
-        row[c] = a;
-    }
-#endif
 }
 
 // Asynchronous copy of BYTES (4, 8 or 16) from global to shared memory.
@@ -438,14 +397,10 @@ gn_bwd_kernel(const float* __restrict__ rot, const float* __restrict__ trans,
 #pragma unroll
     for (int e = warp * 4; e < warp * 4 + 4; ++e) {
         const float v = 2.0f * x[bp * EMB + e];
-#ifndef GN_BWD_FMA_PRODUCTS
         uint32_t hi, lo;
         split(v, hi, lo);
         xhi[lane * SO + e] = __uint_as_float(hi);
         xlo[lane * SO + e] = __uint_as_float(lo);
-#else
-        xhi[lane * SO + e] = v;
-#endif
     }
     float* D = smem + OFF_D + warp * QW * SD;
     float* accx = smem + OFF_ACC + warp * TO * SA;
