@@ -55,7 +55,7 @@
 //     at 700 W): the same kernel with both products on the float32 pipe
 //     (the owner's embedding in registers, four independent partial sums a
 //     dot) took 0.622 ms against 0.525 at 2 x 3328 and 1.005 against 0.823
-//     at 1 x 7332 (train step's gradients). The split form's d x is ~4e-5 of
+//     at 1 x 7332 (train step's gradients). The split form's d x is ~6e-5 of
 //     the mean entry off a float64 evaluation, the float32 plain version's
 //     ~8e-6 (chip_smoke.py's gn_build_bwd phase).
 //   * The next tile of 64 streamed pixels is copied into a second buffer
