@@ -284,10 +284,43 @@ def _scale_total(per_scale: list) -> dict:
     """A kernel's times over the scales of one step, and its bound."""
     t_bytes = sum(r["bytes_ms"] for r in per_scale)
     t_flops = sum(r["flops_ms"] for r in per_scale)
+    extra = {k: sum(r[k] for r in per_scale)
+             for k in ("kernel_flops_ms", "pr2_bound_ms")
+             if k in per_scale[0]}
     return {"kernel_ms": sum(r["kernel_ms"] for r in per_scale),
             "plain_ms": sum(r["plain_ms"] for r in per_scale),
             "bound_ms": max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            **extra}
+
+
+def _photo_tie_case(tgt, ns: int) -> dict:
+    """K1 against its plain version where every window ties: the sources
+    equal the target and the coordinates are the pixel grid, so each
+    direction samples the frame it compares with, and every window inside
+    the image has SSIM exactly 1 and takes the clip's 0.5 tie factor (the
+    edge_zero sampler gives 0 on the last row and column, whose windows do
+    not tie). The tolerances of the other cases."""
+    import torch
+    from sndepth_tpu_torch.kernels import photo_loss as K1
+    from sndepth_tpu_torch.ops.warp import pixel_grid
+    b, _, h, w = tgt.shape
+    srcs = tgt[:, None].expand(b, ns, 3, h, w).contiguous()
+    grid = pixel_grid(h, w, device=DEV).reshape(1, 1, 2, h, w)
+    cf = grid.expand(b, ns, 2, h, w).contiguous()
+    cb = cf.clone()
+    lk, dfk, dbk = K1.photo_pair_sums(tgt, srcs, cf, cb, ALPHA)
+    lp, dfp, dbp = K1.photo_pair_sums_reference(tgt, srcs, cf, cb, ALPHA)
+    torch.cuda.synchronize()
+    _assert_finite(f"K1 equal windows at {h}x{w}", dfk, dbk)
+    for got, want in ((dfk, dfp), (dbk, dbp)):
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=1e-3)
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    if loss_rel > 1e-5:
+        raise AssertionError(f"K1 equal windows: loss {float(lk)} vs plain "
+                             f"{float(lp)} at {h}x{w}")
+    return {"loss": float(lk), "loss_rel_err": loss_rel,
+            "grad_max_abs_err": max(_max_err(dfk, dfp), _max_err(dbk, dbp))}
 
 
 def phase_photo() -> dict:
@@ -320,6 +353,10 @@ def phase_photo() -> dict:
                            "loss_rel_err": loss_rel, "grad_max_abs_err": err})
             max_err = max(max_err, err)
             max_loss_rel = max(max_loss_rel, loss_rel)
+        tie = _photo_tie_case(tgt, srcs.shape[1])
+        checks.append({"hw": [h, w], "case": "equal_windows_tie", **tie})
+        max_err = max(max_err, tie["grad_max_abs_err"])
+        max_loss_rel = max(max_loss_rel, tie["loss_rel_err"])
     timings = {}
     for bt in (4, 128):
         _, pyr_t = _pyramid_inputs(bt, seed=12)
@@ -335,8 +372,8 @@ def phase_photo() -> dict:
                                                         ALPHA)),
                 "plain_ms": time_ms(lambda: K1.photo_pair_sums_reference(
                     tgt, srcs, cf, cb, ALPHA)),
-                **_bound(_nbytes(tgt, srcs, cf, cb, cf, cb),
-                         PHOTO_FLOPS * 2 * bt * ns * h * w)})
+                **_photo_bound(_nbytes(tgt, srcs, cf, cb, cf, cb),
+                               2 * bt * ns * h * w)})
         timings[f"B{bt}"] = per_scale
         timings[f"B{bt}_total"] = _scale_total(per_scale)
     emit("photo", checks=checks, timings=timings)
@@ -695,12 +732,24 @@ def phase_photo_modes() -> dict:
 
 RAFT_SIZES = ((128, 416), (376, 1248))   # the CLI default; a KITTI frame /8
 GN_RADIUS = 32
-# Float32 operations of one in-radius pair in the Gauss-Newton build: the
-# 32-wide embedding product (64), the distance and sigmoid (~8), the
-# transformed point and its inverse depth (~20), residuals (~11), the 13
+# Float32 operations the Gauss-Newton build needs for an in-radius ordered
+# pair (i, j), counted from the arithmetic of csrc/gn_build.cu. The
+# attention is symmetric (dist_ij = dist_ji), so the 32-wide embedding
+# product 2 x_i . x_j (64 an evaluation) and the distance and sigmoid (~8)
+# are needed once per unordered pair: 32 and ~4 an ordered pair; the product
+# counts at the tensor cores' rate for float32 accuracy. Then the
+# transformed point and its inverse depth (~20), the residuals (~11), the 13
 # Jacobian entries (~27), 13 weighted entries (~16) and the 54 accumulated
-# products (108).
-GN_PAIR_FLOPS = 254
+# products (108): 218, 32 of them in the product.
+GN_PAIR_FLOPS = 218
+GN_PAIR_MMA_FLOPS = 32
+# What the kernel does, reported apart (`kernel_flops_ms`): each owner
+# evaluates the product and the sigmoid of its own pairs, so both run for
+# every ordered pair: 254, the product's 64 on the tensor cores where the
+# kernel runs in clusters (csrc/gn_build.cu), else on the float32 pipe. PR
+# 4-7 counted these 254 at the float32 rate as the bound.
+GN_KERNEL_PAIR_FLOPS = 254
+GN_KERNEL_PAIR_MMA_FLOPS = 64
 
 
 def _gn_inputs(b: int, h: int, w: int, seed: int):
@@ -1129,36 +1178,68 @@ def _gn_bwd_times() -> tuple[dict, dict]:
     return {"gn_build_bwd": rows}, {"gn_build_bwd": total}
 
 
-def phase_kernel_times_raft3d() -> dict:
-    """K8 at the two sizes the RAFT3D frame gives it (B = 1, radius 32),
-    beside its plain version and its bound; and K5 and K5b as
-    ``depth_sampler`` would call them (``zero_pad``, one channel). No single
-    PyTorch call computes the build, so it has no library time."""
-    import torch
+# K8's sizes: the two RAFT3D frames (B = 1; 16 launches a frame) and the
+# train CLI's batch (GN_BWD_SIZES' first, B = 2; 12 launches a step).
+GN_SIZES = (("frame", 1, *RAFT_SIZES[0]), ("frame", 1, *RAFT_SIZES[1]),
+            ("train", *GN_BWD_SIZES[0]))
+
+
+def gn_build_rows(sizes=GN_SIZES) -> list[dict]:
+    """K8 at ``sizes`` (radius 32) beside its plain version, its bound (what
+    the build needs), the time of its own work at the same rates, the bound
+    PR 4-7 used (every ordered pair's 254 operations at the float32 rate),
+    its cluster size and the share of its running lanes in the radius."""
     from sndepth_tpu_torch.kernels import gn_build as K8
-    gen = torch.Generator().manual_seed(7)
-    shapes, sampler = [], {"warp_gather": [], "warp_coord_grad": []}
-    for h, w in RAFT_SIZES:
+    rows = []
+    for path, b, h, w in sizes:
         h8, w8 = h // 8, w // 8
-        args = _gn_inputs(1, h8, w8, 60)
+        n = h8 * w8
+        args = _gn_inputs(b, h8, w8, 60)
         Hk, gk = K8.gn_build_hg(*args, GN_RADIUS)
-        pairs = _in_radius_pairs(h8, w8, GN_RADIUS)
+        pairs = b * _in_radius_pairs(h8, w8, GN_RADIUS)
         floats = [a for a in args if a.is_floating_point()]
         # The grid positions reach the kernel as two float32 vectors.
-        n_bytes = _nbytes(*floats, Hk, gk) + 2 * 4 * h8 * w8
-        shapes.append({
-            "shape": f"1x{h8 * w8} ({h8}x{w8})", "in_radius_pairs": pairs,
-            "all_pairs": (h8 * w8) ** 2,
+        n_bytes = _nbytes(*floats, Hk, gk) + 2 * 4 * n
+        csize = K8.cluster_size(b * -(-n // K8.OWNERS))
+        done = _bound(n_bytes, GN_KERNEL_PAIR_FLOPS * pairs,
+                      GN_KERNEL_PAIR_MMA_FLOPS * pairs if csize > 1 else 0)
+        rows.append({
+            "shape": f"{b}x{n} ({h8}x{w8})", "path": path,
+            "in_radius_pairs": pairs, "all_pairs": b * n * n,
+            "cluster_size": csize,
+            "lane_share_in_radius": K8.lane_share(args[4].cpu(),
+                                                  args[5].cpu(), GN_RADIUS),
             "ms": time_ms(lambda: K8.gn_build_hg(*args, GN_RADIUS), 10),
             "plain_ms": time_ms(
                 lambda: K8.gn_build_hg_reference(*args, GN_RADIUS), 5),
-            **_bound(n_bytes, GN_PAIR_FLOPS * pairs), "library_ms": None})
+            **_bound(n_bytes, GN_PAIR_FLOPS * pairs,
+                     GN_PAIR_MMA_FLOPS * pairs),
+            "kernel_flops_ms": done["flops_ms"],
+            "pr4_bound_ms": max(n_bytes / HBM_BYTES_PER_S * 1e3,
+                                254 * pairs / FP32_FLOPS_PER_S * 1e3),
+            "library_ms": None})
+    return rows
+
+
+def phase_kernel_times_raft3d() -> dict:
+    """K8 at the two sizes the RAFT3D frame gives it and at the train step's
+    (radius 32), beside its plain version and its bound; and K5 and K5b as
+    ``depth_sampler`` would call them (``zero_pad``, one channel). No single
+    PyTorch call computes the build, so it has no library time."""
+    import torch
+    gen = torch.Generator().manual_seed(7)
+    rows = gn_build_rows()
+    shapes = [r for r in rows if r["path"] == "frame"]
+    sampler = {"warp_gather": [], "warp_coord_grad": []}
+    for h, w in RAFT_SIZES:
+        h8, w8 = h // 8, w // 8
         depth, coords = _sampler_inputs(h8, w8, gen)
         gather, coord = _sampler_rows(depth, coords, gen, "zero_pad",
                                       host=True)
         label = f"1x1x{h8}x{w8}"
         sampler["warp_gather"].append({"shape": label, **gather})
         sampler["warp_coord_grad"].append({"shape": label, **coord})
+    # The kernels line's total: one frame's two sizes.
     t_bytes = sum(r["bytes_ms"] for r in shapes)
     t_flops = sum(r["flops_ms"] for r in shapes)
     total = {"ms": sum(r["ms"] for r in shapes),
@@ -1167,7 +1248,7 @@ def phase_kernel_times_raft3d() -> dict:
              "bound_by": "bytes" if t_bytes >= t_flops else "operations",
              "library_ms": None}
     bwd_rows, bwd_totals = _gn_bwd_times()
-    emit("kernel_times_raft3d", gn_build=shapes, gn_build_total=total,
+    emit("kernel_times_raft3d", gn_build=rows, gn_build_total=total,
          warp_zero_pad_c1=sampler, torch=torch.__version__, **bwd_rows,
          gn_build_bwd_totals=bwd_totals)
     return {"gn_build": total, **bwd_totals}, sampler
@@ -1614,11 +1695,42 @@ def phase_raft3d() -> dict:
     return total
 
 
-# Operations per element, counted from the kernels' arithmetic: the photo
-# kernel's taps, pools, SSIM terms, adjoint pools and contraction per pixel,
-# direction and source over 3 channels; the DSSIM map's 9-tap sums and
-# algebra, and its adjoint's four more pools, per pixel and channel.
-PHOTO_FLOPS, DSSIM_FWD_FLOPS, DSSIM_BWD_FLOPS, SMOOTH_FLOPS = 600, 100, 170, 40
+# Float32 operations the photo function needs a pixel, direction and source
+# over its 3 channels, counted from csrc/photo_pair.cu's arithmetic: the
+# edge_zero sample with its tangents (tap setup ~16, the four weights 4, a
+# channel's value 7 and tangents 10: 71); the five moments' separable 3x3
+# box sums (3 products, 2 + 2 adds a moment: 23 a channel, 69); the SSIM
+# terms (27), the clip and its tie factor (9), the adjoint coefficients
+# (19) and the pixel's loss (7): 62 a channel, 186; the three adjoint pools
+# (4 adds and a division each: 15 a channel, 45); the contraction (d ssim
+# 5, the L1 part 7, two multiply-adds into d coords 4: 16 a channel, 48):
+# 419. PR 2-7 counted 600 a pixel from the kernel then, whose pools read all
+# nine taps.
+PHOTO_FLOPS = 419
+# What the kernel does, reported apart (`kernel_flops_ms`), a pixel of its
+# 16 x 30 tile: the gathers on the 20 x 34 region (sample values 41 a
+# pixel, x 680 / 480; tangents 30, x 512 / 480: 90), each warp's row
+# moments over its pass-1 rows and two more (19 a row, column and channel
+# over 34 rows of 32 columns, / 480: 129), the windows, SSIM terms, adjoint
+# and loss of the 18 x 32 pass-1 region (72 a channel, x 576 / 480: 259),
+# the adjoint pools from rows of 3-sums (21 a channel) and the contraction
+# (16): 111. ~589 in all.
+PHOTO_KERNEL_FLOPS = 589
+PHOTO_FLOPS_PR2 = 600
+# The DSSIM map's 9-tap sums and algebra, and its adjoint's four more pools,
+# per pixel and channel; the smoothness sums per pixel.
+DSSIM_FWD_FLOPS, DSSIM_BWD_FLOPS, SMOOTH_FLOPS = 100, 170, 40
+
+
+def _photo_bound(n_bytes: float, pixels: float, extra: int = 0) -> dict:
+    """The photo kernel's bound over ``pixels`` pixel-direction-sources
+    (``extra`` operations each besides, a weight's), the time of its own
+    work at the same rate, and the bound PR 2-7 used."""
+    return {**_bound(n_bytes, (PHOTO_FLOPS + extra) * pixels),
+            "kernel_flops_ms": (PHOTO_KERNEL_FLOPS + extra) * pixels
+            / FP32_FLOPS_PER_S * 1e3,
+            "pr2_bound_ms": max(n_bytes / HBM_BYTES_PER_S, (PHOTO_FLOPS_PR2
+                                + extra) * pixels / FP32_FLOPS_PER_S) * 1e3}
 
 
 def _bound(n_bytes: float, flops: float, mma_flops: float = 0.0) -> dict:
@@ -1801,7 +1913,7 @@ def phase_kernel_times() -> dict:
             add("photo_single", label,
                 lambda: K1.photo_sums(src, tgt, cb, ALPHA),
                 lambda: K1.photo_sums_reference(src, tgt, cb, ALPHA),
-                _bound(_nbytes(tgt, src, cb, cb), PHOTO_FLOPS * n * hw))
+                _photo_bound(_nbytes(tgt, src, cb, cb), n * hw))
             gather_case(src, cf, f"{n}x3x{h}x{w}", smooth_pairs[s][2])
             warped = K5.warp_gather_reference(src, cf, "edge_zero")
             g = torch.randn(tgt.shape, generator=gen).to(DEV)
@@ -1824,8 +1936,8 @@ def phase_kernel_times() -> dict:
             add("photo_pair", f"{nb}x2x{h}x{w}",
                 lambda: K1.photo_pair_sums(t1, s1, c1f, c1b, ALPHA),
                 lambda: K1.photo_pair_sums_reference(t1, s1, c1f, c1b, ALPHA),
-                _bound(_nbytes(t1, s1, c1f, c1b, c1f, c1b),
-                       PHOTO_FLOPS * 2 * n * hw))
+                _photo_bound(_nbytes(t1, s1, c1f, c1b, c1f, c1b),
+                             2 * n * hw))
         wf, wb = (torch.rand(n, 1, h, w, generator=gen).to(DEV)
                   for _ in range(2))
         a4 = (tgt, src[:, None], cf[:, None].contiguous(),
@@ -1833,8 +1945,8 @@ def phase_kernel_times() -> dict:
         add("photo_pair_weighted", label,
             lambda: K1.photo_pair_weighted_sums(*a4, wf, wb, ALPHA),
             lambda: K1.photo_pair_sums_reference(*a4, ALPHA, wf, wb),
-            _bound(_nbytes(tgt, src, cf, cb, cf, cb, wf, wb),
-                   (PHOTO_FLOPS + 2) * 2 * n * hw))
+            _photo_bound(_nbytes(tgt, src, cf, cb, cf, cb, wf, wb),
+                         2 * n * hw, extra=2))
         flow = (cb - pixel_grid(h, w, device=DEV)).contiguous()
         gather_case(flow, cf, f"{n}x2x{h}x{w}", smooth_pairs[s][2])
         splat_case(flow, cf, f"{n}x2x{h}x{w}", smooth_pairs[s][2])
@@ -1857,7 +1969,10 @@ def phase_kernel_times() -> dict:
             "plain_ms": sum(r["plain_ms"] for r in shapes),
             "bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "library_ms": None if None in lib else sum(lib)}
+            "library_ms": None if None in lib else sum(lib),
+            **{k: sum(r[k] for r in shapes)
+               for k in ("kernel_flops_ms", "pr2_bound_ms")
+               if k in shapes[0]}}
     emit("kernel_times", batch=nb, torch=torch.__version__, shapes=rows,
          totals=totals)
     return totals

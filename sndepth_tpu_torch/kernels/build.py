@@ -27,8 +27,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               # the plain PyTorch versions do, so exact DSSIM ties (equal
               # windows) stay exact ties on the card.
               "-fmad=false", "-Xptxas", "-v"]
-# Sources with no exact tie to keep, built with fused multiply-adds.
-FMAD_SOURCES = ("gn_build_bwd.cu",)
+# Sources built with fused multiply-adds: the Gauss-Newton build and its
+# backward have no exact tie to keep; the photo kernel keeps its DSSIM tie by
+# arithmetic the compiler does not contract (csrc/ssim.cuh).
+FMAD_SOURCES = ("gn_build.cu", "gn_build_bwd.cu", "photo_pair.cu")
 
 
 def nvcc_flags(source: str) -> list[str]:

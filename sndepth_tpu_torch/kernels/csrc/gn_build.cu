@@ -9,59 +9,152 @@
 // pair weighted by sigmoid(2 x_i.x_j - sq_i - sq_j) * wgt_j per residual
 // channel. It writes H (B, n, 6, 6) with both triangles from the same sums,
 // so H is symmetric bit for bit, and g (B, n, 6). Its backward is the kernel
-// in gn_build_bwd.cu.
+// in gn_build_bwd.cu, whose owner map, staging and embedding product this
+// kernel shares (gn_pair.cuh).
 //
-// What bounds it: operations. A pair in the radius costs ~250 float32
-// operations (64 of them the 32-wide embedding product) against 176 bytes of
-// j data that every i of the block shares; the inputs together are a few
-// megabytes and stay in L2. The design therefore keeps everything a pair
-// needs in registers and shared memory and spends its cycles on pairs
-// that count:
-//   * a block owns TI = 32 consecutive pixels i, one per lane of a warp, and
-//     JL = 8 warps that split the pixels j among them; each thread holds its
-//     i's rotation, translation, doubled embedding and 27 running sums in
-//     registers;
-//   * pixels j are staged through shared memory TJ = 64 at a time, 44 floats
-//     each, 16-byte aligned; the 32 lanes of a warp read the same j, so each
-//     read is one broadcast;
-//   * a tile none of whose j can reach any i of the block (by the bounding
-//     box of the block's grid positions) is skipped before it is staged, and
-//     a pair outside the radius is skipped before its embedding product.
-//     Skipping is the same function: such a pair's weight is exactly 0. The
-//     one difference from the TPU kernel is a pair outside the radius whose
-//     transformed depth Pz is exactly 0: there the TPU kernel forms 0 * inf =
-//     NaN, this kernel adds nothing.
-//   * the JL partial sums of an i are added in a fixed order through shared
-//     memory: no atomics, the result is the same from run to run.
+// What bounds it: operations. The build needs ~218 operations an ordered
+// pair in the radius: the 32-wide embedding product and the sigmoid once
+// per unordered pair (the attention is symmetric), the product on the
+// tensor cores, and ~186 float32 operations of geometry and sums (the
+// transformed point, residuals, 13 Jacobian entries, 54 accumulated
+// products); chip_smoke.py GN_PAIR_FLOPS. The inputs are a few megabytes
+// and stay in L2. The kernel evaluates the product for every ordered pair
+// (each owner its own), ~254 operations a pair. What the design does:
+//   * A block owns 32 pixels, one a lane; a warp's 32 lanes are an 8 x 4
+//     patch of the grid (owner_pixel), so that most lanes that run a pair
+//     are in the radius (gn_build.py lane_share: 96% at 32x104, 91% at
+//     47x156 for radius 32; 66% with 32 pixels of one grid row, the map
+//     before). The 8 warps of a block split the streamed pixels: warp w
+//     takes rows w, w + 8, ... of each staged tile of 64.
+//   * A cluster of C blocks on neighbouring SMs owns the same 32 pixels and
+//     deals the in-reach tiles to its blocks in turn. C is the largest of
+//     8, 4, 2, 1 that keeps the grid within two blocks on each of an H100's
+//     132 SMs (cluster_size), a function of the shape alone: 26 blocks
+//     become 208 at 1 x 832, 208 at 2 x 3328 and 230 at 1 x 7332 stay as
+//     they are. After the pair loop each block adds its 8 warps' 27 sums a
+//     pixel in warp order, then each block writes a share of H and g from
+//     the C blocks' sums read through distributed shared memory in rank
+//     order. No atomics; the same bits from run to run.
+//   * The embedding product takes one of two paths, chosen with the
+//     cluster size. In clusters (small builds, few tiles a block) a warp's
+//     (32 owned x 8 streamed) product runs on the tensor cores as mma.sync
+//     m16n8k8 TF32 in the split three-product form (lo.hi + hi.lo + hi.hi),
+//     which keeps float32 accuracy: the owned doubled embedding kept split
+//     in shared memory, the products landing in a per-warp buffer that the
+//     pair loop reads. Without clusters each lane forms its pairs' products
+//     on the float32 pipe, the owned embedding in registers, four
+//     independent partial sums a dot, and only for the pairs in the radius.
+//     The pair loop keeps the owner's pose and 27 running sums in
+//     registers.
+//   * The next tile arrives by cp.async into a second buffer while this one
+//     is computed on.
+//   * A tile that no owned pixel can reach (by the box of the block's grid
+//     positions) is skipped before it is copied, a warp's 8 streamed pixels
+//     when none reaches, and a pair outside the radius before any of its
+//     arithmetic past the embedding product. Skipping is the same function:
+//     such a pair's weight is exactly 0. The one difference from the TPU
+//     kernel is a pair outside the radius whose transformed depth Pz is
+//     exactly 0: there the TPU kernel forms 0 * inf = NaN, this kernel adds
+//     nothing.
 // The TPU kernel's 8x128 tiles, its 128-lane padding of the i columns and
 // its dummy j rows are the TPU's layout and have no counterpart here.
 //
-// The running sums use fused multiply-adds (fmaf) whatever -fmad says: no
-// result here depends on a tie staying a tie (the radius test compares
-// integers held as floats). ptxas for sm_90a: 125 registers a thread, no
-// spills, 38,912 bytes of shared memory a block.
+// Built with fused multiply-adds (kernels/build.py FMAD_SOURCES): no result
+// here depends on a tie staying a tie (the radius test compares integers
+// held as floats).
 
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
+
+#include "gn_pair.cuh"
 
 namespace {
 
-constexpr int EMB = 32;            // embedding width
-constexpr int TI = 32;             // pixels i per block
-constexpr int JL = 8;              // warps sharing the j loop of one block
-constexpr int TJ = 64;             // pixels j per staged tile
-constexpr int ROW = 44;            // floats per staged j:
+namespace cg = cooperative_groups;
+using namespace gn;
+
+constexpr int ROW = 44;            // floats per staged pixel j:
 constexpr int R_X = 32;            //   emb 0-31, X 32-34, sq 35, gy 36,
-constexpr int R_SQ = 35;           //   gx 37, tgt 38-40, wgt 41-43
-constexpr int R_GY = 36;
-constexpr int R_GX = 37;
-constexpr int R_TGT = 38;
-constexpr int R_WGT = 41;
+                                   //   gx 37, tgt 38-40, wgt 41-43
 constexpr int NACC = 27;           // 21 upper-triangle H entries + 6 of g
-constexpr int NT = TI * JL;
+// A staged tile: TS rows, 4 floats of padding after every JL rows.
+constexpr int TILE = TS * ROW + 4 * (TS / JL);
+// Shared memory (floats): two staged tiles, the owned doubled embedding (hi
+// and lo), each warp's (QW x TO) pair buffer. After the pair loop the tiles
+// hold the reduction buffer and the block's sums (OFF_SUMS).
+constexpr int OFF_XHI = 2 * TILE;
+constexpr int OFF_XLO = OFF_XHI + TO * SO;
+constexpr int OFF_D = OFF_XLO + TO * SO;
+constexpr int SMEM_FLOATS = OFF_D + JL * QW * SD;
+constexpr int OFF_SUMS = CH * JL * TO;
+// The grid a build fills: two blocks on each of an H100's 132 SMs.
+#ifndef GN_BUILD_SLOTS
+#define GN_BUILD_SLOTS (2 * 132)
+#endif
+constexpr int SLOTS = GN_BUILD_SLOTS;
+constexpr int MAX_CLUSTER = 8;     // the portable cluster size
+
+static_assert(OFF_SUMS + NACC * TO <= 2 * TILE, "sums fit the tiles");
+static_assert(ROW % 4 == 0, "16-byte rows");
 
 #define ACC(p, a, b) acc[p] = fmaf((a), (b), acc[p])
 
-__global__ void __launch_bounds__(NT)
+__device__ __forceinline__ int row_at(int q) { return tile_row<ROW>(q); }
+
+// Blocks a cluster: the largest of MAX_CLUSTER, ..., 2, 1 that keeps
+// `blocks` x C within SLOTS (1 if `blocks` alone exceeds it).
+__host__ __device__ constexpr int cluster_size(int blocks) {
+    int c = MAX_CLUSTER;
+    while (c > 1 && blocks * c > SLOTS) c /= 2;
+    return c;
+}
+
+// The streamed pixels' inputs of one batch.
+struct Streamed {
+    const float *x, *X, *tgt, *wgt, *sq, *gy, *gx;
+};
+
+// Start copying tile j0 (tq pixels) into buf, one commit group; the
+// embedding of rows past tq is zeroed (the embedding product reads it).
+__device__ __forceinline__ void stage(float* buf, const Streamed& s, int j0,
+                                      int tq, int tid) {
+    const size_t j = j0;
+    for (int i = tid; i < tq * EMB / 4; i += NT)
+        copy_async<16>(buf + row_at(i / 8) + 4 * (i % 8),
+                       s.x + j * EMB + 4 * i);
+    for (int i = tid; i < tq * 3; i += NT) {
+        float* at = buf + row_at(i / 3) + R_X + i % 3;
+        copy_async<4>(at, s.X + j * 3 + i);
+        copy_async<4>(at + 6, s.tgt + j * 3 + i);
+        copy_async<4>(at + 9, s.wgt + j * 3 + i);
+    }
+    for (int i = tid; i < tq; i += NT) {
+        copy_async<4>(buf + row_at(i) + R_X + 3, s.sq + j + i);
+        copy_async<4>(buf + row_at(i) + R_X + 4, s.gy + j + i);
+        copy_async<4>(buf + row_at(i) + R_X + 5, s.gx + j + i);
+    }
+    for (int i = tq * EMB + tid; i < TS * EMB; i += NT)
+        buf[row_at(i / EMB) + i % EMB] = 0.0f;
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// The next tile at or after j that is this block's: the tiles a pixel of
+// the block can reach, in order, are dealt to the cluster's blocks in turn;
+// `seen` counts those passed. n if none; block-wide.
+__device__ __forceinline__ int next_mine(int j, int n, const Reach& reach,
+                                         const float* __restrict__ gy,
+                                         const float* __restrict__ gx,
+                                         int tid, int rank, int csize,
+                                         int& seen) {
+    for (;;) {
+        j = next_tile(j, n, reach, gy, gx, tid);
+        if (j >= n) return n;
+        if (seen++ % csize == rank) return j;
+        j += TS;
+    }
+}
+
+template <bool MMA>
+__global__ void __launch_bounds__(NT, 2)
 gn_build_kernel(const float* __restrict__ rot, const float* __restrict__ trans,
                 const float* __restrict__ x, const float* __restrict__ sq,
                 const float* __restrict__ gy, const float* __restrict__ gx,
@@ -69,91 +162,123 @@ gn_build_kernel(const float* __restrict__ rot, const float* __restrict__ trans,
                 const float* __restrict__ wgt, const float* __restrict__ intr,
                 float* __restrict__ H, float* __restrict__ g, int n,
                 float radius) {
-    __shared__ __align__(16) float tile[TJ * ROW];
-    __shared__ float red[NACC][JL][TI];
+    __shared__ __align__(16) float smem[SMEM_FLOATS];
+    __shared__ int own_pix[TO];
+    __shared__ int scratch[JL];
+    float* xhi = smem + OFF_XHI;
+    float* xlo = smem + OFF_XLO;
+    const cg::cluster_group cluster = cg::this_cluster();
+    const int csize = static_cast<int>(cluster.num_blocks());
+    const int rank = static_cast<int>(cluster.block_rank());
 
     const int b = blockIdx.y;
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int tid = ty * TI + tx;
-    const int i0 = blockIdx.x * TI;
-    // A lane past the end repeats the last pixel and writes nothing.
-    const int i = min(i0 + tx, n - 1);
-    const size_t bi = (size_t)b * n + i;
+    const int lane = threadIdx.x, warp = threadIdx.y;
+    const int tid = warp * TO + lane;
+    const int w = grid_width(gy, n, lane, warp, scratch);
+    // A lane past the end stands in for the block's first pixel, reaches
+    // nothing and writes nothing.
+    const int k0 = (blockIdx.x / csize) * TO;
+    const int k = k0 + lane;
+    const bool valid = k < n;
+    const int p = owner_pixel(valid ? k : k0, n, w);
+    if (warp == 0) own_pix[lane] = valid ? p : -1;
+    const size_t bp = (size_t)b * n + p;
 
-    float R[9], T[3], x2[EMB];
+    // The owner's doubled embedding: split in shared memory, 4 entries a
+    // warp, for the tensor cores; in registers for the float32 pipe.
+    if constexpr (MMA) {
 #pragma unroll
-    for (int k = 0; k < 9; ++k) R[k] = rot[bi * 9 + k];
+        for (int e = warp * 4; e < warp * 4 + 4; ++e) {
+            uint32_t hi, lo;
+            split(2.0f * x[bp * EMB + e], hi, lo);
+            xhi[lane * SO + e] = __uint_as_float(hi);
+            xlo[lane * SO + e] = __uint_as_float(lo);
+        }
+    }
+    float* D = smem + OFF_D + warp * QW * SD;
+    float x2[MMA ? 1 : EMB];
+    if constexpr (!MMA) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) T[k] = trans[bi * 3 + k];
+        for (int e = 0; e < EMB; ++e) x2[e] = 2.0f * x[bp * EMB + e];
+    }
+
+    float R[9], T[3];
 #pragma unroll
-    for (int k = 0; k < EMB; ++k) x2[k] = 2.0f * x[bi * EMB + k];
-    const float sqi = sq[bi], gyi = gy[i], gxi = gx[i];
+    for (int i = 0; i < 9; ++i) R[i] = rot[bp * 9 + i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) T[i] = trans[bp * 3 + i];
+    const float sqp = sq[bp], gyp = gy[p], gxp = gx[p];
     const float fx = intr[b * 4 + 0], fy = intr[b * 4 + 1];
     const float cx = intr[b * 4 + 2], cy = intr[b * 4 + 3];
-
-    // Bounding box of the block's grid positions, grown by the radius.
-    float ylo = gyi, yhi = gyi, xlo = gxi, xhi = gxi;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-        ylo = fminf(ylo, __shfl_xor_sync(0xffffffffu, ylo, o));
-        yhi = fmaxf(yhi, __shfl_xor_sync(0xffffffffu, yhi, o));
-        xlo = fminf(xlo, __shfl_xor_sync(0xffffffffu, xlo, o));
-        xhi = fmaxf(xhi, __shfl_xor_sync(0xffffffffu, xhi, o));
-    }
-    ylo -= radius; yhi += radius; xlo -= radius; xhi += radius;
+    const Reach reach(gyp, gxp, radius);
 
     float acc[NACC];
 #pragma unroll
-    for (int p = 0; p < NACC; ++p) acc[p] = 0.0f;
+    for (int i = 0; i < NACC; ++i) acc[i] = 0.0f;
 
-    const float* xb = x + (size_t)b * n * EMB;
-    const float* Xb = X + (size_t)b * n * 3;
-    const float* tgtb = tgt + (size_t)b * n * 3;
-    const float* wgtb = wgt + (size_t)b * n * 3;
-    const float* sqb = sq + (size_t)b * n;
+    const size_t bn = (size_t)b * n;
+    const Streamed streamed = {x + bn * EMB, X + bn * 3, tgt + bn * 3,
+                               wgt + bn * 3, sq + bn, gy, gx};
 
-    for (int j0 = 0; j0 < n; j0 += TJ) {
-        int reach = 0;
-        if (tid < TJ && j0 + tid < n) {
-            const float yj = gy[j0 + tid], xj = gx[j0 + tid];
-            reach = yj >= ylo && yj <= yhi && xj >= xlo && xj <= xhi;
-        }
-        // Also the barrier that keeps the previous tile until all are done.
-        if (!__syncthreads_or(reach)) continue;
-
-        const int tj = min(TJ, n - j0);
-        for (int k = tid; k < tj * EMB; k += NT)
-            tile[(k / EMB) * ROW + (k % EMB)] = xb[(size_t)j0 * EMB + k];
-        for (int k = tid; k < tj * 3; k += NT) {
-            const int at = (k / 3) * ROW + (k % 3);
-            tile[at + R_X] = Xb[(size_t)j0 * 3 + k];
-            tile[at + R_TGT] = tgtb[(size_t)j0 * 3 + k];
-            tile[at + R_WGT] = wgtb[(size_t)j0 * 3 + k];
-        }
-        if (tid < tj) {
-            tile[tid * ROW + R_SQ] = sqb[j0 + tid];
-            tile[tid * ROW + R_GY] = gy[j0 + tid];
-            tile[tid * ROW + R_GX] = gx[j0 + tid];
+    // This block's tiles in turn through two buffers: the next one is
+    // copied while this one is computed on. The barriers of next_tile keep
+    // a buffer until every warp is done with it (and, the first time,
+    // publish the owned embedding).
+    int seen = 0;
+    int j0 = next_mine(0, n, reach, gy, gx, tid, rank, csize, seen);
+    if (j0 < n) stage(smem, streamed, j0, min(TS, n - j0), tid);
+    for (int cur = 0; j0 < n; cur ^= 1) {
+        const int next = next_mine(j0 + TS, n, reach, gy, gx, tid, rank,
+                                   csize, seen);
+        if (next < n) {
+            stage(smem + (cur ^ 1) * TILE, streamed, next,
+                  min(TS, n - next), tid);
+            wait_async<1>();
+        } else {
+            wait_async<0>();
         }
         __syncthreads();
+        const float* tile = smem + cur * TILE;
+        const int tq = min(TS, n - j0);
+        j0 = next;
 
-        for (int jj = ty; jj < tj; jj += JL) {
+        // This warp's QW streamed pixels: skipped if none reaches an owner.
+        const int qm = warp + JL * lane;
+        const bool mine = lane < QW && qm < tq
+            && reach.holds(tile[row_at(qm) + R_X + 4],
+                           tile[row_at(qm) + R_X + 5]);
+        if (!__any_sync(0xffffffffu, mine)) continue;
+
+        if constexpr (MMA) {
+            dot_products<ROW>(tile, xhi, xlo, D, warp, lane);
+            __syncwarp();
+        }
+
+        for (int i = 0; i < QW; ++i) {
             const float4* row = reinterpret_cast<const float4*>(
-                tile + jj * ROW);
+                tile + row_at(warp + JL * i));
             const float4 q9 = row[9];      // gy, gx, tgt0, tgt1
-            if (!(fabsf(gyi - q9.x) <= radius && fabsf(gxi - q9.y) <= radius))
+            if (!(valid && warp + JL * i < tq
+                  && fabsf(gyp - q9.x) <= radius
+                  && fabsf(gxp - q9.y) <= radius))
                 continue;
             const float4 q8 = row[8];      // X0, X1, X2, sq
             const float4 q10 = row[10];    // tgt2, wgt0, wgt1, wgt2
-
-            float dist = -sqi - q8.w;
+            float dist;
+            if constexpr (MMA) {
+                dist = D[i * SD + lane] - sqp - q8.w;
+            } else {
+                // Four independent partial sums: a shorter dependent chain.
+                float d4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-            for (int c = 0; c < EMB / 4; ++c) {
-                const float4 e = row[c];
-                dist = fmaf(x2[4 * c + 0], e.x, dist);
-                dist = fmaf(x2[4 * c + 1], e.y, dist);
-                dist = fmaf(x2[4 * c + 2], e.z, dist);
-                dist = fmaf(x2[4 * c + 3], e.w, dist);
+                for (int c = 0; c < EMB / 4; ++c) {
+                    const float4 e = row[c];
+                    d4[0] = fmaf(x2[4 * c + 0], e.x, d4[0]);
+                    d4[1] = fmaf(x2[4 * c + 1], e.y, d4[1]);
+                    d4[2] = fmaf(x2[4 * c + 2], e.z, d4[2]);
+                    d4[3] = fmaf(x2[4 * c + 3], e.w, d4[3]);
+                }
+                dist = ((d4[0] + d4[1]) + (d4[2] + d4[3])) - sqp - q8.w;
             }
             const float attn = 1.0f / (1.0f + expf(-dist));
 
@@ -213,49 +338,76 @@ gn_build_kernel(const float* __restrict__ rot, const float* __restrict__ trans,
             }
         }
     }
-
-#pragma unroll
-    for (int p = 0; p < NACC; ++p) red[p][ty][tx] = acc[p];
     __syncthreads();
 
-    // The JL partial sums of each entry, added in a fixed order; entry
-    // (c, d) and entry (d, c) of H read the same sums.
-    const int ni = min(TI, n - i0);
-    float* Hb = H + ((size_t)b * n + i0) * 36;
-    float* gb = g + ((size_t)b * n + i0) * 6;
-    for (int k = tid; k < ni * 36; k += NT) {
-        const int il = k / 36, c = (k % 36) / 6, d = k % 6;
-        const int lo = min(c, d), hi = max(c, d);
-        const int p = lo * 6 - lo * (lo - 1) / 2 + (hi - lo);
+    // The block's sums, its warps added in warp order, into sums[p][owner].
+    float (*red)[JL][TO] = reinterpret_cast<float (*)[JL][TO]>(smem);
+    float (*sums)[TO] = reinterpret_cast<float (*)[TO]>(smem + OFF_SUMS);
+    block_sums<NACC>(acc, red, sums, lane, warp, tid);
+    cluster.sync();
+
+    // H and g from the cluster's blocks' sums, added in rank order; this
+    // block writes every csize-th entry. Entry (c, d) and entry (d, c) of H
+    // read the same sums.
+    const int ni = min(TO, n - k0);
+    float* Hb = H + bn * 36;
+    float* gb = g + bn * 6;
+    for (int i = rank * NT + tid; i < ni * 42; i += csize * NT) {
+        const int o = i / 42, e = i % 42;
+        const int at = (e < 36 ? tri(e / 6, e % 6) : 21 + e - 36) * TO + o;
         float s = 0.0f;
-#pragma unroll
-        for (int q = 0; q < JL; ++q) s += red[p][q][il];
-        Hb[k] = s;
+        for (int r = 0; r < csize; ++r)
+            s += cluster.map_shared_rank(smem + OFF_SUMS, r)[at];
+        if (e < 36)
+            Hb[(size_t)own_pix[o] * 36 + e] = s;
+        else
+            gb[(size_t)own_pix[o] * 6 + e - 36] = s;
     }
-    for (int k = tid; k < ni * 6; k += NT) {
-        const int il = k / 6, p = 21 + k % 6;
-        float s = 0.0f;
-#pragma unroll
-        for (int q = 0; q < JL; ++q) s += red[p][q][il];
-        gb[k] = s;
-    }
+    // No block leaves while another reads its sums.
+    cluster.sync();
 }
 
 }  // namespace
+
+// Blocks in a cluster for a build of b x n pixels (the launch below).
+extern "C" int gn_build_cluster_size(int b, int n) {
+    return cluster_size(b * ((n + TO - 1) / TO));
+}
 
 extern "C" int gn_build_launch(
         const void* rot, const void* trans, const void* x, const void* sq,
         const void* gy, const void* gx, const void* X, const void* tgt,
         const void* wgt, const void* intr, void* H, void* g, int b, int n,
         float radius, void* stream) {
-    const dim3 block(TI, JL);
-    const dim3 grid((n + TI - 1) / TI, b);
-    gn_build_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(rot), static_cast<const float*>(trans),
-        static_cast<const float*>(x), static_cast<const float*>(sq),
-        static_cast<const float*>(gy), static_cast<const float*>(gx),
-        static_cast<const float*>(X), static_cast<const float*>(tgt),
-        static_cast<const float*>(wgt), static_cast<const float*>(intr),
-        static_cast<float*>(H), static_cast<float*>(g), n, radius);
+    const int csize = gn_build_cluster_size(b, n);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = csize;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(((n + TO - 1) / TO) * csize, b);
+    config.blockDim = dim3(TO, JL);
+    config.dynamicSmemBytes = 0;
+    config.stream = static_cast<cudaStream_t>(stream);
+    config.attrs = attr;
+    config.numAttrs = 1;
+#if defined(GN_BUILD_FP32_PRODUCT)
+    const bool mma = false;
+#elif defined(GN_BUILD_MMA_PRODUCT)
+    const bool mma = true;
+#else
+    const bool mma = csize > 1;
+#endif
+    const cudaError_t err = cudaLaunchKernelEx(
+        &config, mma ? gn_build_kernel<true> : gn_build_kernel<false>,
+        static_cast<const float*>(rot),
+        static_cast<const float*>(trans), static_cast<const float*>(x),
+        static_cast<const float*>(sq), static_cast<const float*>(gy),
+        static_cast<const float*>(gx), static_cast<const float*>(X),
+        static_cast<const float*>(tgt), static_cast<const float*>(wgt),
+        static_cast<const float*>(intr), static_cast<float*>(H),
+        static_cast<float*>(g), n, radius);
+    if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }

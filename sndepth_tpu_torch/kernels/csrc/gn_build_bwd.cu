@@ -84,27 +84,18 @@
 // and 111,872 of dynamic shared memory a block. Times: H100 80GB HBM3 at
 // 700 W, CUDA events (PERF.md names the runs).
 
-#include <stdint.h>
-
 #include "gn_pair.cuh"
 
 namespace {
 
 using namespace gn;
 
-// A warp's patch of the grid: PATCH_ROWS rows x PATCH_COLS columns, TO
-// pixels.
-constexpr int PATCH_ROWS = 8;
-constexpr int PATCH_COLS = 4;
-constexpr int QW = TS / JL;        // streamed pixels of a tile per warp
 constexpr int ROW = 100;           // floats per staged pixel q:
 constexpr int R_X = 32;            //   emb 0-31, X 32-34, sq 35, gy 36,
 constexpr int R_ROT = 44;          //   gx 37, tgt 38-40, wgt 41-43,
 constexpr int R_TR = 53;           //   rot 44-52, trans 53-55,
 constexpr int R_CTH = 56;          //   ct_H 56-91, ct_g 92-97,
 constexpr int R_CTG = 92;          //   (98-99 unused)
-constexpr int SO = 36;             // row stride of the owned embedding
-constexpr int SD = 40;             // row stride of a warp's pair buffer
 constexpr int SA = 40;             // row stride of a warp's d x sums
 // A staged tile: TS rows, 4 floats of padding after every JL rows, so that
 // the rows w, w + JL, ... of one warp fall in different banks.
@@ -124,135 +115,12 @@ constexpr int A_TGT = 1;
 constexpr int A_WGT = 4;
 constexpr int A_GI = 7;
 
-static_assert(PATCH_ROWS * PATCH_COLS == TO, "a patch is one warp");
 static_assert(CH * JL * TO + 26 * TO <= 2 * TILE, "sums fit the tiles");
 static_assert(R_ROT % 4 == 0 && R_CTH % 4 == 0 && ROW % 4 == 0,
               "16-byte rows");
 
-// Offset of row q in a staged tile. Warp w takes rows w, w + JL, ...: the
-// in-reach pixels of a tile, mostly one or two runs of a grid row, are
-// spread over all warps, which meet at a barrier every tile.
-__device__ __forceinline__ int row_at(int q) {
-    return q * ROW + 4 * (q / JL);
-}
-
-// Pixel of owner slot k: row bands of PATCH_ROWS rows, each cut into
-// patches of PATCH_ROWS x PATCH_COLS left to right (the last one narrower
-// where PATCH_COLS does not divide the width), owners in a patch
-// row-major; a last, partial grid row keeps its order. A permutation of
-// [0, n) for any width w >= 1.
-__device__ __forceinline__ int owner_pixel(int k, int n, int w) {
-    const int rows = n / w;
-    if (k >= rows * w) return k;
-    const int band = k / (PATCH_ROWS * w);
-    const int hb = min(PATCH_ROWS, rows - PATCH_ROWS * band);
-    const int o = k - band * PATCH_ROWS * w;
-    const int ncg = w / PATCH_COLS;
-    const int in_groups = hb * PATCH_COLS * ncg;
-    int r, c;
-    if (o < in_groups) {
-        const int g = o / (hb * PATCH_COLS), i = o - g * hb * PATCH_COLS;
-        r = i / PATCH_COLS;
-        c = g * PATCH_COLS + i % PATCH_COLS;
-    } else {
-        const int wl = w - PATCH_COLS * ncg, i = o - in_groups;
-        r = i / wl;
-        c = PATCH_COLS * ncg + i % wl;
-    }
-    return (PATCH_ROWS * band + r) * w + c;
-}
-
-// The grid width: the first index where gy differs from gy[0], n if none.
-// Block-wide; every thread returns the same value.
-__device__ int grid_width(const float* __restrict__ gy, int n, int lane,
-                          int warp, int* scratch) {
-    const float y0 = gy[0];
-    for (int base = 1; base < n; base += NT) {
-        const int i = base + warp * TO + lane;
-        const unsigned m = __ballot_sync(0xffffffffu, i < n && gy[i] != y0);
-        if (lane == 0) scratch[warp] = m ? i + __ffs(m) - 1 : n;
-        __syncthreads();
-        int w = n;
-#pragma unroll
-        for (int k = 0; k < JL; ++k) w = min(w, scratch[k]);
-        __syncthreads();
-        if (w < n) return w;
-    }
-    return n;
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-    uint32_t r;
-    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-    return r;
-}
-
-// v = hi + lo, both TF32.
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-    hi = to_tf32(v);
-    lo = to_tf32(v - __uint_as_float(hi));
-}
-
-// d += a b for one m16n8k8 TF32 tile, float32 accumulation.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b in float32 accuracy: the small products first, then the large.
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4],
-                                     const uint32_t (&bh)[2],
-                                     const uint32_t (&bl)[2]) {
-    mma(d, al, bh);
-    mma(d, ah, bl);
-    mma(d, ah, bh);
-}
-
-// D[q][o] = (2 x_o) . x_q for the warp's QW streamed pixels q (tile rows
-// warp, warp + JL, ...) and the TO owners o.
-__device__ __forceinline__ void dot_products(const float* __restrict__ tile,
-                                             const float* __restrict__ xhi,
-                                             const float* __restrict__ xlo,
-                                             float* __restrict__ D, int warp,
-                                             int lane) {
-    const int g = lane >> 2, t = lane & 3;
-    float c[2][4] = {};
-#pragma unroll
-    for (int ks = 0; ks < EMB / 8; ++ks) {
-        // B (k = embedding, n = streamed): column g is row warp + JL g.
-        const float* qe = tile + row_at(warp + JL * g) + 8 * ks + t;
-        uint32_t bh[2], bl[2];
-        split(qe[0], bh[0], bl[0]);
-        split(qe[4], bh[1], bl[1]);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-            // A (m = owner, k = embedding), kept split.
-            const int at = (16 * mt + g) * SO + 8 * ks + t;
-            const uint32_t ah[4] = {
-                __float_as_uint(xhi[at]), __float_as_uint(xhi[at + 8 * SO]),
-                __float_as_uint(xhi[at + 4]),
-                __float_as_uint(xhi[at + 8 * SO + 4])};
-            const uint32_t al[4] = {
-                __float_as_uint(xlo[at]), __float_as_uint(xlo[at + 8 * SO]),
-                __float_as_uint(xlo[at + 4]),
-                __float_as_uint(xlo[at + 8 * SO + 4])};
-            mma3(c[mt], ah, al, bh, bl);
-        }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-        const int o = 16 * mt + g;
-        D[(2 * t) * SD + o] = c[mt][0];
-        D[(2 * t + 1) * SD + o] = c[mt][1];
-        D[(2 * t) * SD + o + 8] = c[mt][2];
-        D[(2 * t + 1) * SD + o + 8] = c[mt][3];
-    }
-}
+// Offset of row q in a staged tile (gn_pair.cuh tile_row).
+__device__ __forceinline__ int row_at(int q) { return tile_row<ROW>(q); }
 
 // acc[o][e] += sum_q D[q][o] x_q[e] over the warp's QW streamed pixels.
 __device__ __forceinline__ void dx_products(const float* __restrict__ tile,
@@ -291,23 +159,6 @@ __device__ __forceinline__ void dx_products(const float* __restrict__ tile,
     }
 }
 
-// Asynchronous copy of BYTES (4, 8 or 16) from global to shared memory.
-template <int BYTES>
-__device__ __forceinline__ void copy_async(float* dst, const float* src) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    if constexpr (BYTES == 16)
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                     :: "r"(d), "l"(src));
-    else
-        asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
-                     :: "r"(d), "l"(src), "n"(BYTES));
-}
-
-template <int N>
-__device__ __forceinline__ void wait_async() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
 // The streamed pixels' inputs of one batch.
 struct Streamed {
     const float *x, *X, *tgt, *wgt, *rot, *trans, *cth, *ctg, *sq, *gy, *gx;
@@ -343,21 +194,6 @@ __device__ __forceinline__ void stage(float* buf, const Streamed& s, int j0,
     for (int i = tq * EMB + tid; i < TS * EMB; i += NT)
         buf[row_at(i / EMB) + i % EMB] = 0.0f;
     asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// The first tile at or after j that a pixel of the block can reach, n if
-// none; block-wide, at least one barrier when j < n.
-__device__ __forceinline__ int next_tile(int j, int n, const Reach& reach,
-                                         const float* __restrict__ gy,
-                                         const float* __restrict__ gx,
-                                         int tid) {
-    for (; j < n; j += TS) {
-        int any = 0;
-        if (tid < TS && j + tid < n)
-            any = reach.holds(gy[j + tid], gx[j + tid]);
-        if (__syncthreads_or(any)) return j;
-    }
-    return n;
 }
 
 template <bool GI, bool GJ>
@@ -464,7 +300,7 @@ gn_bwd_kernel(const float* __restrict__ rot, const float* __restrict__ trans,
                            tile[row_at(qm) + R_X + 5]);
         if (!__any_sync(0xffffffffu, mine)) continue;
 
-        dot_products(tile, xhi, xlo, D, warp, lane);
+        dot_products<ROW>(tile, xhi, xlo, D, warp, lane);
         __syncwarp();
 
         for (int i = 0; i < QW; ++i) {

@@ -21,21 +21,40 @@
 // cotangent of that pixel's error, is scaled by its weight; the weights are
 // constants and get no gradient.
 //
-// Steps:
-//   1. gather x and the warped y (and, on the tile, the tangents
-//      dy/dcoord) into shared memory on the tile plus a 2-pixel halo; the
-//      halo's gathers are recomputed by each block, not exchanged;
-//   2. per channel, on the tile plus a 1-pixel halo: the pools, SSIM terms,
-//      the clip's tie factors and the three adjoint coefficient planes;
-//   3. on the tile: the adjoint pools, dw = d err / d y, contracted with the
-//      tangents over channels;
-//   4. reduce err over the block into its partial.
+// What bounds it: DRAM bytes. The function needs ~390 float32 operations a
+// pixel, direction and source (chip_smoke.py PHOTO_FLOPS) against 84 bytes a
+// pixel for both directions and two sources: under the bytes at the
+// H100's rates. The kernel before this design spent its time in shared
+// memory instead: nine-tap pools, ~100 shared-memory reads a pixel and
+// channel, two barriers a channel, tangents staged in shared memory. The
+// design:
+//   * Tiles of 32 rows x 30 columns, 8 warps: a warp's 32 lanes are the 32
+//     columns of the tile plus its 1-pixel halo, so each pass is one column
+//     a lane. The block gathers x and the warped y on the tile plus a
+//     2-pixel halo (36 x 34, 1.275 gathers an output; 1.41 for the 16 x 32
+//     tiles before). The halo's gathers are recomputed by each block, not
+//     exchanged.
+//   * A thread's own pixels (its column of its warp's 4 rows) are gathered
+//     by that thread, their tangents d y / d coords kept in registers until
+//     the contraction; the halo ring is gathered by the block in one round.
+//   * Separable pools by running sums. Pass 1: warp w walks its rows of the
+//     tile plus 1-pixel halo, a column a lane, and keeps the horizontal
+//     3-sums of the five moments of the last three rows in registers, so a
+//     window costs three adds a moment; it forms the SSIM terms, the clip's
+//     tie factors, the loss and the three adjoint coefficient planes of all
+//     three channels. Pass 2: the same walk over the coefficient planes
+//     gives the adjoint pools of a thread's 4 pixels, dw = d err / d y, and
+//     the contraction with the tangents. One barrier between the gathers and
+//     pass 1, one between the passes.
 // Pixels outside the image are zero in every pool and carry no loss and no
 // cotangent, as in the zero-padded reduce_window of sndepth_tpu/ops/ssim.py.
 //
 // The tap arithmetic is sampler.cuh's edge_zero mode and the SSIM algebra
-// ssim.cuh's, shared with warp.cu and dssim.cu. Build with -fmad=false (see
-// ssim.cuh).
+// ssim.cuh's, shared with warp.cu and dssim.cu. Built with fused
+// multiply-adds (kernels/build.py FMAD_SOURCES): the one exact tie, equal
+// windows, is kept by ssim.cuh's unfused ssim_terms and by window sums that
+// round alike on the x and y sides (row_moments); the sampler's taps and the
+// moments' products round as the plain version's do (sampler.cuh).
 
 #include <cuda_runtime.h>
 
@@ -44,39 +63,91 @@
 
 namespace {
 
-constexpr int TH = 16;                  // tile rows
-constexpr int TW = 32;                  // tile columns
-constexpr int NT = 256;                 // threads per block
+constexpr int TW = 30;                  // tile columns
+constexpr int NW = 8;                   // warps per block
+constexpr int NT = 32 * NW;             // threads per block
 constexpr int NC = 3;                   // image channels
-constexpr int RH = TH + 4, RW = TW + 4; // tile + 2-pixel halo
-constexpr int QH = TH + 2, QW = TW + 2; // tile + 1-pixel halo
-constexpr int PPT = TH * TW / NT;       // tile pixels per thread
+#ifndef PHOTO_RW
+#define PHOTO_RW 2
+#endif
+#ifndef PHOTO_MIN_BLOCKS
+#define PHOTO_MIN_BLOCKS 4
+#endif
+constexpr int RW = PHOTO_RW;            // tile rows a warp
+constexpr int TH = NW * RW;             // tile rows
+constexpr int GH = TH + 4, GW = TW + 4; // tile + 2-pixel halo (gathered)
+constexpr int QH = TH + 2, QW = TW + 2; // tile + 1-pixel halo (pass 1)
+// Gathered by the block besides the threads' own pixels.
+constexpr int NRING = GH * GW - TH * QW;
+constexpr int NPLANE = 3;               // adjoint coefficient planes
+// Shared memory (floats): x and the warped y on the gathered region, the
+// adjoint coefficient planes of the three channels on the pass-1 region.
+constexpr int OFF_Y = NC * GH * GW;
+constexpr int OFF_Q = 2 * NC * GH * GW;
+constexpr int SMEM_FLOATS = OFF_Q + NC * NPLANE * QH * QW;
 
-// edge_zero bilinear sample of all channels of img at (x, y), with the
-// tangents d out / dx and d out / dy.
-__device__ __forceinline__ void sample(const float* __restrict__ img,
-                                       int H, int W, size_t hw, float x,
-                                       float y, float* out, float* tx,
-                                       float* ty) {
-  const Taps t = tap_setup<kEdgeZero>(x, y, H, W);
-#pragma unroll
-  for (int c = 0; c < NC; ++c) tap_channel(t, img + c * hw, out[c], tx[c], ty[c]);
+static_assert(QW == 32, "a warp's lanes are the pass-1 columns");
+static_assert(NRING <= NT, "the halo ring is one round");
+
+// The five moments' horizontal 3-sums at one column of a row: x, y, x x,
+// y y, x y. Each product is rounded before it is summed, as the plain
+// version pools the rounded planes x x, y y and x y (a far-out edge_zero
+// sample can be large, and its square's sums cancel in sigma), and the x and
+// y sides round alike, so equal windows tie exactly.
+struct Moments {
+  float x, y, xx, yy, xy;
+};
+
+__device__ __forceinline__ Moments row_moments(const float* __restrict__ px,
+                                               const float* __restrict__ py) {
+  const float x0 = px[0], x1 = px[1], x2 = px[2];
+  const float y0 = py[0], y1 = py[1], y2 = py[2];
+  Moments m;
+  m.x = (x0 + x1) + x2;
+  m.y = (y0 + y1) + y2;
+  m.xx = __fadd_rn(__fadd_rn(__fmul_rn(x0, x0), __fmul_rn(x1, x1)),
+                   __fmul_rn(x2, x2));
+  m.yy = __fadd_rn(__fadd_rn(__fmul_rn(y0, y0), __fmul_rn(y1, y1)),
+                   __fmul_rn(y2, y2));
+  m.xy = __fadd_rn(__fadd_rn(__fmul_rn(x0, y0), __fmul_rn(x1, y1)),
+                   __fmul_rn(x2, y2));
+  return m;
 }
 
-__global__ void __launch_bounds__(NT) photo_pair_kernel(
+// x, the edge_zero sample y and its tangents d y / dx, d y / dy of all
+// channels at image pixel (r, c); zeros outside the image.
+__device__ __forceinline__ void gather(const float* __restrict__ xim,
+                                       const float* __restrict__ wim,
+                                       const float* __restrict__ crd, int H,
+                                       int W, size_t hw, int r, int c,
+                                       float (&xv)[NC], float (&yv)[NC],
+                                       float (&tx)[NC], float (&ty)[NC]) {
+#pragma unroll
+  for (int ch = 0; ch < NC; ++ch) xv[ch] = yv[ch] = tx[ch] = ty[ch] = 0.f;
+  if (r < 0 || r >= H || c < 0 || c >= W) return;
+  const size_t p = (size_t)r * W + c;
+  const Taps t = tap_setup<kEdgeZero>(__ldg(crd + p), __ldg(crd + hw + p), H,
+                                      W);
+#pragma unroll
+  for (int ch = 0; ch < NC; ++ch) {
+    tap_channel(t, wim + ch * hw, yv[ch], tx[ch], ty[ch]);
+    xv[ch] = __ldg(xim + ch * hw + p);
+  }
+}
+
+__global__ void __launch_bounds__(NT, PHOTO_MIN_BLOCKS) photo_pair_kernel(
     const float* __restrict__ tgt, const float* __restrict__ srcs,
     const float* __restrict__ cf, const float* __restrict__ cb,
     const float* __restrict__ wf, const float* __restrict__ wb,
     float* __restrict__ loss_part, float* __restrict__ dcf,
     float* __restrict__ dcb, int ns, int ndir, int H, int W, float alpha,
     float beta) {
-  __shared__ float sx[NC][RH][RW];
-  __shared__ float sy[NC][RH][RW];
-  __shared__ float stx[NC][TH][TW];
-  __shared__ float sty[NC][TH][TW];
-  __shared__ float qa[QH][QW], qb[QH][QW], qc[QH][QW];
-  __shared__ float sw[QH][QW];
-  __shared__ float red[NT / 32];
+  extern __shared__ float smem[];
+  __shared__ float red[NW];
+  float (*sx)[GH][GW] = reinterpret_cast<float (*)[GH][GW]>(smem);
+  float (*sy)[GH][GW] = reinterpret_cast<float (*)[GH][GW]>(smem + OFF_Y);
+  float (*sq)[NPLANE][QH][QW] =
+      reinterpret_cast<float (*)[NPLANE][QH][QW]>(smem + OFF_Q);
 
   const int plane = blockIdx.z;
   const int s = plane % ns;
@@ -93,138 +164,141 @@ __global__ void __launch_bounds__(NT) photo_pair_kernel(
   const float* wgt = dir == 0 ? wf : wb;
   if (wgt != nullptr) wgt += ((size_t)b * ns + s) * hw;
   const int r0 = blockIdx.y * TH, c0 = blockIdx.x * TW;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  // 1. x and warped y on the tile + 2-pixel halo; tangents on the tile.
-  for (int k = tid; k < RH * RW; k += NT) {
-    const int rr = k / RW, cc = k % RW;
-    const int r = r0 + rr - 2, c = c0 + cc - 2;
-    float xv[NC], yv[NC], txv[NC], tyv[NC];
+  // 1. Gathers, all issued together: a thread's own pixels (slots 0 .. RW
+  //    - 1: gathered column lane + 2 of the tile's rows RW warp .. RW warp +
+  //    RW - 1; columns TW, TW + 1 are halo, their tangents unused), then
+  //    slot RW: one pixel of the rest of the 2-pixel ring (rows 0, 1, GH -
+  //    2, GH - 1 whole, then columns 0 and 1 of the rows between).
+  float tx[NC][RW], ty[NC][RW];
 #pragma unroll
-    for (int ch = 0; ch < NC; ++ch) xv[ch] = yv[ch] = txv[ch] = tyv[ch] = 0.f;
-    if (r >= 0 && r < H && c >= 0 && c < W) {
-      const size_t p = (size_t)r * W + c;
-      sample(wim, H, W, hw, __ldg(crd + p), __ldg(crd + hw + p), yv, txv,
-             tyv);
-#pragma unroll
-      for (int ch = 0; ch < NC; ++ch) xv[ch] = __ldg(xim + ch * hw + p);
+  for (int i = 0; i <= RW; ++i) {
+    int gr, gc;
+    if (i < RW) {
+      gr = RW * warp + i + 2;
+      gc = lane + 2;
+    } else if (tid < 4 * GW) {
+      const int k = tid / GW;
+      gr = k < 2 ? k : GH - 4 + k;
+      gc = tid % GW;
+    } else {
+      gr = 2 + (tid - 4 * GW) / 2;
+      gc = (tid - 4 * GW) % 2;
     }
+    if (i == RW && tid >= NRING) break;
+    float xv[NC], yv[NC], a[NC], b2[NC];
+    gather(xim, wim, crd, H, W, hw, r0 + gr - 2, c0 + gc - 2, xv, yv, a, b2);
 #pragma unroll
     for (int ch = 0; ch < NC; ++ch) {
-      sx[ch][rr][cc] = xv[ch];
-      sy[ch][rr][cc] = yv[ch];
-    }
-    const int tr = rr - 2, tc = cc - 2;
-    if (tr >= 0 && tr < TH && tc >= 0 && tc < TW) {
-#pragma unroll
-      for (int ch = 0; ch < NC; ++ch) {
-        stx[ch][tr][tc] = txv[ch];
-        sty[ch][tr][tc] = tyv[ch];
+      sx[ch][gr][gc] = xv[ch];
+      sy[ch][gr][gc] = yv[ch];
+      if (i < RW) {
+        tx[ch][i] = a[ch];
+        ty[ch][i] = b2[ch];
       }
     }
   }
-  // The pixel weights on the tile + 1-pixel halo.
-  for (int k = tid; k < QH * QW; k += NT) {
-    const int r = r0 + k / QW - 1, c = c0 + k % QW - 1;
-    float wv = 0.f;
-    if (r >= 0 && r < H && c >= 0 && c < W)
-      wv = wgt != nullptr ? __ldg(wgt + (size_t)r * W + c) : 1.f;
-    sw[k / QW][k % QW] = wv;
-  }
   __syncthreads();
 
+  // 2. Pass 1: warp w walks pass-1 rows [q0, q1), column lane; pass-1 row q
+  //    is tile row q - 1, its window gathered rows q .. q + 2.
+  const int q0 = QH * warp / NW, q1 = QH * (warp + 1) / NW;
+  const int c = c0 + lane - 1;
   float err = 0.f;
-  float gx[PPT], gy[PPT];
 #pragma unroll
-  for (int i = 0; i < PPT; ++i) gx[i] = gy[i] = 0.f;
-
   for (int ch = 0; ch < NC; ++ch) {
-    // 2. SSIM terms and adjoint coefficients on the tile + 1-pixel halo.
-    for (int k = tid; k < QH * QW; k += NT) {
-      const int qr = k / QW, qcol = k % QW;
-      const int r = r0 + qr - 1, c = c0 + qcol - 1;
+    Moments h0 = row_moments(&sx[ch][q0][lane], &sy[ch][q0][lane]);
+    Moments h1 = row_moments(&sx[ch][q0 + 1][lane], &sy[ch][q0 + 1][lane]);
+    for (int q = q0; q < q1; ++q) {
+      const Moments h2 =
+          row_moments(&sx[ch][q + 2][lane], &sy[ch][q + 2][lane]);
+      const int r = r0 + q - 1;
       float va = 0.f, vb = 0.f, vc = 0.f;
       if (r >= 0 && r < H && c >= 0 && c < W) {
-        float s_x = 0.f, s_y = 0.f, s_xx = 0.f, s_yy = 0.f, s_xy = 0.f;
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-#pragma unroll
-          for (int j = 0; j < 3; ++j) {
-            const float xv = sx[ch][qr + i][qcol + j];
-            const float yv = sy[ch][qr + i][qcol + j];
-            s_x += xv;
-            s_y += yv;
-            s_xx += xv * xv;
-            s_yy += yv * yv;
-            s_xy += xv * yv;
-          }
-        }
-        const Ssim m = ssim_terms(s_x, s_y, s_xx, s_yy, s_xy);
-        const float wv = sw[qr][qcol];
+        const Ssim m = ssim_terms((h0.x + h1.x) + h2.x, (h0.y + h1.y) + h2.y,
+                                  (h0.xx + h1.xx) + h2.xx,
+                                  (h0.yy + h1.yy) + h2.yy,
+                                  (h0.xy + h1.xy) + h2.xy);
+        const float wv =
+            wgt != nullptr ? __ldg(wgt + (size_t)r * W + c) : 1.f;
         const SsimAdjoint a = ssim_adjoint(m, wv * clip01_grad(m.s));
         va = a.a_y;
         vb = a.b;
         vc = a.c;
-        if (qr >= 1 && qr <= TH && qcol >= 1 && qcol <= TW) {
-          const float xv = sx[ch][qr + 1][qcol + 1];
-          const float yv = sy[ch][qr + 1][qcol + 1];
+        if (q >= 1 && q <= TH && lane >= 1 && lane <= TW) {
+          const float xv = sx[ch][q + 1][lane + 1];
+          const float yv = sy[ch][q + 1][lane + 1];
           err += wv * (alpha * clip01(m.s) + beta * fabsf(xv - yv));
         }
       }
-      qa[qr][qcol] = va;
-      qb[qr][qcol] = vb;
-      qc[qr][qcol] = vc;
+      sq[ch][0][q][lane] = va;
+      sq[ch][1][q][lane] = vb;
+      sq[ch][2][q][lane] = vc;
+      h0 = h1;
+      h1 = h2;
     }
-    __syncthreads();
-
-    // 3. Adjoint pools and the tangent contraction on the tile.
-#pragma unroll
-    for (int i = 0; i < PPT; ++i) {
-      const int k = tid + i * NT;
-      const int tr = k / TW, tc = k % TW;
-      float pa = 0.f, pb = 0.f, pc = 0.f;
-#pragma unroll
-      for (int u = 0; u < 3; ++u) {
-#pragma unroll
-        for (int v = 0; v < 3; ++v) {
-          pa += qa[tr + u][tc + v];
-          pb += qb[tr + u][tc + v];
-          pc += qc[tr + u][tc + v];
-        }
-      }
-      pa /= 9.f;
-      pb /= 9.f;
-      pc /= 9.f;
-      const float xv = sx[ch][tr + 2][tc + 2];
-      const float yv = sy[ch][tr + 2][tc + 2];
-      const float d_ssim = pa + 2.f * yv * pb + xv * pc;
-      const float diff = xv - yv;
-      const float sgn = diff > 0.f ? 1.f : (diff < 0.f ? -1.f : 0.f);
-      const float dw = alpha * d_ssim + beta * (-sgn * sw[tr + 1][tc + 1]);
-      gx[i] += dw * stx[ch][tr][tc];
-      gy[i] += dw * sty[ch][tr][tc];
-    }
-    __syncthreads();
   }
+  __syncthreads();
 
+  // 3. Pass 2: the adjoint pools of tile rows RW warp + i at column lane
+  //    (pass-1 rows tr .. tr + 2, columns lane .. lane + 2), dw and the
+  //    contraction with the tangents.
+  if (lane < TW) {
+    float gxs[RW], gys[RW], wout[RW];
 #pragma unroll
-  for (int i = 0; i < PPT; ++i) {
-    const int k = tid + i * NT;
-    const int r = r0 + k / TW, c = c0 + k % TW;
-    if (r < H && c < W) {
-      const size_t p = (size_t)r * W + c;
-      dcrd[p] = gx[i];
-      dcrd[hw + p] = gy[i];
+    for (int i = 0; i < RW; ++i) {
+      const int r = r0 + RW * warp + i, cc = c0 + lane;
+      gxs[i] = gys[i] = 0.f;
+      wout[i] = (r < H && cc < W)
+                    ? (wgt != nullptr ? __ldg(wgt + (size_t)r * W + cc) : 1.f)
+                    : 0.f;
+    }
+#pragma unroll
+    for (int ch = 0; ch < NC; ++ch) {
+      float h[RW + 2][NPLANE];
+#pragma unroll
+      for (int u = 0; u < RW + 2; ++u) {
+        const int q = RW * warp + u;
+#pragma unroll
+        for (int k = 0; k < NPLANE; ++k)
+          h[u][k] = (sq[ch][k][q][lane] + sq[ch][k][q][lane + 1]) +
+                    sq[ch][k][q][lane + 2];
+      }
+#pragma unroll
+      for (int i = 0; i < RW; ++i) {
+        const int tr = RW * warp + i;
+        const float pa = ((h[i][0] + h[i + 1][0]) + h[i + 2][0]) / 9.f;
+        const float pb = ((h[i][1] + h[i + 1][1]) + h[i + 2][1]) / 9.f;
+        const float pc = ((h[i][2] + h[i + 1][2]) + h[i + 2][2]) / 9.f;
+        const float xv = sx[ch][tr + 2][lane + 2];
+        const float yv = sy[ch][tr + 2][lane + 2];
+        const float d_ssim = pa + 2.f * yv * pb + xv * pc;
+        const float diff = xv - yv;
+        const float sgn = diff > 0.f ? 1.f : (diff < 0.f ? -1.f : 0.f);
+        const float dw = alpha * d_ssim + beta * (-sgn * wout[i]);
+        gxs[i] += dw * tx[ch][i];
+        gys[i] += dw * ty[ch][i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      const int r = r0 + RW * warp + i, cc = c0 + lane;
+      if (r < H && cc < W) {
+        const size_t p = (size_t)r * W + cc;
+        dcrd[p] = gxs[i];
+        dcrd[hw + p] = gys[i];
+      }
     }
   }
 
   // 4. Block sum of err.
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) err += __shfl_down_sync(0xffffffffu, err, o);
-  if ((tid & 31) == 0) red[tid >> 5] = err;
+  if (lane == 0) red[warp] = err;
   __syncthreads();
   if (tid < 32) {
-    float v = tid < NT / 32 ? red[tid] : 0.f;
+    float v = tid < NW ? red[tid] : 0.f;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
     if (tid == 0)
@@ -252,8 +326,13 @@ extern "C" int photo_pair_launch(const float* tgt, const float* srcs,
   if (C != NC || B < 1 || ns < 1 || H < 1 || W < 1 ||
       (ndir != 1 && ndir != 2) || (long long)B * ndir * ns > 65535)
     return (int)cudaErrorInvalidValue;
+  constexpr int bytes = SMEM_FLOATS * sizeof(float);
+  // Above 48 KB a block's shared memory has to be asked for, once.
+  static const cudaError_t set = cudaFuncSetAttribute(
+      photo_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (set != cudaSuccess) return (int)set;
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B * ndir * ns);
-  photo_pair_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+  photo_pair_kernel<<<grid, NT, bytes, (cudaStream_t)stream>>>(
       tgt, srcs, cf, cb, wf, wb, loss_part, dcf, dcb, ns, ndir, H, W, alpha,
       beta);
   return (int)cudaGetLastError();

@@ -12,6 +12,14 @@
 //
 // Indices are always in range: fminf/fmaxf clamp in float (a NaN coordinate
 // lands on index 0 while its weights stay NaN).
+//
+// tap_channel rounds every product and sum on its own (__fmul_rn,
+// __fadd_rn, __fsub_rn, which the compiler never contracts into a fused
+// multiply-add), in the plain PyTorch version's order, whatever -fmad says:
+// far outside the image an edge_zero weight grows with the distance, a
+// sample is a difference of large products, and only the same roundings give
+// the plain version's value (warp.cu builds with -fmad=false, photo_pair.cu
+// with fused multiply-adds).
 
 #pragma once
 
@@ -63,9 +71,15 @@ __device__ __forceinline__ void tap_channel(const Taps& t,
                                             float& out, float& tx, float& ty) {
   const float i00 = __ldg(p + t.p00), i01 = __ldg(p + t.p01);
   const float i10 = __ldg(p + t.p10), i11 = __ldg(p + t.p11);
-  const float w00 = t.wx0 * t.wy0, w01 = t.wx0 * t.wy1;
-  const float w10 = t.wx1 * t.wy0, w11 = t.wx1 * t.wy1;
-  out = w00 * i00 + w01 * i01 + w10 * i10 + w11 * i11;
-  tx = t.wy0 * (t.dx1 * i10 - t.dx0 * i00) + t.wy1 * (t.dx1 * i11 - t.dx0 * i01);
-  ty = t.wx0 * (t.dy1 * i01 - t.dy0 * i00) + t.wx1 * (t.dy1 * i11 - t.dy0 * i10);
+  const float w00 = __fmul_rn(t.wx0, t.wy0), w01 = __fmul_rn(t.wx0, t.wy1);
+  const float w10 = __fmul_rn(t.wx1, t.wy0), w11 = __fmul_rn(t.wx1, t.wy1);
+  out = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(w00, i00), __fmul_rn(w01, i01)),
+                            __fmul_rn(w10, i10)),
+                  __fmul_rn(w11, i11));
+  tx = __fadd_rn(
+      __fmul_rn(t.wy0, __fsub_rn(__fmul_rn(t.dx1, i10), __fmul_rn(t.dx0, i00))),
+      __fmul_rn(t.wy1, __fsub_rn(__fmul_rn(t.dx1, i11), __fmul_rn(t.dx0, i01))));
+  ty = __fadd_rn(
+      __fmul_rn(t.wx0, __fsub_rn(__fmul_rn(t.dy1, i01), __fmul_rn(t.dy0, i00))),
+      __fmul_rn(t.wx1, __fsub_rn(__fmul_rn(t.dy1, i11), __fmul_rn(t.dy0, i10))));
 }

@@ -14,9 +14,17 @@
 // so that dX = P(A_x) + 2 x P(B) + y P(Cxy), dY = P(A_y) + 2 y P(B) + x P(Cxy),
 // P the zero-padded 3x3/9 pool, which is its own adjoint.
 //
-// Build with -fmad=false: every product and sum then rounds as in the plain
-// PyTorch version, so windows where x == y give exactly SSIM = 1 and take
-// the clip's 0.5 tie factor in both.
+// The tie: windows where x == y must give exactly SSIM = 1 and take the
+// clip's 0.5 tie factor, as in the plain PyTorch version. That holds when
+// the x and the y side of every term round alike (mu_x mu_x + mu_y mu_y ==
+// 2 mu_x mu_y, sigma_x + sigma_y == 2 sigma_xy, so n == d); a fused
+// multiply-add on one side only breaks it. ssim_terms is therefore written
+// in __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn, which the compiler never
+// contracts: it rounds every step whatever -fmad says, and the same as the
+// plain arithmetic under -fmad=false. The callers' window sums must round
+// alike on the two sides too: dssim.cu builds with -fmad=false; photo_pair.cu
+// builds with fused multiply-adds and forms its x x, y y and x y sums with
+// the same unfused chain. The adjoint below carries no tie.
 
 #pragma once
 
@@ -31,18 +39,22 @@ struct Ssim {
 __device__ __forceinline__ Ssim ssim_terms(float s_x, float s_y, float s_xx,
                                            float s_yy, float s_xy) {
   Ssim m;
-  m.mu_x = s_x / 9.f;
-  m.mu_y = s_y / 9.f;
-  const float sigma_x = s_xx / 9.f - m.mu_x * m.mu_x;
-  const float sigma_y = s_yy / 9.f - m.mu_y * m.mu_y;
-  const float sigma_xy = s_xy / 9.f - m.mu_x * m.mu_y;
-  m.t1 = 2.f * sigma_xy + kC2;
-  m.t2 = 2.f * m.mu_x * m.mu_y + kC1;
-  m.t3 = sigma_x + sigma_y + kC2;
-  m.t4 = m.mu_x * m.mu_x + m.mu_y * m.mu_y + kC1;
-  m.n = m.t2 * m.t1;
-  m.d = m.t4 * m.t3;
-  m.s = 0.5f * (1.f - m.n / m.d);
+  m.mu_x = __fdiv_rn(s_x, 9.f);
+  m.mu_y = __fdiv_rn(s_y, 9.f);
+  const float sigma_x =
+      __fsub_rn(__fdiv_rn(s_xx, 9.f), __fmul_rn(m.mu_x, m.mu_x));
+  const float sigma_y =
+      __fsub_rn(__fdiv_rn(s_yy, 9.f), __fmul_rn(m.mu_y, m.mu_y));
+  const float sigma_xy =
+      __fsub_rn(__fdiv_rn(s_xy, 9.f), __fmul_rn(m.mu_x, m.mu_y));
+  m.t1 = __fadd_rn(__fmul_rn(2.f, sigma_xy), kC2);
+  m.t2 = __fadd_rn(__fmul_rn(__fmul_rn(2.f, m.mu_x), m.mu_y), kC1);
+  m.t3 = __fadd_rn(__fadd_rn(sigma_x, sigma_y), kC2);
+  m.t4 = __fadd_rn(
+      __fadd_rn(__fmul_rn(m.mu_x, m.mu_x), __fmul_rn(m.mu_y, m.mu_y)), kC1);
+  m.n = __fmul_rn(m.t2, m.t1);
+  m.d = __fmul_rn(m.t4, m.t3);
+  m.s = __fmul_rn(0.5f, __fsub_rn(1.f, __fdiv_rn(m.n, m.d)));
   return m;
 }
 

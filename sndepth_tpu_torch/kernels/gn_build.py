@@ -16,7 +16,7 @@ point X_j against the target tgt_j:
     J = d pi / d delta (3 x 6, tangent order [tau, phi])
     H_i = sum_j sum_m attn_ij w_jm J_m^T J_m,   g_i = sum_j sum_m attn_ij w_jm J_m^T r_m
 
-What bounds it on the card: operations (~250 a pair in the radius, against
+What bounds it on the card: operations (~218 a pair in the radius, against
 a few megabytes of inputs), see the note at the top of ``csrc/gn_build.cu``
 for what the design does about it. A pair outside the radius contributes
 exactly nothing here, also where its transformed depth P_z is 0 (the TPU
@@ -58,9 +58,15 @@ _BLOCK = 1024
 # The pointers each kernel's C launcher ``<name>_launch`` in
 # ``csrc/<name>.cu`` takes before (b, n, radius, stream).
 _POINTERS = {"gn_build": 12, "gn_build_bwd": 20}
-# A warp of the backward kernel owns a patch of PATCH_ROWS x PATCH_COLS grid
-# pixels (:func:`owner_pixels`).
+# A warp of either kernel owns a patch of PATCH_ROWS x PATCH_COLS grid
+# pixels (:func:`owner_pixels`), 32 owners a block; the kernels stage the
+# streamed pixels TILE at a time.
 PATCH_ROWS, PATCH_COLS = 8, 4
+OWNERS, TILE = 32, 64
+# The forward kernel's clusters (``csrc/gn_build.cu`` ``cluster_size``): up
+# to MAX_CLUSTER blocks share 32 owners, while the grid stays within SLOTS
+# blocks (two on each of an H100's 132 SMs).
+MAX_CLUSTER, SLOTS = 8, 2 * 132
 
 
 def _check(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4) -> None:
@@ -215,6 +221,9 @@ def _launch(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4,
             radius: int):
     args = _kernel_inputs(rot, trans, x, sq, gy, gx, X, tgt, wgt,
                           intrinsics4)
+    # The kernel copies rows of x 16 bytes at a time.
+    if args[2].data_ptr() % 16:
+        args[2] = args[2].clone()
     b, n = sq.shape
     launch = _library()
     H = torch.empty(b, n, 6, 6, dtype=torch.float32, device=sq.device)
@@ -230,8 +239,9 @@ def _launch(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4,
 
 
 def owner_pixels(gy: torch.Tensor) -> torch.Tensor:
-    """The pixel each owner slot k of the backward kernel takes (slot k is
-    lane k % 32 of block k // 32), as the kernel's ``owner_pixel`` maps it:
+    """The pixel each owner slot k of either kernel takes (slot k is lane
+    k % 32 of the block, or cluster, k // 32), as ``owner_pixel`` in
+    ``csrc/gn_pair.cuh`` maps it:
     the grid width w is the first index where ``gy`` changes (n if none);
     the full rows are cut into bands of 8 rows, each band into patches of 8
     rows x 4 columns left to right (the last one narrower where 4 does not
@@ -259,9 +269,43 @@ def owner_pixels(gy: torch.Tensor) -> torch.Tensor:
     return torch.cat([(PATCH_ROWS * band + r) * w + c, k[rows * w:]])
 
 
+def cluster_size(blocks: int) -> int:
+    """Blocks in a cluster of the forward kernel for a grid of ``blocks``
+    groups of 32 owners (B x ceil(n / 32)), as ``cluster_size`` in
+    ``csrc/gn_build.cu`` picks it: the largest of 8, 4, 2, 1 that keeps
+    ``blocks`` times it within :data:`SLOTS`."""
+    c = MAX_CLUSTER
+    while c > 1 and blocks * c > SLOTS:
+        c //= 2
+    return c
+
+
+def cluster_tiles(gy: torch.Tensor, gx: torch.Tensor, radius: float,
+                  csize: int) -> list[list[list[int]]]:
+    """The tiles each block of the forward kernel computes, as the kernel
+    deals them: for every group of 32 owner slots, and for every rank of
+    its cluster of ``csize`` blocks, the first pixels of its tiles. A tile
+    is in reach of the group when one of its pixels lies in the box of the
+    owners' grid positions grown by ``radius``; the in-reach tiles, in
+    order, go to the ranks in turn."""
+    pix = owner_pixels(gy)
+    n = pix.shape[0]
+    gy, gx = gy.to(torch.float32), gx.to(torch.float32)
+    out = []
+    for k0 in range(0, n, OWNERS):
+        own = pix[k0:k0 + OWNERS]
+        ylo, yhi = gy[own].min() - radius, gy[own].max() + radius
+        xlo, xhi = gx[own].min() - radius, gx[own].max() + radius
+        held = (gy >= ylo) & (gy <= yhi) & (gx >= xlo) & (gx <= xhi)
+        reach = [j0 for j0 in range(0, n, TILE)
+                 if bool(held[j0:j0 + TILE].any())]
+        out.append([reach[r::csize] for r in range(csize)])
+    return out
+
+
 def lane_share(gy: torch.Tensor, gx: torch.Tensor, radius: int) -> float:
-    """Of the lanes that run a pair in the backward kernel, the share whose
-    pair is within the radius. A warp owns 32 slots of
+    """Of the lanes that run a pair in either kernel, the share whose pair
+    is within the radius. A warp owns 32 slots of
     :func:`owner_pixels` and steps through every streamed pixel that one of
     its lanes reaches, all 32 lanes at once."""
     pix = owner_pixels(gy)

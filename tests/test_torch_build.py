@@ -41,6 +41,8 @@ def test_source_closure_follows_quoted_includes_only():
     ("warp.cu", "sampler.cuh", True),
     ("warp.cu", "ssim.cuh", False),
     ("dssim.cu", "sampler.cuh", False),
+    ("gn_build.cu", "gn_pair.cuh", True),
+    ("gn_build_bwd.cu", "gn_pair.cuh", True),
 ])
 def test_a_changed_header_renames_the_libraries_that_include_it(
         csrc_copy, source, header, rebuilds):
@@ -78,11 +80,16 @@ def test_flags_keep_the_target_and_the_unfused_arithmetic():
 
 
 def test_only_the_gauss_newton_backward_fuses_multiply_adds():
-    """The photo, DSSIM and warp kernels keep their exact ties with
-    ``-fmad=false``; the Gauss-Newton backward has none to keep."""
-    for source in ("photo_pair.cu", "dssim.cu", "warp.cu", "gn_build.cu"):
+    """The DSSIM and warp kernels keep their exact ties with
+    ``-fmad=false``; the Gauss-Newton build and backward have none to keep,
+    and the photo kernel keeps its tie by unfused arithmetic in
+    ``csrc/ssim.cuh``, so those three build with fused multiply-adds."""
+    for source in ("dssim.cu", "warp.cu"):
         assert build.nvcc_flags(source) == build.NVCC_FLAGS
-    fused = build.nvcc_flags("gn_build_bwd.cu")
-    assert "-fmad=false" not in fused
-    assert fused == [f for f in build.NVCC_FLAGS if f != "-fmad=false"]
-    assert "arch=compute_90a,code=sm_90a" in fused
+    assert sorted(build.FMAD_SOURCES) == ["gn_build.cu", "gn_build_bwd.cu",
+                                          "photo_pair.cu"]
+    for source in build.FMAD_SOURCES:
+        fused = build.nvcc_flags(source)
+        assert "-fmad=false" not in fused
+        assert fused == [f for f in build.NVCC_FLAGS if f != "-fmad=false"]
+        assert "arch=compute_90a,code=sm_90a" in fused

@@ -501,7 +501,8 @@ OWNER_CASES = {"16x52": _grid(16, 52), "32x104": _grid(32, 104),
                "47x156": _grid(47, 156), "13x7": _grid(13, 7),
                "column_major_9x6": tuple(t.reshape(9, 6).t().reshape(-1)
                                          for t in _grid(9, 6)),
-               "one_row_50": (torch.zeros(50), torch.arange(50.0))}
+               "one_row_50": (torch.zeros(50), torch.arange(50.0)),
+               "one_patch_8x4": _grid(8, 4), "one_pixel": _grid(1, 1)}
 
 
 @pytest.mark.parametrize("case", sorted(OWNER_CASES))
@@ -530,3 +531,63 @@ def test_the_patch_map_keeps_running_lanes_in_the_radius(monkeypatch, h, w,
     assert K8.lane_share(gy, gx, 32) >= least
     monkeypatch.setattr(K8, "owner_pixels", lambda g: torch.arange(len(g)))
     assert 0.65 <= K8.lane_share(gy, gx, 32) <= 0.66
+
+
+@pytest.mark.parametrize("h,w,least,row_lo,row_hi",
+                         [(16, 52, 0.97, 0.85, 0.87)])
+def test_the_patch_map_keeps_running_lanes_in_the_radius_at_a_small_frame(
+        monkeypatch, h, w, least, row_lo, row_hi):
+    """The forward kernel shares the map; at the 128x416 frame's grid and
+    radius 32 at least 97% of the running lanes are in the radius, against
+    85-87% with 32 pixels of a row."""
+    gy, gx = _grid(h, w)
+    assert K8.lane_share(gy, gx, 32) >= least
+    monkeypatch.setattr(K8, "owner_pixels", lambda g: torch.arange(len(g)))
+    assert row_lo <= K8.lane_share(gy, gx, 32) <= row_hi
+
+
+@pytest.mark.parametrize("blocks,want", [(1, 8), (26, 8), (33, 8), (34, 4),
+                                         (52, 4), (104, 2), (208, 1),
+                                         (230, 1)])
+def test_the_cluster_size_fills_two_blocks_on_each_sm(blocks, want):
+    """26 blocks (1 x 832) become 208 in clusters of 8; a grid past 132 SMs
+    of two blocks each is left as it is."""
+    assert K8.cluster_size(blocks) == want
+    assert blocks * want <= K8.SLOTS or want == 1
+
+
+# Grids of the cluster split's mirror: the frame and training grids at
+# radius 32, a column-major grid and a single row at radius 3.
+CLUSTER_CASES = {"16x52": (_grid(16, 52), 32), "32x104": (_grid(32, 104), 32),
+                 "47x156": (_grid(47, 156), 32),
+                 "column_major_9x6": (OWNER_CASES["column_major_9x6"], 3),
+                 "one_row_50": (OWNER_CASES["one_row_50"], 3)}
+
+
+@pytest.mark.parametrize("clusters", ["kernel", "eight"])
+@pytest.mark.parametrize("case", sorted(CLUSTER_CASES))
+def test_the_cluster_split_visits_each_owned_pixels_tiles_once(case,
+                                                               clusters):
+    """The host mirror of the forward kernel's split: for every group of 32
+    owners, each tile in reach of one of its pixels goes to exactly one
+    block of its cluster, and the blocks' counts differ by at most one; with
+    the kernel's cluster size and with clusters of 8."""
+    (gy, gx), radius = CLUSTER_CASES[case]
+    n = gy.shape[0]
+    groups = -(-n // K8.OWNERS)
+    csize = K8.cluster_size(groups) if clusters == "kernel" else 8
+    split = K8.cluster_tiles(gy, gx, radius, csize)
+    pixels = K8.owner_pixels(gy)
+    assert len(split) == groups
+    for k0, ranks in zip(range(0, n, K8.OWNERS), split):
+        assert len(ranks) == csize
+        visited = [j0 for tiles in ranks for j0 in tiles]
+        assert len(visited) == len(set(visited))
+        own = pixels[k0:k0 + K8.OWNERS]
+        near = (((gy[own, None] - gy[None]).abs() <= radius)
+                & ((gx[own, None] - gx[None]).abs() <= radius)).any(0)
+        need = {j0 for j0 in range(0, n, K8.TILE)
+                if bool(near[j0:j0 + K8.TILE].any())}
+        assert need <= set(visited)
+        counts = [len(tiles) for tiles in ranks]
+        assert max(counts) - min(counts) <= 1
