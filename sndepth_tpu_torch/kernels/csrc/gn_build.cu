@@ -62,6 +62,18 @@
 // Built with fused multiply-adds (kernels/build.py FMAD_SOURCES): no result
 // here depends on a tie staying a tie (the radius test compares integers
 // held as floats).
+// ptxas for sm_90a: 120 and 126 registers a thread (the two product paths),
+// no spills, 42,400 bytes of static shared memory a block.
+// Measured (H100 80GB HBM3 at 700 W, CUDA events, radius 32), against the
+// kernel before (32 pixels of a grid row a block, one block per 32 pixels,
+// the product on the float32 pipe for every pair, -fmad=false): 0.069 ->
+// 0.029 ms at 1 x 832, 0.295 -> 0.238 at 2 x 3328, 0.467 -> 0.371 at
+// 1 x 7332. The choices: at 1 x 832 without clusters 0.066, in clusters with
+// the product on the float32 pipe 0.036; at 2 x 3328 and 1 x 7332 the product
+// on the tensor cores 0.247 and 0.399 (the warp's products are formed for
+// every pair of its tile, in the radius or not, and their chain of 12
+// dependent mma.sync a tile is not hidden by 16 warps an SM); built with
+// -fmad=false 1-3.5% slower.
 
 #include <cooperative_groups.h>
 
@@ -87,10 +99,7 @@ constexpr int OFF_D = OFF_XLO + TO * SO;
 constexpr int SMEM_FLOATS = OFF_D + JL * QW * SD;
 constexpr int OFF_SUMS = CH * JL * TO;
 // The grid a build fills: two blocks on each of an H100's 132 SMs.
-#ifndef GN_BUILD_SLOTS
-#define GN_BUILD_SLOTS (2 * 132)
-#endif
-constexpr int SLOTS = GN_BUILD_SLOTS;
+constexpr int SLOTS = 2 * 132;
 constexpr int MAX_CLUSTER = 8;     // the portable cluster size
 
 static_assert(OFF_SUMS + NACC * TO <= 2 * TILE, "sums fit the tiles");
@@ -392,15 +401,10 @@ extern "C" int gn_build_launch(
     config.stream = static_cast<cudaStream_t>(stream);
     config.attrs = attr;
     config.numAttrs = 1;
-#if defined(GN_BUILD_FP32_PRODUCT)
-    const bool mma = false;
-#elif defined(GN_BUILD_MMA_PRODUCT)
-    const bool mma = true;
-#else
-    const bool mma = csize > 1;
-#endif
+    // The product on the tensor cores in clusters, on the float32 pipe
+    // without (the note at the top).
     const cudaError_t err = cudaLaunchKernelEx(
-        &config, mma ? gn_build_kernel<true> : gn_build_kernel<false>,
+        &config, csize > 1 ? gn_build_kernel<true> : gn_build_kernel<false>,
         static_cast<const float*>(rot),
         static_cast<const float*>(trans), static_cast<const float*>(x),
         static_cast<const float*>(sq), static_cast<const float*>(gy),

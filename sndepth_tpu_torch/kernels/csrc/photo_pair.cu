@@ -21,31 +21,41 @@
 // cotangent of that pixel's error, is scaled by its weight; the weights are
 // constants and get no gradient.
 //
-// What bounds it: DRAM bytes. The function needs ~390 float32 operations a
-// pixel, direction and source (chip_smoke.py PHOTO_FLOPS) against 84 bytes a
-// pixel for both directions and two sources: under the bytes at the
-// H100's rates. The kernel before this design spent its time in shared
-// memory instead: nine-tap pools, ~100 shared-memory reads a pixel and
-// channel, two barriers a channel, tangents staged in shared memory. The
+// What bounds it: DRAM bytes, for the function. It needs ~419 float32
+// operations a pixel, direction and source (chip_smoke.py PHOTO_FLOPS)
+// against 84 bytes a pixel for both directions and two sources, under the
+// bytes at the H100's rates. The measurements below point at the gathers
+// as what holds the kernel back: the edge_zero taps of a rigid flow over a
+// per-pixel depth land far apart, so a warp's tap load touches many sectors
+// of L2; the time followed the number of blocks an SM (gathers in flight)
+// and not the shared-memory passes, which this design cut 2.5-fold. The
 // design:
-//   * Tiles of 32 rows x 30 columns, 8 warps: a warp's 32 lanes are the 32
+//   * Tiles of 16 rows x 30 columns, 8 warps: a warp's 32 lanes are the 32
 //     columns of the tile plus its 1-pixel halo, so each pass is one column
 //     a lane. The block gathers x and the warped y on the tile plus a
-//     2-pixel halo (36 x 34, 1.275 gathers an output; 1.41 for the 16 x 32
-//     tiles before). The halo's gathers are recomputed by each block, not
-//     exchanged.
-//   * A thread's own pixels (its column of its warp's 4 rows) are gathered
-//     by that thread, their tangents d y / d coords kept in registers until
-//     the contraction; the halo ring is gathered by the block in one round.
+//     2-pixel halo (20 x 34); the halo's gathers are recomputed by each
+//     block, not exchanged.
+//   * All gathers of a thread issued together: its 2 own pixels (a column
+//     of its warp's 2 rows), whose tangents d y / d coords stay in
+//     registers until the contraction, and one pixel of the halo ring.
 //   * Separable pools by running sums. Pass 1: warp w walks its rows of the
 //     tile plus 1-pixel halo, a column a lane, and keeps the horizontal
 //     3-sums of the five moments of the last three rows in registers, so a
 //     window costs three adds a moment; it forms the SSIM terms, the clip's
 //     tie factors, the loss and the three adjoint coefficient planes of all
-//     three channels. Pass 2: the same walk over the coefficient planes
-//     gives the adjoint pools of a thread's 4 pixels, dw = d err / d y, and
-//     the contraction with the tangents. One barrier between the gathers and
-//     pass 1, one between the passes.
+//     three channels. Pass 2: the adjoint pools of a thread's 2 pixels from
+//     rows of 3-sums, dw = d err / d y, and the contraction with the
+//     tangents. Two barriers a block (seven before); ~40 shared-memory
+//     accesses a pixel and channel (~100 before); no tangents in shared
+//     memory.
+//   * 37 KB of shared memory and at most 51 registers a thread (32 bytes of
+//     spill), so five blocks (40 warps) share an SM, as many as the kernel
+//     before had.
+// Measured (H100 80GB HBM3 at 700 W, CUDA events, stage 1 at B = 128 over
+// its four scales): 2.810 ms before, 2.287 with this design; the same with
+// four blocks an SM 2.368, three 2.696; with 32-row tiles (4 rows a warp,
+// 68 KB, two blocks an SM, 1.275 gathers an output against 1.417) 2.940;
+// built with -fmad=false 1% slower than fused.
 // Pixels outside the image are zero in every pool and carry no loss and no
 // cotangent, as in the zero-padded reduce_window of sndepth_tpu/ops/ssim.py.
 //
@@ -67,13 +77,8 @@ constexpr int TW = 30;                  // tile columns
 constexpr int NW = 8;                   // warps per block
 constexpr int NT = 32 * NW;             // threads per block
 constexpr int NC = 3;                   // image channels
-#ifndef PHOTO_RW
-#define PHOTO_RW 2
-#endif
-#ifndef PHOTO_MIN_BLOCKS
-#define PHOTO_MIN_BLOCKS 4
-#endif
-constexpr int RW = PHOTO_RW;            // tile rows a warp
+constexpr int RW = 2;                   // tile rows a warp
+constexpr int MIN_BLOCKS = 5;           // blocks an SM (at most 51 registers)
 constexpr int TH = NW * RW;             // tile rows
 constexpr int GH = TH + 4, GW = TW + 4; // tile + 2-pixel halo (gathered)
 constexpr int QH = TH + 2, QW = TW + 2; // tile + 1-pixel halo (pass 1)
@@ -135,14 +140,14 @@ __device__ __forceinline__ void gather(const float* __restrict__ xim,
   }
 }
 
-__global__ void __launch_bounds__(NT, PHOTO_MIN_BLOCKS) photo_pair_kernel(
+__global__ void __launch_bounds__(NT, MIN_BLOCKS) photo_pair_kernel(
     const float* __restrict__ tgt, const float* __restrict__ srcs,
     const float* __restrict__ cf, const float* __restrict__ cb,
     const float* __restrict__ wf, const float* __restrict__ wb,
     float* __restrict__ loss_part, float* __restrict__ dcf,
     float* __restrict__ dcb, int ns, int ndir, int H, int W, float alpha,
     float beta) {
-  extern __shared__ float smem[];
+  __shared__ float smem[SMEM_FLOATS];
   __shared__ float red[NW];
   float (*sx)[GH][GW] = reinterpret_cast<float (*)[GH][GW]>(smem);
   float (*sy)[GH][GW] = reinterpret_cast<float (*)[GH][GW]>(smem + OFF_Y);
@@ -326,13 +331,8 @@ extern "C" int photo_pair_launch(const float* tgt, const float* srcs,
   if (C != NC || B < 1 || ns < 1 || H < 1 || W < 1 ||
       (ndir != 1 && ndir != 2) || (long long)B * ndir * ns > 65535)
     return (int)cudaErrorInvalidValue;
-  constexpr int bytes = SMEM_FLOATS * sizeof(float);
-  // Above 48 KB a block's shared memory has to be asked for, once.
-  static const cudaError_t set = cudaFuncSetAttribute(
-      photo_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (set != cudaSuccess) return (int)set;
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B * ndir * ns);
-  photo_pair_kernel<<<grid, NT, bytes, (cudaStream_t)stream>>>(
+  photo_pair_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
       tgt, srcs, cf, cb, wf, wb, loss_part, dcf, dcb, ns, ndir, H, W, alpha,
       beta);
   return (int)cudaGetLastError();
