@@ -77,8 +77,14 @@ constexpr int TW = 30;                  // tile columns
 constexpr int NW = 8;                   // warps per block
 constexpr int NT = 32 * NW;             // threads per block
 constexpr int NC = 3;                   // image channels
-constexpr int RW = 2;                   // tile rows a warp
-constexpr int MIN_BLOCKS = 5;           // blocks an SM (at most 51 registers)
+#ifndef PHOTO_RW
+#define PHOTO_RW 2
+#endif
+#ifndef PHOTO_MIN_BLOCKS
+#define PHOTO_MIN_BLOCKS 5
+#endif
+constexpr int RW = PHOTO_RW;            // tile rows a warp
+constexpr int MIN_BLOCKS = PHOTO_MIN_BLOCKS;  // blocks an SM
 constexpr int TH = NW * RW;             // tile rows
 constexpr int GH = TH + 4, GW = TW + 4; // tile + 2-pixel halo (gathered)
 constexpr int QH = TH + 2, QW = TW + 2; // tile + 1-pixel halo (pass 1)
