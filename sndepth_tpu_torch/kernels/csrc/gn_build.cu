@@ -72,8 +72,10 @@
 // the product on the float32 pipe 0.036; at 2 x 3328 and 1 x 7332 the product
 // on the tensor cores 0.247 and 0.399 (the warp's products are formed for
 // every pair of its tile, in the radius or not, and their chain of 12
-// dependent mma.sync a tile is not hidden by 16 warps an SM); built with
-// -fmad=false 1-3.5% slower.
+// dependent mma.sync a tile is not hidden by 16 warps an SM); clusters there
+// too (up to 4 or 8 blocks a cluster) 0.258 / 0.409 and 0.305 / 0.503;
+// the sigmoid and reciprocals by the approximate __expf and __frcp_rn no
+// faster (0.237 / 0.373); built with -fmad=false 1-3.5% slower.
 
 #include <cooperative_groups.h>
 
@@ -99,10 +101,7 @@ constexpr int OFF_D = OFF_XLO + TO * SO;
 constexpr int SMEM_FLOATS = OFF_D + JL * QW * SD;
 constexpr int OFF_SUMS = CH * JL * TO;
 // The grid a build fills: two blocks on each of an H100's 132 SMs.
-#ifndef GN_BUILD_SLOTS
-#define GN_BUILD_SLOTS (2 * 132)
-#endif
-constexpr int SLOTS = GN_BUILD_SLOTS;
+constexpr int SLOTS = 2 * 132;
 constexpr int MAX_CLUSTER = 8;     // the portable cluster size
 
 static_assert(OFF_SUMS + NACC * TO <= 2 * TILE, "sums fit the tiles");
@@ -292,11 +291,7 @@ gn_build_kernel(const float* __restrict__ rot, const float* __restrict__ trans,
                 }
                 dist = ((d4[0] + d4[1]) + (d4[2] + d4[3])) - sqp - q8.w;
             }
-#ifdef GN_BUILD_FAST
-            const float attn = __frcp_rn(1.0f + __expf(-dist));
-#else
             const float attn = 1.0f / (1.0f + expf(-dist));
-#endif
 
             const float Px = R[0] * q8.x + R[1] * q8.y + R[2] * q8.z + T[0];
             const float Py = R[3] * q8.x + R[4] * q8.y + R[5] * q8.z + T[1];
@@ -410,13 +405,10 @@ extern "C" int gn_build_launch(
     config.numAttrs = 1;
     // The product on the tensor cores in clusters, on the float32 pipe
     // without (the note at the top).
-#if defined(GN_BUILD_FP32_PRODUCT)
-    const bool mma = false;
-#else
-    const bool mma = csize > 1;
-#endif
+    // The product on the tensor cores in clusters, on the float32 pipe
+    // without (the note at the top).
     const cudaError_t err = cudaLaunchKernelEx(
-        &config, mma ? gn_build_kernel<true> : gn_build_kernel<false>,
+        &config, csize > 1 ? gn_build_kernel<true> : gn_build_kernel<false>,
         static_cast<const float*>(rot),
         static_cast<const float*>(trans), static_cast<const float*>(x),
         static_cast<const float*>(sq), static_cast<const float*>(gy),

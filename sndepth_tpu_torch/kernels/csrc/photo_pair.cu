@@ -53,9 +53,11 @@
 //     before had.
 // Measured (H100 80GB HBM3 at 700 W, CUDA events, stage 1 at B = 128 over
 // its four scales): 2.810 ms before, 2.287 with this design; the same with
-// four blocks an SM 2.368, three 2.696; with 32-row tiles (4 rows a warp,
-// 68 KB, two blocks an SM, 1.275 gathers an output against 1.417) 2.940;
-// built with -fmad=false 1% slower than fused.
+// four blocks an SM 2.368, three 2.696, six (96 bytes of spill) 2.673;
+// with 32-row tiles (4 rows a warp, 68 KB, two blocks an SM, 1.275 gathers
+// an output against 1.417) 2.940; with 8-row tiles (1.7 gathers an output)
+// 2.742 at six blocks an SM, 2.926 at eight, though faster at B = 4 below
+// 64 rows; built with -fmad=false 1% slower than fused.
 // Pixels outside the image are zero in every pool and carry no loss and no
 // cotangent, as in the zero-padded reduce_window of sndepth_tpu/ops/ssim.py.
 //
@@ -77,14 +79,8 @@ constexpr int TW = 30;                  // tile columns
 constexpr int NW = 8;                   // warps per block
 constexpr int NT = 32 * NW;             // threads per block
 constexpr int NC = 3;                   // image channels
-#ifndef PHOTO_RW
-#define PHOTO_RW 2
-#endif
-#ifndef PHOTO_MIN_BLOCKS
-#define PHOTO_MIN_BLOCKS 5
-#endif
-constexpr int RW = PHOTO_RW;            // tile rows a warp
-constexpr int MIN_BLOCKS = PHOTO_MIN_BLOCKS;  // blocks an SM
+constexpr int RW = 2;                   // tile rows a warp
+constexpr int MIN_BLOCKS = 5;           // blocks an SM (at most 51 registers)
 constexpr int TH = NW * RW;             // tile rows
 constexpr int GH = TH + 4, GW = TW + 4; // tile + 2-pixel halo (gathered)
 constexpr int QH = TH + 2, QW = TW + 2; // tile + 1-pixel halo (pass 1)
