@@ -1184,14 +1184,14 @@ GN_SIZES = (("frame", 1, *RAFT_SIZES[0]), ("frame", 1, *RAFT_SIZES[1]),
             ("train", *GN_BWD_SIZES[0]))
 
 
-def gn_build_rows(sizes=GN_SIZES) -> list[dict]:
-    """K8 at ``sizes`` (radius 32) beside its plain version, its bound (what
+def _gn_build_rows() -> list[dict]:
+    """K8 at GN_SIZES (radius 32) beside its plain version, its bound (what
     the build needs), the time of its own work at the same rates, the bound
     PR 4-7 used (every ordered pair's 254 operations at the float32 rate),
     its cluster size and the share of its running lanes in the radius."""
     from sndepth_tpu_torch.kernels import gn_build as K8
     rows = []
-    for path, b, h, w in sizes:
+    for path, b, h, w in GN_SIZES:
         h8, w8 = h // 8, w // 8
         n = h8 * w8
         args = _gn_inputs(b, h8, w8, 60)
@@ -1228,7 +1228,7 @@ def phase_kernel_times_raft3d() -> dict:
     PyTorch call computes the build, so it has no library time."""
     import torch
     gen = torch.Generator().manual_seed(7)
-    rows = gn_build_rows()
+    rows = _gn_build_rows()
     shapes = [r for r in rows if r["path"] == "frame"]
     sampler = {"warp_gather": [], "warp_coord_grad": []}
     for h, w in RAFT_SIZES:

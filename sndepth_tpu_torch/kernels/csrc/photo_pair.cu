@@ -45,19 +45,21 @@
 //     tie factors, the loss and the three adjoint coefficient planes of all
 //     three channels. Pass 2: the adjoint pools of a thread's 2 pixels from
 //     rows of 3-sums, dw = d err / d y, and the contraction with the
-//     tangents. Two barriers a block (seven before); ~40 shared-memory
+//     tangents. Three barriers a block (eight before); ~40 shared-memory
 //     accesses a pixel and channel (~100 before); no tangents in shared
 //     memory.
 //   * 37 KB of shared memory and at most 51 registers a thread (32 bytes of
 //     spill), so five blocks (40 warps) share an SM, as many as the kernel
 //     before had.
 // Measured (H100 80GB HBM3 at 700 W, CUDA events, stage 1 at B = 128 over
-// its four scales): 2.810 ms before, 2.287 with this design; the same with
-// four blocks an SM 2.368, three 2.696, six (96 bytes of spill) 2.673;
-// with 32-row tiles (4 rows a warp, 68 KB, two blocks an SM, 1.275 gathers
-// an output against 1.417) 2.940; with 8-row tiles (1.7 gathers an output)
-// 2.742 at six blocks an SM, 2.926 at eight, though faster at B = 4 below
-// 64 rows; built with -fmad=false 1% slower than fused.
+// its four scales, two calls, each against the kernel before in the same
+// call): 2.810 -> 2.287 ms and 2.794 -> 2.274 with this design. Beside it in
+// the first call: four blocks an SM 2.368, three 2.696, 32-row tiles (4
+// rows a warp, 68 KB, two blocks an SM, 1.275 gathers an output against
+// 1.417) 2.940, built with -fmad=false 1% slower; in the second: six blocks
+// an SM (96 bytes of spill) 2.673, 8-row tiles (1.7 gathers an output)
+// 2.742 at six blocks an SM and 2.926 at eight, though faster at B = 4 below
+// 64 rows.
 // Pixels outside the image are zero in every pool and carry no loss and no
 // cotangent, as in the zero-padded reduce_window of sndepth_tpu/ops/ssim.py.
 //

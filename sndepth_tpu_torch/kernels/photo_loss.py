@@ -23,13 +23,13 @@ The same pass forms the gradient of the sum with respect to the
 coordinates. The images get no gradient: at every call site they are input
 frames.
 
-What bounds it on the card: not DRAM but the latency of the
-data-dependent gathers and the shared-memory passes between block
-barriers; PERF.md's kernel table has the bytes and operations per launch
-and the time beside that bound. The design keeps every intermediate plane
-(warped image, tangents, SSIM terms, adjoint coefficients) in shared
-memory, one block per 16x32 tile with recomputed halos, so the only DRAM
-traffic is the inputs, the gradient planes and one partial sum per block.
+What bounds it on the card: not DRAM but the data-dependent gathers and
+how many of them are in flight; PERF.md's kernel table has the bytes and
+operations per launch and the time beside that bound. The design keeps
+every intermediate plane (warped image, SSIM terms, adjoint coefficients)
+in shared memory and the tangents in registers, one block per 16x30 tile
+with recomputed halos, so the only DRAM traffic is the inputs, the
+gradient planes and one partial sum per block.
 The TPU kernel's 8x128 tiling, SMEM tile metadata, band paths and row pools
 were VMEM devices and have no counterpart here.
 
