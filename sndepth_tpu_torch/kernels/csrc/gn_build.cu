@@ -62,20 +62,22 @@
 // Built with fused multiply-adds (kernels/build.py FMAD_SOURCES): no result
 // here depends on a tie staying a tie (the radius test compares integers
 // held as floats).
-// ptxas for sm_90a: 120 and 126 registers a thread (the two product paths),
-// no spills, 42,400 bytes of static shared memory a block.
-// Measured (H100 80GB HBM3 at 700 W, CUDA events, radius 32), against the
-// kernel before (32 pixels of a grid row a block, one block per 32 pixels,
-// the product on the float32 pipe for every pair, -fmad=false): 0.069 ->
-// 0.029 ms at 1 x 832, 0.295 -> 0.238 at 2 x 3328, 0.467 -> 0.371 at
-// 1 x 7332. The choices: at 1 x 832 without clusters 0.066, in clusters with
-// the product on the float32 pipe 0.036; at 2 x 3328 and 1 x 7332 the product
-// on the tensor cores 0.247 and 0.399 (the warp's products are formed for
-// every pair of its tile, in the radius or not, and their chain of 12
-// dependent mma.sync a tile is not hidden by 16 warps an SM); clusters there
-// too (up to 4 or 8 blocks a cluster) 0.258 / 0.409 and 0.305 / 0.503;
-// the sigmoid and reciprocals by the approximate __expf and __frcp_rn no
-// faster (0.237 / 0.373); built with -fmad=false 1-3.5% slower.
+// ptxas for sm_90a: 126 registers a thread with the product on the float32
+// pipe, 120 on the tensor cores, no spills, 42,400 bytes of static shared
+// memory a block.
+// Measured (H100 80GB HBM3 at 700 W, CUDA events, radius 32, the launch
+// alone), against the kernel before (32 pixels of a grid row a block, one
+// block per 32 pixels, the product on the float32 pipe for every pair,
+// -fmad=false) in the same call: 0.069 -> 0.029 ms at 1 x 832, 0.294 ->
+// 0.238 at 2 x 3328, 0.471 -> 0.374 at 1 x 7332. The choices, from two such
+// calls: at 1 x 832 without clusters 0.066, in clusters with the product on
+// the float32 pipe 0.036; at 2 x 3328 and 1 x 7332 the product on the
+// tensor cores 0.247 and 0.399 (the warp's products are formed for every
+// pair of its tile, in the radius or not, and their chain of 12 dependent
+// mma.sync a tile is not hidden by 16 warps an SM), clusters there too (up
+// to 4 or 8 blocks a cluster) 0.258 / 0.409 and 0.305 / 0.503; the sigmoid
+// by the approximate __expf and __frcp_rn no faster (0.237 / 0.373); built
+// with -fmad=false 1-3.5% slower.
 
 #include <cooperative_groups.h>
 
@@ -113,7 +115,7 @@ __device__ __forceinline__ int row_at(int q) { return tile_row<ROW>(q); }
 
 // Blocks a cluster: the largest of MAX_CLUSTER, ..., 2, 1 that keeps
 // `blocks` x C within SLOTS (1 if `blocks` alone exceeds it).
-__host__ __device__ constexpr int cluster_size(int blocks) {
+constexpr int cluster_size(int blocks) {
     int c = MAX_CLUSTER;
     while (c > 1 && blocks * c > SLOTS) c /= 2;
     return c;
@@ -380,31 +382,25 @@ gn_build_kernel(const float* __restrict__ rot, const float* __restrict__ trans,
 
 }  // namespace
 
-// Blocks in a cluster for a build of b x n pixels (the launch below).
-extern "C" int gn_build_cluster_size(int b, int n) {
-    return cluster_size(b * ((n + TO - 1) / TO));
-}
-
 extern "C" int gn_build_launch(
         const void* rot, const void* trans, const void* x, const void* sq,
         const void* gy, const void* gx, const void* X, const void* tgt,
         const void* wgt, const void* intr, void* H, void* g, int b, int n,
         float radius, void* stream) {
-    const int csize = gn_build_cluster_size(b, n);
+    const int groups = (n + TO - 1) / TO;
+    const int csize = cluster_size(b * groups);
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = csize;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cudaLaunchConfig_t config = {};
-    config.gridDim = dim3(((n + TO - 1) / TO) * csize, b);
+    config.gridDim = dim3(groups * csize, b);
     config.blockDim = dim3(TO, JL);
     config.dynamicSmemBytes = 0;
     config.stream = static_cast<cudaStream_t>(stream);
     config.attrs = attr;
     config.numAttrs = 1;
-    // The product on the tensor cores in clusters, on the float32 pipe
-    // without (the note at the top).
     // The product on the tensor cores in clusters, on the float32 pipe
     // without (the note at the top).
     const cudaError_t err = cudaLaunchKernelEx(
