@@ -30,7 +30,7 @@ fails unless every phase passes:
   gn_build   K8 (dense-SE3 Gauss-Newton build, CUDA) against its plain
              version at n = 832 and n = 7332, radius 32 and 3, B = 1 and 2,
              and on the inputs a real iteration of the model hands it; H
-             symmetric bit for bit
+             symmetric bit for bit, and the same bits from run to run
   gn_build_bwd  K8b (the backward of the build, one CUDA kernel) against
              autograd through the plain version at n = 832, 3328 and 7332,
              radius 32 and 3, B = 1 and 2: all eight gradients and the
@@ -849,11 +849,15 @@ def phase_gn_build() -> dict:
     checks, worst_abs, worst_scaled = [], 0.0, 0.0
     for name, args, radius in cases:
         Hk, gk = K8.gn_build_hg(*args, radius)
+        Hk2, gk2 = K8.gn_build_hg(*args, radius)
         Hp, gp = K8.gn_build_hg_reference(*args, radius)
         torch.cuda.synchronize()
         _assert_finite(f"K8 {name}", Hk, gk, Hp, gp)
         if not torch.equal(Hk, Hk.transpose(-1, -2)):
             raise AssertionError(f"K8 {name}: H is not exactly symmetric")
+        # A fixed order of sums, no atomics: the same bits from run to run.
+        if not (torch.equal(Hk, Hk2) and torch.equal(gk, gk2)):
+            raise AssertionError(f"K8 {name}: two runs differ")
         # Each entry is a float32 sum of up to (2r+1)^2 = 4225 products taken
         # in another order than the plain version's blocked sums, and the
         # entries of H span orders of magnitude (fx^2 between a translation
