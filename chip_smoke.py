@@ -10,13 +10,15 @@ at 128x416 and 376x1248) and RAFT3D training at full width (256x832, B = 2,
 fails unless every phase passes:
 
   env        card name and power limit (nvidia-smi), torch and CUDA versions
-  build      one nvcc per CUDA source, all started together; the Triton
-             kernel compiles
+  build      one nvcc per CUDA source, all started together
   photo      K1 (pair photo loss, CUDA) against its plain version at B=4,
              ns=2 on all 4 scales (rigid-flow and wild out-of-image
              coordinates); then both timed with CUDA events at B=4 and B=128
              (stage 1's batch) beside the bound, a scale and the 4 in all
-  smooth     K2 (smoothness, Triton) the same way, N = 3B
+  smooth     K2 (smoothness, CUDA) against its plain version on depth
+             (D = 1) and flow (D = 2) planes: the 4 scales at B=4, the
+             stage-2 shapes and a ragged 33x97 plane, the same bits on two
+             runs; timed at B=4 and B=128, N = 3B
   warp       K5 (bilinear gather, both modes), K5b (its coordinate
              gradient) and K6 (its splat) against their plain versions at
              the stage-2 shapes, with small, rigid (over a noisy and over a
@@ -24,7 +26,8 @@ fails unless every phase passes:
              that accumulate in shared memory; the autograd function around
              them against autograd through the plain sampler
   dssim      K7 (DSSIM map and its adjoint) against autograd through the
-             plain version
+             plain version, with both sides, dY only and dX only, at the
+             stage-2 shape and on a ragged 33x97 plane
   photo_modes  K3 (one direction) and K4 (weighted pair) of the photo kernel
              against their plain versions on all 4 scales
   gn_build   K8 (dense-SE3 Gauss-Newton build, CUDA) against its plain
@@ -104,13 +107,13 @@ FP32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 TF32X3_FLOPS_PER_S = 495e12 / 3
 FLOW_BATCH = 32                 # the flow family's batch; n = 2 * 32 pairs
 # Launches one stage-2 train step makes (2 sources, 4 scales): K1 on scales
-# 1-3; K2 on 4 depth pyramids and 2 channels x 2 directions x 4 scales of
-# flow; K3 on scale 0; K4 on 4 scales; K5 for 2 image warps and 2 x 4 warps
+# 1-3; K2 on 4 depth pyramids and 2 directions x 4 scales of flow (both
+# channels of a flow in one call); K3 on scale 0; K4 on 4 scales; K5 for 2 image warps and 2 x 4 warps
 # of a flow by a flow; K5b for the same 10, whose coordinates (a rigid flow
 # from the depth and pose nets, a full flow) all want a gradient; K6 for the
 # 8 warped flows (the warped frames are data); K7 for 2 error maps, forward
 # and backward.
-FLOW_STEP_LAUNCHES = {"photo_pair": 3, "smooth": 20, "photo_single": 1,
+FLOW_STEP_LAUNCHES = {"photo_pair": 3, "smooth": 12, "photo_single": 1,
                       "photo_pair_weighted": 4, "warp_gather": 10,
                       "warp_coord_grad": 10, "warp_splat": 8,
                       "dssim_fwd": 2, "dssim_bwd": 2}
@@ -174,29 +177,21 @@ def phase_env() -> str:
 
 
 CUDA_SOURCES = ("photo_pair.cu", "warp.cu", "dssim.cu", "gn_build.cu",
-                "gn_build_bwd.cu")
+                "gn_build_bwd.cu", "smooth_loss.cu")
 
 
 def phase_build() -> None:
-    import torch
     from sndepth_tpu_torch.kernels import build
-    from sndepth_tpu_torch.kernels import smooth_loss as K2
     t0 = time.perf_counter()
     built = build.compile_sources(list(CUDA_SOURCES))
     t_nvcc = time.perf_counter() - t0
     for source in CUDA_SOURCES:
         build.load_library(source)
-    t0 = time.perf_counter()
-    K2._launch(torch.ones(3, 1, 16, 52, device=DEV),
-               torch.zeros(3, 3, 16, 52, device=DEV))
-    torch.cuda.synchronize()
-    t_triton = time.perf_counter() - t0
     ptxas = {source: [ln.strip() for ln in report.splitlines()
                       if "registers" in ln or "spill" in ln
                       or "Compiling entry" in ln]
              for source, (_, report) in built.items()}
-    emit("build", nvcc_s=round(t_nvcc, 2), triton_s=round(t_triton, 2),
-         ptxas=ptxas)
+    emit("build", nvcc_s=round(t_nvcc, 2), ptxas=ptxas)
 
 
 def _counters() -> dict:
@@ -381,32 +376,63 @@ def phase_photo() -> dict:
             "timings": timings}
 
 
+def _smooth_check(label: str, depth, img) -> dict:
+    """K2 against its plain version at today's tolerances (sums rel 1e-5,
+    gradients atol 1e-6 + rtol 1e-5), and the same bits on a second run."""
+    import torch
+    from sndepth_tpu_torch.kernels import smooth_loss as K2
+    got = K2.smooth_sums(depth, img)
+    again = K2.smooth_sums(depth, img)
+    sxp, syp, dxp, dyp = K2.smooth_sums_reference(depth, img)
+    torch.cuda.synchronize()
+    sxk, syk, dxk, dyk = got
+    rel = max(abs(float(sxk) - float(sxp)) / float(sxp),
+              abs(float(syk) - float(syp)) / float(syp))
+    for k, want in ((dxk, dxp), (dyk, dyp)):
+        if not torch.isfinite(k).all():
+            raise AssertionError(f"K2 non-finite gradient, {label}")
+        torch.testing.assert_close(k, want, atol=1e-6, rtol=1e-5)
+    if rel > 1e-5:
+        raise AssertionError(f"K2 sums off by {rel}, {label}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"K2 differs between two runs, {label}")
+    return {"case": label, "shape": list(depth.shape), "sums_rel_err": rel,
+            "grad_max_abs_err": max(_max_err(dxk, dxp), _max_err(dyk, dyp))}
+
+
 def phase_smooth() -> dict:
     import torch
     from sndepth_tpu_torch.kernels import smooth_loss as K2
     gen = torch.Generator().manual_seed(2)
-    checks, max_err = [], 0.0
+
+    def planes(n, d, h, w):
+        return (1.0 / (torch.rand(n, d, h, w, generator=gen) * 10 + 0.01)
+                ).to(DEV)
+
+    checks = []
     _, pyr = _pyramid_inputs(4, seed=13)
     for s, (h, w) in enumerate(SCALES):
-        n = pyr[s].shape[0]
-        depth = (1.0 / (torch.rand(n, 1, h, w, generator=gen) * 10 + 0.01)
-                 ).to(DEV)
         img = pyr[s].contiguous()
-        sxk, syk, dxk, dyk = K2.smooth_sums(depth, img)
-        sxp, syp, dxp, dyp = K2.smooth_sums_reference(depth, img)
-        torch.cuda.synchronize()
-        rel = max(abs(float(sxk) - float(sxp)) / float(sxp),
-                  abs(float(syk) - float(syp)) / float(syp))
-        err = max(_max_err(dxk, dxp), _max_err(dyk, dyp))
-        for got, want in ((dxk, dxp), (dyk, dyp)):
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"K2 non-finite gradient at {h}x{w}")
-            torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
-        if rel > 1e-5:
-            raise AssertionError(f"K2 sums off by {rel} at {h}x{w}")
-        checks.append({"hw": [h, w], "sums_rel_err": rel,
-                       "grad_max_abs_err": err})
-        max_err = max(max_err, err)
+        for d in (1, 2):
+            checks.append(_smooth_check(f"B4_D{d}", planes(img.shape[0], d,
+                                                           h, w), img))
+    del pyr
+    # The stage-2 shapes: the depth pyramid (3 views of 32 samples) and the
+    # flows (64 pairs, both channels).
+    _, pyr = _pyramid_inputs(FLOW_BATCH, seed=15)
+    for s, (h, w) in enumerate(SCALES):
+        img = pyr[s].contiguous()
+        n_pairs = 2 * FLOW_BATCH
+        checks.append(_smooth_check("stage2_depth", planes(img.shape[0], 1,
+                                                           h, w), img))
+        checks.append(_smooth_check("stage2_flow", planes(n_pairs, 2, h, w),
+                                    img[:n_pairs].contiguous()))
+    del pyr
+    ragged = (torch.rand(5, 3, 33, 97, generator=gen) * 2 - 1).to(DEV)
+    for d in (1, 2):
+        checks.append(_smooth_check(f"ragged_D{d}", planes(5, d, 33, 97),
+                                    ragged))
+    max_err = max(c["grad_max_abs_err"] for c in checks)
     timings = {}
     for bt in (4, 128):
         _, pyr_t = _pyramid_inputs(bt, seed=14)
@@ -644,21 +670,27 @@ def phase_warp() -> dict:
 
 
 def phase_dssim() -> dict:
-    """K7 forward and backward against autograd through the plain version."""
+    """K7 forward and backward against autograd through the plain version;
+    the backward with both sides, dY only (as the step calls it) and dX
+    only, the one-sided calls bit-equal to the two-sided one."""
     import torch
     from sndepth_tpu_torch.kernels import dssim as K7
     from sndepth_tpu_torch.kernels import warp as K5
     gen = torch.Generator().manual_seed(4)
     tgt0, src0, cf0, _ = _pair_inputs(FLOW_BATCH, 22, gen)[0]
     warped = K5.warp_gather_reference(src0, cf0, "edge_zero")
+    ragged_x = torch.rand(4, 3, 33, 97, generator=gen).to(DEV)
+    ragged_y = torch.rand(4, 3, 33, 97, generator=gen).to(DEV)
     checks, fwd_err, bwd_err = [], 0.0, 0.0
     for name, x, y in (("warped", tgt0, warped), ("frames", tgt0, src0),
                        ("equal_windows_tie", tgt0, tgt0.clone()),
-                       ("saturated", tgt0, -tgt0)):
+                       ("saturated", tgt0, -tgt0),
+                       ("ragged_33x97", ragged_x, ragged_y)):
         g = torch.randn(x.shape, generator=gen).to(DEV)
         out = K7.dssim_forward(x, y)
         dx, dy = K7.dssim_backward(x, y, g)
         only_dy = K7.dssim_backward(x, y, g, need_dx=False)
+        only_dx = K7.dssim_backward(x, y, g, need_dy=False)
         x_ = x.clone().requires_grad_(True)
         y_ = y.clone().requires_grad_(True)
         ref = K7.dssim_reference(x_, y_)
@@ -672,7 +704,9 @@ def phase_dssim() -> dict:
         torch.testing.assert_close(dx, rx, atol=2e-4, rtol=1e-3)
         torch.testing.assert_close(dy, ry, atol=2e-4, rtol=1e-3)
         if only_dy[0] is not None or not torch.equal(only_dy[1], dy):
-            raise AssertionError("K7 backward with one side skipped differs")
+            raise AssertionError("K7 backward with dX skipped differs")
+        if only_dx[1] is not None or not torch.equal(only_dx[0], dx):
+            raise AssertionError("K7 backward with dY skipped differs")
         checks.append({"case": name, "map_err": _max_err(out, ref.detach()),
                        "grad_err": max(_max_err(dx, rx), _max_err(dy, ry))})
         fwd_err = max(fwd_err, checks[-1]["map_err"])
@@ -1852,9 +1886,9 @@ def phase_kernel_times() -> dict:
     smooth_pairs = _pair_inputs(nb, 32, gen, smooth=True)
     rows: dict[str, list] = {name: [] for name in FLOW_STEP_LAUNCHES}
 
-    def add(name, label, kernel, plain, bound, library=None):
+    def add(name, label, kernel, plain, bound, library=None, calls=1):
         rows[name].append({
-            "shape": label, "ms": time_ms(kernel, 10),
+            "shape": label, "calls": calls, "ms": time_ms(kernel, 10),
             "plain_ms": time_ms(plain, 5), **bound,
             "library_ms": None if library is None else time_ms(library, 10)})
 
@@ -1924,14 +1958,15 @@ def phase_kernel_times() -> dict:
             add("dssim_fwd", f"{n}x3x{h}x{w}",
                 lambda: K7.dssim_forward(tgt, warped),
                 lambda: K7.dssim_reference(tgt, warped),
-                _bound(_nbytes(tgt, warped, g), DSSIM_FWD_FLOPS * 3 * n * hw))
+                _bound(_nbytes(tgt, warped, g), DSSIM_FWD_FLOPS * 3 * n * hw),
+                calls=2)
             # As the step calls it: the target frame wants no gradient.
             add("dssim_bwd", f"{n}x3x{h}x{w}",
                 lambda: K7.dssim_backward(tgt, warped, g, need_dx=False),
                 lambda: K7.dssim_backward_reference(tgt, warped, g, False,
                                                     True),
                 _bound(_nbytes(tgt, warped, g, g),
-                       DSSIM_BWD_FLOPS * 3 * n * hw))
+                       DSSIM_BWD_FLOPS * 3 * n * hw), calls=2)
         else:
             v = pyr[s].reshape(nb, 3, 3, h, w)
             t1, s1 = v[:, 0].contiguous(), v[:, 1:].contiguous()
@@ -1954,15 +1989,16 @@ def phase_kernel_times() -> dict:
         flow = (cb - pixel_grid(h, w, device=DEV)).contiguous()
         gather_case(flow, cf, f"{n}x2x{h}x{w}", smooth_pairs[s][2])
         splat_case(flow, cf, f"{n}x2x{h}x{w}", smooth_pairs[s][2])
-        # K2 on the depth pyramid (3 views a sample) and on one flow channel.
-        for planes, img in ((nb * 3, pyr[s].contiguous()), (n, tgt)):
-            depth = (torch.rand(planes, 1, h, w, generator=gen) * 10
+        # K2 on the depth pyramid (3 views a sample, once) and on a flow
+        # (both channels under one image; twice, forward and backward).
+        for d, img, calls in ((1, pyr[s].contiguous(), 1), (2, tgt, 2)):
+            depth = (torch.rand(img.shape[0], d, h, w, generator=gen) * 10
                      + 0.1).to(DEV)
-            add("smooth", f"{planes}x{h}x{w}",
+            add("smooth", f"{img.shape[0]}x{d}x{h}x{w}",
                 lambda: K2.smooth_sums(depth, img),
                 lambda: K2.smooth_sums_reference(depth, img),
                 _bound(_nbytes(depth, img, depth, depth),
-                       SMOOTH_FLOPS * planes * hw))
+                       SMOOTH_FLOPS * depth.numel()), calls=calls)
     totals = {}
     for name, shapes in rows.items():
         t_bytes = sum(r["bytes_ms"] for r in shapes)
@@ -1977,6 +2013,13 @@ def phase_kernel_times() -> dict:
             **{k: sum(r[k] for r in shapes)
                for k in ("kernel_flops_ms", "pr2_bound_ms")
                if k in shapes[0]}}
+        if all("calls" in r for r in shapes):
+            # Every launch of one step, the shapes that recur counted as
+            # often as the step launches them.
+            totals[name].update({
+                f"step_{k}": sum(r[k] * r["calls"] for r in shapes)
+                for k in ("ms", "plain_ms", "bytes_ms", "flops_ms")})
+            totals[name]["step_calls"] = sum(r["calls"] for r in shapes)
     emit("kernel_times", batch=nb, torch=torch.__version__, shapes=rows,
          totals=totals)
     return totals
@@ -2210,7 +2253,7 @@ def main() -> int:
     where = {
         "photo_pair": ("cuda", csrc + "photo_pair.cu",
                        "sndepth_tpu/kernels/photo_loss.py:586"),
-        "smooth": ("triton", "sndepth_tpu_torch/kernels/smooth_loss.py",
+        "smooth": ("cuda", csrc + "smooth_loss.cu",
                    "sndepth_tpu/kernels/smooth_loss.py:118"),
         "photo_single": ("cuda", csrc + "photo_pair.cu",
                          "sndepth_tpu/kernels/photo_loss.py:294"),

@@ -23,14 +23,21 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
-              # No fused multiply-add: the kernels then round every step as
-              # the plain PyTorch versions do, so exact DSSIM ties (equal
-              # windows) stay exact ties on the card.
+              # No fused multiply-add by default: a kernel then rounds every
+              # step as the plain PyTorch version does.
               "-fmad=false", "-Xptxas", "-v"]
-# Sources built with fused multiply-adds: the Gauss-Newton build and its
-# backward have no exact tie to keep; the photo kernel keeps its DSSIM tie by
-# arithmetic the compiler does not contract (csrc/ssim.cuh).
-FMAD_SOURCES = ("gn_build.cu", "gn_build_bwd.cu", "photo_pair.cu")
+# Sources built with fused multiply-adds, and why each may be:
+#   gn_build.cu, gn_build_bwd.cu  no exact tie to keep;
+#   photo_pair.cu                 its one exact tie, equal DSSIM windows, is
+#                                 kept by arithmetic the compiler does not
+#                                 contract (csrc/ssim.cuh);
+#   smooth_loss.cu                its only tie, sign(0) of an exact
+#                                 difference, involves no product.
+# warp.cu and dssim.cu keep the default: built so, the gather and the DSSIM
+# map equal the plain versions bit for bit (dssim.cu's backward measured as
+# fast either way; a fused warp.cu was never measured).
+FMAD_SOURCES = ("gn_build.cu", "gn_build_bwd.cu", "photo_pair.cu",
+                "smooth_loss.cu")
 
 
 def nvcc_flags(source: str) -> list[str]:

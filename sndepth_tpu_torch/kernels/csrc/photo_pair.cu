@@ -98,29 +98,10 @@ constexpr int SMEM_FLOATS = OFF_Q + NC * NPLANE * QH * QW;
 static_assert(QW == 32, "a warp's lanes are the pass-1 columns");
 static_assert(NRING <= NT, "the halo ring is one round");
 
-// The five moments' horizontal 3-sums at one column of a row: x, y, x x,
-// y y, x y. Each product is rounded before it is summed, as the plain
-// version pools the rounded planes x x, y y and x y (a far-out edge_zero
-// sample can be large, and its square's sums cancel in sigma), and the x and
-// y sides round alike, so equal windows tie exactly.
-struct Moments {
-  float x, y, xx, yy, xy;
-};
-
+// The five moments' horizontal 3-sums at one column of a staged row.
 __device__ __forceinline__ Moments row_moments(const float* __restrict__ px,
                                                const float* __restrict__ py) {
-  const float x0 = px[0], x1 = px[1], x2 = px[2];
-  const float y0 = py[0], y1 = py[1], y2 = py[2];
-  Moments m;
-  m.x = (x0 + x1) + x2;
-  m.y = (y0 + y1) + y2;
-  m.xx = __fadd_rn(__fadd_rn(__fmul_rn(x0, x0), __fmul_rn(x1, x1)),
-                   __fmul_rn(x2, x2));
-  m.yy = __fadd_rn(__fadd_rn(__fmul_rn(y0, y0), __fmul_rn(y1, y1)),
-                   __fmul_rn(y2, y2));
-  m.xy = __fadd_rn(__fadd_rn(__fmul_rn(x0, y0), __fmul_rn(x1, y1)),
-                   __fmul_rn(x2, y2));
-  return m;
+  return moments3(px[0], px[1], px[2], py[0], py[1], py[2]);
 }
 
 // x, the edge_zero sample y and its tangents d y / dx, d y / dy of all

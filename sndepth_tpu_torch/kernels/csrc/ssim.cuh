@@ -22,9 +22,10 @@
 // in __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn, which the compiler never
 // contracts: it rounds every step whatever -fmad says, and the same as the
 // plain arithmetic under -fmad=false. The callers' window sums must round
-// alike on the two sides too: dssim.cu builds with -fmad=false; photo_pair.cu
-// builds with fused multiply-adds and forms its x x, y y and x y sums with
-// the same unfused chain. The adjoint below carries no tie.
+// alike on the two sides too: photo_pair.cu (built with fused multiply-adds)
+// and dssim.cu's backward form their x x, y y and x y products and sums
+// with moments3 below or with __fmul_rn / __fadd_rn; dssim.cu's forward
+// builds with -fmad=false. The adjoint below carries no tie.
 
 #pragma once
 
@@ -35,18 +36,27 @@ struct Ssim {
   float mu_x, mu_y, t1, t2, t3, t4, n, d, s;
 };
 
+// s / 9 rounded to nearest, as __fdiv_rn(s, 9.f) gives it, in three
+// operations: q = RN(s * RN(1/9)) lies within an ulp of s / 9, the fused
+// multiply-add gives its residual exactly, and one correction by RN(1/9)
+// rounds to the nearest quotient (Markstein's theorem; it holds unless s /
+// 9 falls below the normal range, far below any window sum of an image).
+__device__ __forceinline__ float div9(float s) {
+  constexpr float kNinth = 1.f / 9.f;
+  const float q = __fmul_rn(s, kNinth);
+  const float r = __fmaf_rn(-q, 9.f, s);
+  return __fmaf_rn(r, kNinth, q);
+}
+
 // From the five window sums (zero padding included, divisor 9).
 __device__ __forceinline__ Ssim ssim_terms(float s_x, float s_y, float s_xx,
                                            float s_yy, float s_xy) {
   Ssim m;
-  m.mu_x = __fdiv_rn(s_x, 9.f);
-  m.mu_y = __fdiv_rn(s_y, 9.f);
-  const float sigma_x =
-      __fsub_rn(__fdiv_rn(s_xx, 9.f), __fmul_rn(m.mu_x, m.mu_x));
-  const float sigma_y =
-      __fsub_rn(__fdiv_rn(s_yy, 9.f), __fmul_rn(m.mu_y, m.mu_y));
-  const float sigma_xy =
-      __fsub_rn(__fdiv_rn(s_xy, 9.f), __fmul_rn(m.mu_x, m.mu_y));
+  m.mu_x = div9(s_x);
+  m.mu_y = div9(s_y);
+  const float sigma_x = __fsub_rn(div9(s_xx), __fmul_rn(m.mu_x, m.mu_x));
+  const float sigma_y = __fsub_rn(div9(s_yy), __fmul_rn(m.mu_y, m.mu_y));
+  const float sigma_xy = __fsub_rn(div9(s_xy), __fmul_rn(m.mu_x, m.mu_y));
   m.t1 = __fadd_rn(__fmul_rn(2.f, sigma_xy), kC2);
   m.t2 = __fadd_rn(__fmul_rn(__fmul_rn(2.f, m.mu_x), m.mu_y), kC1);
   m.t3 = __fadd_rn(__fadd_rn(sigma_x, sigma_y), kC2);
@@ -55,6 +65,30 @@ __device__ __forceinline__ Ssim ssim_terms(float s_x, float s_y, float s_xx,
   m.n = __fmul_rn(m.t2, m.t1);
   m.d = __fmul_rn(m.t4, m.t3);
   m.s = __fmul_rn(0.5f, __fsub_rn(1.f, __fdiv_rn(m.n, m.d)));
+  return m;
+}
+
+// The five moments' horizontal 3-sums at one column of a row (x, y, x x,
+// y y, x y), from the values left of it, at it and right of it. Each
+// product is rounded before it is summed, as the plain version pools the
+// rounded planes x x, y y and x y (a far-out edge_zero sample can be large,
+// and its square's sums cancel in sigma), and the x and y sides round
+// alike, so equal windows tie exactly.
+struct Moments {
+  float x, y, xx, yy, xy;
+};
+
+__device__ __forceinline__ Moments moments3(float x0, float x1, float x2,
+                                            float y0, float y1, float y2) {
+  Moments m;
+  m.x = (x0 + x1) + x2;
+  m.y = (y0 + y1) + y2;
+  m.xx = __fadd_rn(__fadd_rn(__fmul_rn(x0, x0), __fmul_rn(x1, x1)),
+                   __fmul_rn(x2, x2));
+  m.yy = __fadd_rn(__fadd_rn(__fmul_rn(y0, y0), __fmul_rn(y1, y1)),
+                   __fmul_rn(y2, y2));
+  m.xy = __fadd_rn(__fadd_rn(__fmul_rn(x0, y0), __fmul_rn(x1, y1)),
+                   __fmul_rn(x2, y2));
   return m;
 }
 

@@ -1,9 +1,9 @@
 """Edge-aware smoothness sums with the analytic depth gradient (K2).
 
 Replaces the Pallas TPU kernel ``sndepth_tpu/kernels/smooth_loss.py``
-(:func:`smooth_loss_sums` -> ``_run`` -> ``_kernel``) with a Triton kernel
-for Hopper. GeoNet's disparity-smoothness term
-(reference `models/loss_functions.py:8-24`) is
+(:func:`smooth_loss_sums` -> ``_run`` -> ``_kernel``) with the CUDA C++
+kernel ``csrc/smooth_loss.cu`` for Hopper (sm_90a). GeoNet's
+disparity-smoothness term (reference `models/loss_functions.py:8-24`) is
 
     gdx = d[:, :, :-1] - d[:, :, 1:],   wx = exp(-mean_c |img_x gradient|)
     gdy = d[:, :-1] - d[:, 1:],         wy = exp(-mean_c |img_y gradient|)
@@ -13,34 +13,43 @@ and, since the downstream cotangents are scalars, the depth gradients in
 the same pass: d sx / d d[i, j] = sign(gdx[i, j]) wx[i, j] - sign(gdx[i,
 j-1]) wx[i, j-1], and likewise for y. The image gets no gradient.
 
-What bounds it on the card: DRAM bandwidth. One pass reads the depth and
-image planes (16 bytes a pixel) and writes the two gradient planes (8
-bytes) for ~40 flops; the neighbours j+-1, i+-1 come from L1/L2. The
-design is one fused elementwise pass over 16x64 tiles with masked loads for
-the ragged edges, and one partial sum per program instead of atomics, so
-the result does not depend on scheduling. Nothing is reused across pixels
-enough to be worth staging in shared memory by hand, which is why this one
-is Triton rather than CUDA.
+The depth may have D = 1 or 2 planes a sample, which share the sample's
+image: D = 2 is a flow, whose two channels the reference smooths one at a
+time under the same image (`loss_functions.py:26-32`). The sums then run
+over both planes, and the kernel reads the image and forms its edge weights
+once for both.
 
-Layouts: depth (N, 1, H, W), image (N, C, H, W), float32, contiguous.
+What bounds it on the card: DRAM bandwidth, ~40 operations a pixel and
+plane against 24 bytes at D = 1 (the depth and three image channels in,
+the two gradient planes out). A warp walks a strip of columns down the
+rows, loading several rows at once, keeps the row above in registers and
+takes its neighbours by shuffle; the per-block sums are added in a fixed
+order in the same launch (``csrc/smooth_loss.cu``).
+
+Layouts: depth (N, D, H, W), image (N, C, H, W), float32, contiguous.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
 
 from sndepth_tpu_torch.ops.pyramid import gradient_x, gradient_y
 
-_BH, _BW = 16, 64
-_kernel = None
+_SOURCE = "smooth_loss.cu"
+_lib = None
 
 
 def _check(depth, image) -> None:
-    if depth.dim() != 4 or depth.shape[1] != 1 or image.dim() != 4:
-        raise ValueError("expected depth (N, 1, H, W) and image (N, C, H, W)")
-    n, c, h, w = image.shape
-    if tuple(depth.shape) != (n, 1, h, w):
+    if depth.dim() != 4 or image.dim() != 4:
+        raise ValueError("expected depth (N, D, H, W) and image (N, C, H, W)")
+    n, _, h, w = image.shape
+    d = depth.shape[1]
+    if d not in (1, 2):
+        raise ValueError(f"depth must have 1 or 2 planes a sample, got {d}")
+    if tuple(depth.shape) != (n, d, h, w):
         raise ValueError(f"depth {tuple(depth.shape)} does not match image "
                          f"{tuple(image.shape)}")
     if h < 2 or w < 2:
@@ -55,108 +64,58 @@ def _check(depth, image) -> None:
 
 
 def smooth_sums_reference(depth, image):
-    """Plain PyTorch version: (sx, sy, d sx/d depth, d sy/d depth)."""
-    d = depth[:, 0]
-    wx = torch.exp(-torch.mean(torch.abs(gradient_x(image)), 1))
-    wy = torch.exp(-torch.mean(torch.abs(gradient_y(image)), 1))
-    gdx = gradient_x(d)
-    gdy = gradient_y(d)
+    """Plain PyTorch version: (sx, sy, d sx/d depth, d sy/d depth), the sums
+    over every depth plane, each under the sample's image."""
+    wx = torch.exp(-torch.mean(torch.abs(gradient_x(image)), 1, keepdim=True))
+    wy = torch.exp(-torch.mean(torch.abs(gradient_y(image)), 1, keepdim=True))
+    gdx = gradient_x(depth)
+    gdy = gradient_y(depth)
     px = torch.sign(gdx) * wx
     py = torch.sign(gdy) * wy
     ddx = F.pad(px, (0, 1)) - F.pad(px, (1, 0))
     ddy = F.pad(py, (0, 0, 0, 1)) - F.pad(py, (0, 0, 1, 0))
-    return ((torch.abs(gdx) * wx).sum(), (torch.abs(gdy) * wy).sum(),
-            ddx[:, None], ddy[:, None])
+    return ((torch.abs(gdx) * wx).sum(), (torch.abs(gdy) * wy).sum(), ddx,
+            ddy)
 
 
-def _triton_kernel():
-    # Triton resolves the names in a kernel through the module's globals, so
-    # the imports bind there; they happen here, at first launch, because the
-    # machines without a card have no triton.
-    global _kernel, triton, tl
-    if _kernel is not None:
-        return _kernel
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def smooth_kernel(d_ptr, img_ptr, sx_ptr, sy_ptr, ddx_ptr, ddy_ptr, H, W,
-                      C: tl.constexpr, BH: tl.constexpr, BW: tl.constexpr):
-        pw = tl.program_id(0)
-        ph = tl.program_id(1)
-        n = tl.program_id(2).to(tl.int64)
-        rows = ph * BH + tl.arange(0, BH)[:, None]
-        cols = pw * BW + tl.arange(0, BW)[None, :]
-        hw = H * W
-        off = rows * W + cols
-        inb = (rows < H) & (cols < W)
-        has_r = (rows < H) & (cols < W - 1)      # gdx[i, j] exists
-        has_l = inb & (cols >= 1)                # gdx[i, j-1] exists
-        has_d = (rows < H - 1) & (cols < W)      # gdy[i, j] exists
-        has_u = inb & (rows >= 1)                # gdy[i-1, j] exists
-
-        dp = d_ptr + n * hw
-        d_c = tl.load(dp + off, mask=inb, other=0.0)
-        d_r = tl.load(dp + off + 1, mask=has_r, other=0.0)
-        d_l = tl.load(dp + off - 1, mask=has_l, other=0.0)
-        d_d = tl.load(dp + off + W, mask=has_d, other=0.0)
-        d_u = tl.load(dp + off - W, mask=has_u, other=0.0)
-
-        ga_r = tl.zeros((BH, BW), tl.float32)
-        ga_l = tl.zeros((BH, BW), tl.float32)
-        ga_d = tl.zeros((BH, BW), tl.float32)
-        ga_u = tl.zeros((BH, BW), tl.float32)
-        for c in tl.static_range(C):
-            ip = img_ptr + (n * C + c) * hw
-            i_c = tl.load(ip + off, mask=inb, other=0.0)
-            ga_r += tl.abs(i_c - tl.load(ip + off + 1, mask=has_r, other=0.0))
-            ga_l += tl.abs(tl.load(ip + off - 1, mask=has_l, other=0.0) - i_c)
-            ga_d += tl.abs(i_c - tl.load(ip + off + W, mask=has_d, other=0.0))
-            ga_u += tl.abs(tl.load(ip + off - W, mask=has_u, other=0.0) - i_c)
-        wx_r = tl.where(has_r, tl.exp(-(ga_r / C)), 0.0)
-        wx_l = tl.where(has_l, tl.exp(-(ga_l / C)), 0.0)
-        wy_d = tl.where(has_d, tl.exp(-(ga_d / C)), 0.0)
-        wy_u = tl.where(has_u, tl.exp(-(ga_u / C)), 0.0)
-
-        gdx = d_c - d_r
-        gdx_l = d_l - d_c
-        gdy = d_c - d_d
-        gdy_u = d_u - d_c
-        pid = (n * tl.num_programs(1) + ph) * tl.num_programs(0) + pw
-        tl.store(sx_ptr + pid, tl.sum(tl.sum(tl.abs(gdx) * wx_r, 1), 0))
-        tl.store(sy_ptr + pid, tl.sum(tl.sum(tl.abs(gdy) * wy_d, 1), 0))
-
-        sx_r = tl.where(gdx > 0, 1.0, tl.where(gdx < 0, -1.0, 0.0))
-        sx_l = tl.where(gdx_l > 0, 1.0, tl.where(gdx_l < 0, -1.0, 0.0))
-        sy_d = tl.where(gdy > 0, 1.0, tl.where(gdy < 0, -1.0, 0.0))
-        sy_u = tl.where(gdy_u > 0, 1.0, tl.where(gdy_u < 0, -1.0, 0.0))
-        tl.store(ddx_ptr + n * hw + off, sx_r * wx_r - sx_l * wx_l, mask=inb)
-        tl.store(ddy_ptr + n * hw + off, sy_d * wy_d - sy_u * wy_u, mask=inb)
-
-    _kernel = smooth_kernel
-    return _kernel
+def _library() -> ctypes.CDLL:
+    """The built kernel library, with the launcher's C signatures set."""
+    global _lib
+    if _lib is None:
+        from sndepth_tpu_torch.kernels.build import load_library
+        lib = load_library(_SOURCE)
+        lib.smooth_out_floats.restype = ctypes.c_longlong
+        lib.smooth_out_floats.argtypes = [ctypes.c_int] * 4
+        lib.smooth_launch.restype = ctypes.c_int
+        lib.smooth_launch.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        _lib = lib
+    return _lib
 
 
 def _launch(depth, image):
     n, c, h, w = image.shape
-    kernel = _triton_kernel()
-    grid = (-(-w // _BW), -(-h // _BH), n)
-    nprog = grid[0] * grid[1] * grid[2]
-    sx = torch.empty(nprog, dtype=torch.float32, device=depth.device)
-    sy = torch.empty_like(sx)
+    d = depth.shape[1]
+    lib = _library()
     ddx = torch.empty_like(depth)
     ddy = torch.empty_like(depth)
+    size = lib.smooth_out_floats(n, d, h, w)
+    out = torch.empty(size, dtype=torch.float32, device=depth.device)
     with torch.cuda.device(depth.device):
-        kernel[grid](depth, image, sx, sy, ddx, ddy, h, w, C=c, BH=_BH,
-                     BW=_BW, num_warps=4)
+        rc = lib.smooth_launch(
+            depth.data_ptr(), image.data_ptr(), out.data_ptr(), size,
+            ddx.data_ptr(), ddy.data_ptr(), n, d, c, h, w,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"smoothness launch failed: CUDA error {rc}")
     smooth_sums.launches += 1
-    return sx.sum(), sy.sum(), ddx, ddy
+    return out[0], out[1], ddx, ddy
 
 
 def smooth_sums(depth, image):
     """(sx, sy, d sx/d depth, d sy/d depth). A CUDA tensor launches the
-    Triton kernel, and any failure raises; a CPU tensor takes the plain
-    version."""
+    kernel, and any failure raises; a CPU tensor takes the plain version."""
     _check(depth, image)
     if depth.device.type == "cuda":
         return _launch(depth, image)
@@ -186,13 +145,15 @@ class _SmoothSums(torch.autograd.Function):
 
 def smooth_loss_sums(depth: torch.Tensor,
                      image: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(sum |gdx| wx, sum |gdy| wy); differentiable in ``depth`` only."""
+    """(sum |gdx| wx, sum |gdy| wy) over every depth plane; differentiable
+    in ``depth`` only."""
     return _SmoothSums.apply(depth, image)
 
 
 def smooth_loss_fused(depth: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
     """Mean edge-aware smoothness: the sums over their element counts
-    N*H*(W-1) and N*(H-1)*W."""
-    n, _, h, w = depth.shape
+    N*D*H*(W-1) and N*D*(H-1)*W, so that D = 2 gives the mean of the two
+    planes' losses."""
+    n, d, h, w = depth.shape
     sx, sy = smooth_loss_sums(depth, image)
-    return sx / (n * h * (w - 1)) + sy / (n * (h - 1) * w)
+    return sx / (n * d * h * (w - 1)) + sy / (n * d * (h - 1) * w)

@@ -23,6 +23,7 @@ def smooth_loss(depth: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
 
 def flow_smooth_loss(flow: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
     """Smoothness applied per flow channel and averaged: flow (N, 2, H, W),
-    image (N, 3, H, W). Differentiable in ``flow`` only."""
-    return (smooth_loss(flow[:, 0:1], image)
-            + smooth_loss(flow[:, 1:2], image)) / 2.0
+    image (N, 3, H, W). One kernel call for both channels, which share the
+    image's edge weights. Differentiable in ``flow`` only."""
+    return smooth_loss_fused(flow.float().contiguous(),
+                             image.float().contiguous())

@@ -33,6 +33,7 @@ def test_source_closure_follows_quoted_includes_only():
         "photo_pair.cu", "sampler.cuh", "ssim.cuh"]
     assert build.source_closure("warp.cu") == ["warp.cu", "sampler.cuh"]
     assert build.source_closure("dssim.cu") == ["dssim.cu", "ssim.cuh"]
+    assert build.source_closure("smooth_loss.cu") == ["smooth_loss.cu"]
 
 
 @pytest.mark.parametrize("source,header,rebuilds", [
@@ -41,6 +42,8 @@ def test_source_closure_follows_quoted_includes_only():
     ("warp.cu", "sampler.cuh", True),
     ("warp.cu", "ssim.cuh", False),
     ("dssim.cu", "sampler.cuh", False),
+    ("dssim.cu", "ssim.cuh", True),
+    ("smooth_loss.cu", "ssim.cuh", False),
     ("gn_build.cu", "gn_pair.cuh", True),
     ("gn_build_bwd.cu", "gn_pair.cuh", True),
 ])
@@ -80,14 +83,16 @@ def test_flags_keep_the_target_and_the_unfused_arithmetic():
 
 
 def test_only_the_gauss_newton_backward_fuses_multiply_adds():
-    """The DSSIM and warp kernels keep their exact ties with
-    ``-fmad=false``; the Gauss-Newton build and backward have none to keep,
-    and the photo kernel keeps its tie by unfused arithmetic in
-    ``csrc/ssim.cuh``, so those three build with fused multiply-adds."""
+    """The DSSIM and warp kernels build with ``-fmad=false``, which keeps
+    the DSSIM map and the gather bit-equal to their plain versions; the
+    Gauss-Newton build and backward have no tie to keep, the photo kernel
+    keeps its tie by unfused arithmetic in ``csrc/ssim.cuh``, and the
+    smoothness kernel's only tie involves no product, so those four build
+    with fused multiply-adds."""
     for source in ("dssim.cu", "warp.cu"):
         assert build.nvcc_flags(source) == build.NVCC_FLAGS
     assert sorted(build.FMAD_SOURCES) == ["gn_build.cu", "gn_build_bwd.cu",
-                                          "photo_pair.cu"]
+                                          "photo_pair.cu", "smooth_loss.cu"]
     for source in build.FMAD_SOURCES:
         fused = build.nvcc_flags(source)
         assert "-fmad=false" not in fused

@@ -151,3 +151,18 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         y = torch.zeros(2, 3, 6, 7)
     with pytest.raises((TypeError, ValueError)):
         K7.dssim_forward(x, y)
+
+
+@pytest.mark.parametrize("need", [(True, False), (False, True)])
+def test_one_sided_backward_on_a_ragged_plane_matches_jax_pallas_kernel(need):
+    """A plane of odd size with one side wanted (the step asks for dY only):
+    the port's backward against the Pallas kernel's VJP."""
+    x, y, cot = _case("random", shape=(1, 13, 37, 3))
+    _, jdx, jdy = _jax_all(lambda a, b: dssim_pallas(a, b, True), x, y, cot)
+    tx, ty, tc = (torch.from_numpy(to_nchw(a)) for a in (x, y, cot))
+    dx, dy = K7.dssim_backward(tx, ty, tc, *need)
+    for got, want, wanted in ((dx, jdx, need[0]), (dy, jdy, need[1])):
+        if wanted:
+            np.testing.assert_allclose(to_nhwc(got.numpy()), want, **GRAD)
+        else:
+            assert got is None
