@@ -108,11 +108,11 @@ TF32X3_FLOPS_PER_S = 495e12 / 3
 FLOW_BATCH = 32                 # the flow family's batch; n = 2 * 32 pairs
 # Launches one stage-2 train step makes (2 sources, 4 scales): K1 on scales
 # 1-3; K2 on 4 depth pyramids and 2 directions x 4 scales of flow (both
-# channels of a flow in one call); K3 on scale 0; K4 on 4 scales; K5 for 2 image warps and 2 x 4 warps
-# of a flow by a flow; K5b for the same 10, whose coordinates (a rigid flow
-# from the depth and pose nets, a full flow) all want a gradient; K6 for the
-# 8 warped flows (the warped frames are data); K7 for 2 error maps, forward
-# and backward.
+# channels of a flow in one call); K3 on scale 0; K4 on 4 scales; K5 for 2
+# image warps and 2 x 4 warps of a flow by a flow; K5b for the same 10,
+# whose coordinates (a rigid flow from the depth and pose nets, a full flow)
+# all want a gradient; K6 for the 8 warped flows (the warped frames are
+# data); K7 for 2 error maps, forward and backward.
 FLOW_STEP_LAUNCHES = {"photo_pair": 3, "smooth": 12, "photo_single": 1,
                       "photo_pair_weighted": 4, "warp_gather": 10,
                       "warp_coord_grad": 10, "warp_splat": 8,
@@ -377,8 +377,8 @@ def phase_photo() -> dict:
 
 
 def _smooth_check(label: str, depth, img) -> dict:
-    """K2 against its plain version at today's tolerances (sums rel 1e-5,
-    gradients atol 1e-6 + rtol 1e-5), and the same bits on a second run."""
+    """K2 against its plain version (sums rel 1e-5, gradients atol 1e-6 +
+    rtol 1e-5), and the same bits on a second run."""
     import torch
     from sndepth_tpu_torch.kernels import smooth_loss as K2
     got = K2.smooth_sums(depth, img)

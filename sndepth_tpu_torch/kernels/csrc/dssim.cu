@@ -29,14 +29,14 @@
 // What holds the backward back is its own instructions, not its bytes:
 // 0.049 ms of bytes at 64x3x128x416 against a loop of ~1250 SASS
 // instructions for three rows (divisions, plain-order window sums).
-// Measured there (H100 80GB HBM3 at 700 W, tools/compare_k2_k7.py, dY only
-// as the step calls it): 0.221 -> 0.117 ms, 42% of the byte bound; both
-// sides 0.235 -> 0.138. Beside it in the same calls: window sums taken
-// from row 3-sums 0.109 ms, but up to 1.2 times the tolerance off the
-// plain gradients; __fdiv_rn for the 1/9s 0.165; a loop bound per warp,
-// which gave the shuffles their divergent form, 0.122; 16-row segments
-// 0.129-0.133; 68 registers 0.125-0.127, 48 and 40 (spilling) 0.131 and
-// 0.267; a fused build the same time.
+// Measured there (H100 80GB HBM3 at 700 W, dY only as the step calls it,
+// against the kernel before it in the same call): 0.221 -> 0.117 ms, 42%
+// of the byte bound; both sides 0.235 -> 0.139; a fused build the same
+// time. Tried and dropped: window sums from row 3-sums (faster, but off
+// the plain gradients by more than the tolerance where the SSIM
+// denominator is small); __fdiv_rn for the 1/9s; a loop bound per warp,
+// which gave the shuffles their divergent form; shorter segments; fewer
+// registers.
 //
 // Built without fused multiply-adds (the default flags): the backward is as
 // fast either way, and the forward then stays bit-equal to the plain
@@ -205,7 +205,7 @@ __global__ void __launch_bounds__(BW_NT, BW_MIN_BLOCKS) dssim_bwd_kernel(
         // one, so that mu and sigma round as the plain version's do: where
         // the SSIM denominator is small its adjoint magnifies any
         // difference (window sums taken from row 3-sums missed the plain
-        // gradients by up to 1.2 times the tolerance).
+        // gradients by more than the tolerance).
         float s_x = h0.x, s_y = h0.y, s_xx = h0.xx, s_yy = h0.yy,
               s_xy = h0.xy;
 #pragma unroll

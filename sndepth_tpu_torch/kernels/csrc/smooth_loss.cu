@@ -25,10 +25,10 @@
 //     and plane), and the next chunk while it works on this one, so a warp
 //     keeps loads in flight; the row above a chunk stays in registers. The
 //     rows just above and below a segment are loaded once more, from L2. A
-//     segment is kChunk k - 2 rows, k = 8, 4, 2 or 1 chunks: the most for
-//     which the grid still has MIN_WARPS warps, since a warp's chunks run
-//     one after another and a small call is bound by that chain, a large
-//     one by the bytes.
+//     segment is kChunk k - 2 rows, k = 8, 4, 2 or 1 chunks (one row at
+//     least): the most for which the grid still has MIN_WARPS warps, since
+//     a warp's chunks run one after another and a small call is bound by
+//     that chain, a large one by the bytes.
 //   * Left and right neighbours come from the next lane by shuffle. Every
 //     warp runs the same number of chunks, rows outside its segment only
 //     predicated off, so that no branch around a shuffle depends on the
@@ -40,15 +40,14 @@
 //     order, so the sums do not depend on scheduling and two runs give the
 //     same bits. The ticket is one counter a device that the last block
 //     resets: calls on one device must not overlap (one stream).
-// Measured (H100 80GB HBM3 at 700 W, tools/compare_k2_k7.py, against the
-// Triton kernel before it in the same call): stage 1 at B = 128 over its
-// four scales 0.381 -> 0.291 ms, 74% of the byte bound at 384x128x416 (a
-// copy of as many bytes takes 0.167, 88% of it); a stage-2 step's calls
-// 0.629 -> 0.323 ms (12 calls against 20 and their channel copies).
-// Earlier designs at stage 1, B = 128: one row in flight a warp (16-byte
-// loads, 128 columns) 0.435, the chain of a warp's row loads setting the
-// time; chunks without double buffering 0.350; chunks of 8 rows (spilling)
-// 0.405. A build without fused multiply-adds takes the same time.
+// Measured (H100 80GB HBM3 at 700 W, against the Triton kernel before it
+// in the same call): stage 1 at B = 128 over its four scales 0.381 ->
+// 0.291 ms, 74% of the byte bound at 384x128x416 (a copy of as many bytes
+// takes 0.167, 88% of it); a stage-2 step's calls 0.629 -> 0.323 ms (12
+// calls against 20 and their channel copies). Tried before and slower: one
+// row in flight a warp, where the chain of a warp's row loads set the
+// time; chunks without double buffering; chunks of 8 rows, which spill. A
+// build without fused multiply-adds takes the same time.
 // Built with fused multiply-adds (kernels/build.py FMAD_SOURCES): the only
 // tie is sign(0) of an exact difference, which no contraction touches.
 
@@ -98,7 +97,7 @@ struct Walker {
   float* gx;
   float* gy;
   size_t hw;
-  int H, W, c, r0, r1, re;
+  int W, c, r0, r1, re;
   bool col_in, own, has_right;
   float pd[D], pim[C];  // the row above
   float pyp[D];         // py of the row above that
@@ -110,9 +109,11 @@ struct Walker {
       const bool in = col_in && r >= 0 && r <= re;
       const size_t p = (size_t)r * W + c;
 #pragma unroll
-      for (int k = 0; k < D; ++k) ch.d[i][k] = in ? __ldg(dp + k * hw + p) : 0.f;
+      for (int k = 0; k < D; ++k)
+        ch.d[i][k] = in ? __ldg(dp + k * hw + p) : 0.f;
 #pragma unroll
-      for (int k = 0; k < C; ++k) ch.im[i][k] = in ? __ldg(ip + k * hw + p) : 0.f;
+      for (int k = 0; k < C; ++k)
+        ch.im[i][k] = in ? __ldg(ip + k * hw + p) : 0.f;
     }
   }
 
@@ -193,7 +194,6 @@ __device__ __forceinline__ void walk(const float* __restrict__ depth,
   w.ip = image + (size_t)n * C * w.hw;
   w.gx = ddx + (size_t)n * D * w.hw;
   w.gy = ddy + (size_t)n * D * w.hw;
-  w.H = H;
   w.W = W;
   w.c = strip * COLS - 1 + lane;               // the lane's column
   w.col_in = active && w.c >= 0 && w.c < W;
@@ -321,23 +321,6 @@ Grid grid(int N, int D, int H, int W) {
 using Kernel = void (*)(const float*, const float*, float*, float*, float*,
                        int, int, int, int, int, int);
 
-template <int D>
-Kernel pick_channels(int C) {
-  switch (C) {
-    case 1: return smooth_kernel<D, 1>;
-    case 2: return smooth_kernel<D, 2>;
-    case 3: return smooth_kernel<D, 3>;
-    case 4: return smooth_kernel<D, 4>;
-    default: return nullptr;
-  }
-}
-
-Kernel pick(int D, int C) {
-  if (D == 1) return pick_channels<1>(C);
-  if (D == 2) return pick_channels<2>(C);
-  return nullptr;
-}
-
 }  // namespace
 
 // Floats of `out` a call needs: the two sums and two a block.
@@ -348,16 +331,16 @@ extern "C" long long smooth_out_floats(int N, int D, int H, int W) {
 }
 
 // Launches the kernel on `stream`; returns the CUDA error code (0 =
-// launched). depth, ddx, ddy (N, D, H, W); image (N, C, H, W); D 1 or 2, C
-// 1 to 4. out has smooth_out_floats(N, D, H, W) floats; out[0], out[1] get
-// sx, sy.
+// launched). depth, ddx, ddy (N, D, H, W); image (N, 3, H, W), the only
+// channel count built; D 1 or 2. out has smooth_out_floats(N, D, H, W)
+// floats; out[0], out[1] get sx, sy.
 extern "C" int smooth_launch(const float* depth, const float* image,
                              float* out, long long out_floats, float* ddx,
                              float* ddy, int N, int D, int C, int H, int W,
                              void* stream) {
-  const Kernel kernel = pick(D, C);
-  if (kernel == nullptr || N < 1 || H < 2 || W < 2)
+  if (C != 3 || (D != 1 && D != 2) || N < 1 || H < 2 || W < 2)
     return (int)cudaErrorInvalidValue;
+  const Kernel kernel = D == 1 ? smooth_kernel<1, 3> : smooth_kernel<2, 3>;
   const Grid g = grid(N, D, H, W);
   if (g.nb < 0 || out_floats < 2 + 2 * (long long)g.nb)
     return (int)cudaErrorInvalidValue;

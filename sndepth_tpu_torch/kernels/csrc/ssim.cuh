@@ -19,9 +19,9 @@
 // the x and the y side of every term round alike (mu_x mu_x + mu_y mu_y ==
 // 2 mu_x mu_y, sigma_x + sigma_y == 2 sigma_xy, so n == d); a fused
 // multiply-add on one side only breaks it. ssim_terms is therefore written
-// in __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn, which the compiler never
-// contracts: it rounds every step whatever -fmad says, and the same as the
-// plain arithmetic under -fmad=false. The callers' window sums must round
+// in __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn and div9, which the
+// compiler never contracts: it rounds every step whatever -fmad says, and
+// the same as the plain arithmetic under -fmad=false. The callers' window sums must round
 // alike on the two sides too: photo_pair.cu (built with fused multiply-adds)
 // and dssim.cu's backward form their x x, y y and x y products and sums
 // with moments3 below or with __fmul_rn / __fadd_rn; dssim.cu's forward

@@ -26,7 +26,8 @@ rows, loading several rows at once, keeps the row above in registers and
 takes its neighbours by shuffle; the per-block sums are added in a fixed
 order in the same launch (``csrc/smooth_loss.cu``).
 
-Layouts: depth (N, D, H, W), image (N, C, H, W), float32, contiguous.
+Layouts: depth (N, D, H, W), image (N, C, H, W), float32, contiguous; the
+kernel is built for C = 3, the plain version takes any C.
 """
 
 from __future__ import annotations
@@ -97,6 +98,9 @@ def _library() -> ctypes.CDLL:
 def _launch(depth, image):
     n, c, h, w = image.shape
     d = depth.shape[1]
+    if c != 3:
+        raise ValueError(f"the smoothness kernel takes 3 image channels, "
+                         f"got {c}")
     lib = _library()
     ddx = torch.empty_like(depth)
     ddy = torch.empty_like(depth)

@@ -16,7 +16,8 @@ from sndepth_tpu_torch.kernels.smooth_loss import smooth_loss_fused
 def smooth_loss(depth: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
     """Edge-aware first-order smoothness of depth (N, 1, H, W) under image
     (N, 3, H, W): depth gradients are down-weighted where the image has
-    strong gradients. Differentiable in ``depth`` only."""
+    strong gradients; (N, 2, H, W) gives the mean over the two planes.
+    Differentiable in ``depth`` only."""
     return smooth_loss_fused(depth.float().contiguous(),
                              image.float().contiguous())
 
@@ -25,5 +26,4 @@ def flow_smooth_loss(flow: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
     """Smoothness applied per flow channel and averaged: flow (N, 2, H, W),
     image (N, 3, H, W). One kernel call for both channels, which share the
     image's edge weights. Differentiable in ``flow`` only."""
-    return smooth_loss_fused(flow.float().contiguous(),
-                             image.float().contiguous())
+    return smooth_loss(flow, image)
