@@ -17,8 +17,9 @@ fails unless every phase passes:
              (stage 1's batch) beside the bound, a scale and the 4 in all
   smooth     K2 (smoothness, CUDA) against its plain version on depth
              (D = 1) and flow (D = 2) planes: the 4 scales at B=4, the
-             stage-2 shapes and a ragged 33x97 plane, the same bits on two
-             runs; timed at B=4 and B=128, N = 3B
+             stage-2 shapes, a ragged 33x97 plane and the stage-1 calls at
+             B=4 and B=128 (N = 3B), which it also times; the same bits on
+             two runs, and on two streams at once
   warp       K5 (bilinear gather, both modes), K5b (its coordinate
              gradient) and K6 (its splat) against their plain versions at
              the stage-2 shapes, with small, rigid (over a noisy and over a
@@ -43,7 +44,9 @@ fails unless every phase passes:
   kernel_times  every kernel at the shapes one stage-2 step at B=32 gives
              it: kernel, plain version, library call where there is one,
              and the least time the card could take (bytes over 3.35 TB/s
-             against operations over 67 TFLOP/s float32)
+             against operations over 67 TFLOP/s float32); and a step's
+             calls of each kernel timed at its own shapes: each shape's
+             time and bound times the calls the step makes there (``step``)
   kernel_times_raft3d  the same for K8 at both RAFT3D sizes (operations
              counted over the in-radius pairs), for K5 and K5b as the depth
              sampler calls them, with the host's share of a call, and for
@@ -400,6 +403,29 @@ def _smooth_check(label: str, depth, img) -> dict:
             "grad_max_abs_err": max(_max_err(dxk, dxp), _max_err(dyk, dyp))}
 
 
+def _smooth_streams(depth, img, calls: int = 4) -> dict:
+    """K2 on two streams at once, ``calls`` calls each in turn: each stream
+    keeps its own ticket, so every call gives the bits of a call alone."""
+    import torch
+    from sndepth_tpu_torch.kernels import smooth_loss as K2
+    alone = K2.smooth_sums(depth, img)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    got = []
+    for _ in range(calls):
+        for st in streams:
+            with torch.cuda.stream(st):
+                got.append(K2.smooth_sums(depth, img))
+    torch.cuda.synchronize()
+    for out in got:
+        if not all(torch.equal(a, b) for a, b in zip(out, alone)):
+            raise AssertionError("K2 on two streams differs from a call "
+                                 "alone")
+    return {"case": "two_streams", "shape": list(depth.shape),
+            "calls": len(got)}
+
+
 def phase_smooth() -> dict:
     import torch
     from sndepth_tpu_torch.kernels import smooth_loss as K2
@@ -432,7 +458,6 @@ def phase_smooth() -> dict:
     for d in (1, 2):
         checks.append(_smooth_check(f"ragged_D{d}", planes(5, d, 33, 97),
                                     ragged))
-    max_err = max(c["grad_max_abs_err"] for c in checks)
     timings = {}
     for bt in (4, 128):
         _, pyr_t = _pyramid_inputs(bt, seed=14)
@@ -441,6 +466,11 @@ def phase_smooth() -> dict:
             img = pyr_t[s].contiguous()
             depth = (torch.rand(img.shape[0], 1, h, w, generator=gen) * 10
                      + 0.1).to(DEV)
+            # The timed calls are the stage-1 step's: held to the plain
+            # version too, since their size picks the segment length.
+            checks.append(_smooth_check(f"B{bt}_timed", depth, img))
+            if bt == 128 and s in (0, len(SCALES) - 1):
+                checks.append(_smooth_streams(depth, img))
             per_scale.append({
                 "hw": [h, w],
                 "kernel_ms": time_ms(lambda: K2._launch(depth, img)),
@@ -450,6 +480,7 @@ def phase_smooth() -> dict:
                          SMOOTH_FLOPS * img.shape[0] * h * w)})
         timings[f"B{bt}"] = per_scale
         timings[f"B{bt}_total"] = _scale_total(per_scale)
+    max_err = max(c.get("grad_max_abs_err", 0.0) for c in checks)
     emit("smooth", checks=checks, timings=timings)
     return {"max_abs_err": max_err, "timings": timings}
 
@@ -1999,7 +2030,7 @@ def phase_kernel_times() -> dict:
                 lambda: K2.smooth_sums_reference(depth, img),
                 _bound(_nbytes(depth, img, depth, depth),
                        SMOOTH_FLOPS * depth.numel()), calls=calls)
-    totals = {}
+    totals, steps = {}, {}
     for name, shapes in rows.items():
         t_bytes = sum(r["bytes_ms"] for r in shapes)
         t_flops = sum(r["flops_ms"] for r in shapes)
@@ -2014,14 +2045,14 @@ def phase_kernel_times() -> dict:
                for k in ("kernel_flops_ms", "pr2_bound_ms")
                if k in shapes[0]}}
         if all("calls" in r for r in shapes):
-            # Every launch of one step, the shapes that recur counted as
-            # often as the step launches them.
-            totals[name].update({
-                f"step_{k}": sum(r[k] * r["calls"] for r in shapes)
-                for k in ("ms", "plain_ms", "bytes_ms", "flops_ms")})
-            totals[name]["step_calls"] = sum(r["calls"] for r in shapes)
+            # Every launch of one step: each shape's one timed call (and
+            # its bound) times the calls the step makes at that shape.
+            steps[name] = {
+                **{f"{k}_times_calls": sum(r[k] * r["calls"] for r in shapes)
+                   for k in ("ms", "plain_ms", "bytes_ms", "flops_ms")},
+                "calls": sum(r["calls"] for r in shapes)}
     emit("kernel_times", batch=nb, torch=torch.__version__, shapes=rows,
-         totals=totals)
+         totals=totals, step=steps)
     return totals
 
 

@@ -38,8 +38,10 @@
 //   * One launch a call: each block writes one pair of partial sums, and the
 //     last block to finish (a ticket taken after a fence) adds them in block
 //     order, so the sums do not depend on scheduling and two runs give the
-//     same bits. The ticket is one counter a device that the last block
-//     resets: calls on one device must not overlap (one stream).
+//     same bits. The ticket is a counter word the caller keeps for each
+//     stream (zero before the first call), which the last block sets back
+//     to 0: calls on one stream run in turn, so calls on different streams
+//     may overlap.
 // Measured (H100 80GB HBM3 at 700 W, against the Triton kernel before it
 // in the same call): stage 1 at B = 128 over its four scales 0.381 ->
 // 0.291 ms, 74% of the byte bound at 384x128x416 (a copy of as many bytes
@@ -64,8 +66,6 @@ template <int D>
 constexpr int kChunk = D == 1 ? 4 : 2;
 constexpr int MIN_WARPS = 8192;         // see the segment rule above
 constexpr int MIN_BLOCKS = 4;           // 4 blocks of 8 warps: 64 registers
-
-__device__ unsigned int g_ticket = 0;
 
 __device__ __forceinline__ float sgn(float v) {
   return v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f);
@@ -259,8 +259,8 @@ template <int D, int C>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS) smooth_kernel(
     const float* __restrict__ depth, const float* __restrict__ image,
     float* __restrict__ out, float* __restrict__ ddx,
-    float* __restrict__ ddy, int N, int H, int W, int nchunk, int nseg,
-    int nstrip) {
+    float* __restrict__ ddy, unsigned int* __restrict__ ticket, int N, int H,
+    int W, int nchunk, int nseg, int nstrip) {
   __shared__ float red[2][NW];
   __shared__ bool last;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -273,7 +273,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) smooth_kernel(
     part[2 * blockIdx.x] = sx;
     part[2 * blockIdx.x + 1] = sy;
     __threadfence();
-    last = atomicAdd(&g_ticket, 1u) == gridDim.x - 1;
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
   }
   __syncthreads();
   if (!last) return;
@@ -290,7 +290,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) smooth_kernel(
   if (threadIdx.x == 0) {
     out[0] = ax;
     out[1] = ay;
-    g_ticket = 0;
+    *ticket = 0;
   }
 }
 
@@ -319,7 +319,7 @@ Grid grid(int N, int D, int H, int W) {
 }
 
 using Kernel = void (*)(const float*, const float*, float*, float*, float*,
-                       int, int, int, int, int, int);
+                       unsigned int*, int, int, int, int, int, int);
 
 }  // namespace
 
@@ -333,11 +333,12 @@ extern "C" long long smooth_out_floats(int N, int D, int H, int W) {
 // Launches the kernel on `stream`; returns the CUDA error code (0 =
 // launched). depth, ddx, ddy (N, D, H, W); image (N, 3, H, W), the only
 // channel count built; D 1 or 2. out has smooth_out_floats(N, D, H, W)
-// floats; out[0], out[1] get sx, sy.
+// floats; out[0], out[1] get sx, sy. ticket is the stream's counter word:
+// 0 before the call, and 0 again after it.
 extern "C" int smooth_launch(const float* depth, const float* image,
                              float* out, long long out_floats, float* ddx,
-                             float* ddy, int N, int D, int C, int H, int W,
-                             void* stream) {
+                             float* ddy, unsigned int* ticket, int N, int D,
+                             int C, int H, int W, void* stream) {
   if (C != 3 || (D != 1 && D != 2) || N < 1 || H < 2 || W < 2)
     return (int)cudaErrorInvalidValue;
   const Kernel kernel = D == 1 ? smooth_kernel<1, 3> : smooth_kernel<2, 3>;
@@ -345,6 +346,7 @@ extern "C" int smooth_launch(const float* depth, const float* image,
   if (g.nb < 0 || out_floats < 2 + 2 * (long long)g.nb)
     return (int)cudaErrorInvalidValue;
   kernel<<<g.nb, NT, 0, (cudaStream_t)stream>>>(
-      depth, image, out, ddx, ddy, N, H, W, g.nchunk, g.nseg, g.nstrip);
+      depth, image, out, ddx, ddy, ticket, N, H, W, g.nchunk, g.nseg,
+      g.nstrip);
   return (int)cudaGetLastError();
 }

@@ -41,6 +41,11 @@ from sndepth_tpu_torch.ops.pyramid import gradient_x, gradient_y
 
 _SOURCE = "smooth_loss.cu"
 _lib = None
+# The kernel's ticket word for each (device, stream): the last block of a
+# call takes the last ticket and sets the word back to 0. Calls on one
+# stream run in turn, so one word a stream lets calls on different streams
+# overlap.
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def _check(depth, image) -> None:
@@ -90,7 +95,7 @@ def _library() -> ctypes.CDLL:
         lib.smooth_launch.restype = ctypes.c_int
         lib.smooth_launch.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         _lib = lib
     return _lib
 
@@ -107,10 +112,15 @@ def _launch(depth, image):
     size = lib.smooth_out_floats(n, d, h, w)
     out = torch.empty(size, dtype=torch.float32, device=depth.device)
     with torch.cuda.device(depth.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        key = (depth.device.index, stream)
+        if key not in _tickets:
+            _tickets[key] = torch.zeros(1, dtype=torch.int32,
+                                        device=depth.device)
         rc = lib.smooth_launch(
             depth.data_ptr(), image.data_ptr(), out.data_ptr(), size,
-            ddx.data_ptr(), ddy.data_ptr(), n, d, c, h, w,
-            torch.cuda.current_stream().cuda_stream)
+            ddx.data_ptr(), ddy.data_ptr(), _tickets[key].data_ptr(), n, d,
+            c, h, w, stream)
     if rc != 0:
         raise RuntimeError(f"smoothness launch failed: CUDA error {rc}")
     smooth_sums.launches += 1

@@ -118,27 +118,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         K2.smooth_sums(depth, image)
 
 
-@pytest.mark.parametrize("shape", [(3, 16, 40), (2, 9, 37)])
-def test_flow_sums_and_grad_match_jax_flow_smooth_loss(shape):
+@pytest.mark.parametrize("shape", [(3, 16, 40), (2, 9, 37), (2, 8, 130),
+                                   (1, 33, 97)])
+def test_flow_smooth_loss_matches_jax(shape):
     """Two planes a sample (a flow) through the kernel's sums: the mean of
     the two channels' losses and its flow gradient, against the JAX
     ``flow_smooth_loss`` (two single-channel losses under one image)."""
-    n, h, w = shape
-    flow, image = _case(5, n, h, w, d=2)
-    want, jg = jax.value_and_grad(
-        lambda f: jax_flow_smooth(f, jnp.asarray(image)))(jnp.asarray(flow))
-    f = torch.from_numpy(to_nchw(flow)).requires_grad_(True)
-    sx, sy = K2.smooth_loss_sums(f, torch.from_numpy(to_nchw(image)))
-    got = (sx / (n * 2 * h * (w - 1)) + sy / (n * 2 * (h - 1) * w))
-    got.backward()
-    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
-    g = to_nhwc(f.grad.numpy())
-    assert np.isfinite(g).all()
-    np.testing.assert_allclose(g, np.asarray(jg), atol=1e-8, rtol=1e-5)
-
-
-@pytest.mark.parametrize("shape", [(3, 16, 40), (2, 9, 37)])
-def test_flow_smooth_loss_matches_jax(shape):
     n, h, w = shape
     flow, image = _case(6, n, h, w, d=2)
     want, jg = jax.value_and_grad(
@@ -147,8 +132,9 @@ def test_flow_smooth_loss_matches_jax(shape):
     got = flow_smooth_loss(f, torch.from_numpy(to_nchw(image)))
     got.backward()
     np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
-    np.testing.assert_allclose(to_nhwc(f.grad.numpy()), np.asarray(jg),
-                               atol=1e-8, rtol=1e-5)
+    g = to_nhwc(f.grad.numpy())
+    assert np.isfinite(g).all()
+    np.testing.assert_allclose(g, np.asarray(jg), atol=1e-8, rtol=1e-5)
 
 
 def test_two_plane_plain_version_matches_two_single_plane_calls():
