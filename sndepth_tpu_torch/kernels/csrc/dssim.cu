@@ -12,20 +12,35 @@
 // The function is bound by DRAM bytes: 12 bytes a pixel forward, 12 in and
 // 4 or 8 out backward, against ~100 and ~170 operations. Halos are
 // recomputed, not exchanged, so every intermediate plane stays out of DRAM;
-// the TPU kernel held whole planes in VMEM instead.
-//   * Forward: one block computes one TH x TW tile of one plane from x and y
-//     staged in shared memory on a 1-pixel halo, nine taps a window.
+// the TPU kernel held whole planes in VMEM instead. Both kernels are warps
+// that walk strips of columns down segments of rows, everything in
+// registers, neighbours by shuffle, no shared memory and no barrier:
+//   * Forward: a warp owns FW_COLS = 30 columns (a lane a column, plus one
+//     halo column each side) of one plane and walks a segment of rows. It
+//     loads x and y a chunk of FW_CHUNK rows at a time, the next chunk
+//     while it works on this one, so that a warp keeps rows in flight (the
+//     lesson of smooth_loss.cu: time follows the loads a warp keeps in
+//     flight). A row's left and right values come by shuffle; a window is
+//     summed in avg_pool2d's order, the top row's 3-sums (moments3) then the
+//     six taps below one by one, each product rounded, so the map stays
+//     bit-equal to the plain version and equal windows give exactly 0. The
+//     segment length is chosen a launch so that the grid holds at least
+//     FW_MIN_WARPS warps; the 2 rows above and below a segment and the 2 halo
+//     columns a strip are loaded again (32/30 x (R + 2)/R loads an output,
+//     1.13 at 64x3x128x416, against 1.195 for the 16 x 32 tiles before).
 //   * Backward: one warp walks a strip of BW_COLS columns (a lane a column,
-//     plus a 2-column halo each side) down BW_ROWS rows, everything in
-//     registers and no shared memory: the five moments' row 3-sums from the
-//     lanes beside it by shuffle, each window's sums, SSIM terms and adjoint
-//     coefficients, the coefficients' row 3-sums by shuffle, and the pools
-//     from the last three rows of those. A side that is not wanted is a
-//     template parameter: its coefficient plane is neither formed nor
-//     pooled. The 2-pixel halo costs (32 / 28) x (BW_ROWS + 2) / BW_ROWS =
-//     1.21 windows an output (1.41 for the 16 x 32 tiles of before); 10
-//     shuffles a row with one side, 12 with both, against ~60 shared-memory
-//     accesses a pixel before.
+//     plus a 2-column halo each side) down BW_ROWS rows: the five moments'
+//     row 3-sums from the lanes beside it by shuffle, each window's sums,
+//     SSIM terms and adjoint coefficients, the coefficients' row 3-sums by
+//     shuffle, and the pools from the last three rows of those. A side that
+//     is not wanted is a template parameter: its coefficient plane is
+//     neither formed nor pooled. The 2-pixel halo costs (32 / 28) x
+//     (BW_ROWS + 2) / BW_ROWS = 1.21 windows an output; 10 shuffles a row
+//     with one side, 12 with both.
+// Every warp of a launch runs the same trip count and only predicates the
+// rows outside its segment, so that no branch or loop around a shuffle
+// depends on the warp (the compiler would otherwise give the shuffles their
+// slow divergent form).
 // What holds the backward back is its own instructions, not its bytes:
 // 0.049 ms of bytes at 64x3x128x416 against a loop of ~1250 SASS
 // instructions for three rows (divisions, plain-order window sums).
@@ -49,64 +64,21 @@
 
 namespace {
 
-constexpr int TH = 16;                  // forward tile rows
-constexpr int TW = 32;                  // forward tile columns
-constexpr int NT = 256;                 // forward threads per block
-constexpr int QH = TH + 2, QW = TW + 2; // tile + 1-pixel halo
-constexpr int PPT = TH * TW / NT;       // tile pixels per thread
+#ifndef DSSIM_FWD_CHUNK
+#define DSSIM_FWD_CHUNK 4
+#endif
+constexpr int FW_COLS = 30;             // forward columns a warp
+constexpr int FW_CHUNK = DSSIM_FWD_CHUNK;  // forward rows loaded at once
+constexpr int FW_NW = 8;                // forward warps per block
+constexpr int FW_NT = 32 * FW_NW;
+constexpr int FW_MIN_BLOCKS = 4;        // 4 blocks of 8 warps: 64 registers
+constexpr int FW_MIN_WARPS = 8192;      // the segment rule (fwd_grid)
+constexpr int FW_MIN_ROWS = 4;          // the shortest segment
 constexpr int BW_ROWS = 32;             // backward rows a warp
 constexpr int BW_COLS = 28;             // backward columns a warp
 constexpr int BW_NW = 4;                // backward warps per block
 constexpr int BW_NT = 32 * BW_NW;
 constexpr int BW_MIN_BLOCKS = 8;        // blocks an SM: 64 registers
-
-// The five sums of the 3x3 window whose top-left corner is (r, c) of the
-// staged planes (row stride `stride`).
-__device__ __forceinline__ Ssim window_terms(const float* sx, const float* sy,
-                                             int stride, int r, int c) {
-  float s_x = 0.f, s_y = 0.f, s_xx = 0.f, s_yy = 0.f, s_xy = 0.f;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float xv = sx[(r + i) * stride + c + j];
-      const float yv = sy[(r + i) * stride + c + j];
-      s_x += xv;
-      s_y += yv;
-      s_xx += xv * xv;
-      s_yy += yv * yv;
-      s_xy += xv * yv;
-    }
-  }
-  return ssim_terms(s_x, s_y, s_xx, s_yy, s_xy);
-}
-
-__global__ void __launch_bounds__(NT) dssim_fwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ y,
-    float* __restrict__ out, int H, int W) {
-  __shared__ float sx[QH * QW];
-  __shared__ float sy[QH * QW];
-  const size_t base = (size_t)blockIdx.z * H * W;
-  const int r0 = blockIdx.y * TH, c0 = blockIdx.x * TW;
-  const int tid = threadIdx.x;
-  for (int k = tid; k < QH * QW; k += NT) {
-    const int r = r0 + k / QW - 1, c = c0 + k % QW - 1;
-    const bool in = r >= 0 && r < H && c >= 0 && c < W;
-    const size_t p = base + (size_t)r * W + c;
-    sx[k] = in ? __ldg(x + p) : 0.f;
-    sy[k] = in ? __ldg(y + p) : 0.f;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < PPT; ++i) {
-    const int k = tid + i * NT;
-    const int tr = k / TW, tc = k % TW;
-    const int r = r0 + tr, c = c0 + tc;
-    if (r < H && c < W)
-      out[base + (size_t)r * W + c] =
-          clip01(window_terms(sx, sy, QW, tr, tc).s);
-  }
-}
 
 __device__ __forceinline__ float left_of(float v) {
   return __shfl_up_sync(0xffffffffu, v, 1);
@@ -114,6 +86,122 @@ __device__ __forceinline__ float left_of(float v) {
 
 __device__ __forceinline__ float right_of(float v) {
   return __shfl_down_sync(0xffffffffu, v, 1);
+}
+
+// FW_CHUNK rows of x and y at the lane's column; zeros outside the image.
+struct FwdChunk {
+  float x[FW_CHUNK], y[FW_CHUNK];
+};
+
+// One warp of the forward walk: lane l is image column c = c0 - 1 + l, and
+// lanes 1 .. 30 own the strip's columns. At image row t it forms the row's
+// left and right values by shuffle, the window centred on row t - 1 from
+// the top row's moment 3-sums (row t - 2) and the six taps of rows t - 1
+// and t, and that row's output; then row t's moment 3-sums.
+struct FwdWalker {
+  const float* xp;
+  const float* yp;
+  float* op;
+  int W, c, r0, r1, re;
+  bool col_in, own;
+  Moments ha, hb;           // moment 3-sums of rows t - 2, t - 1
+  float px[3], py[3];       // x, y of row t - 1 left of, at, right of c
+
+  __device__ __forceinline__ void load(int base, FwdChunk& ch) const {
+#pragma unroll
+    for (int i = 0; i < FW_CHUNK; ++i) {
+      const int r = base + i;
+      const bool in = col_in && r >= 0 && r <= re;
+      const size_t p = (size_t)r * W + c;
+      ch.x[i] = in ? __ldg(xp + p) : 0.f;
+      ch.y[i] = in ? __ldg(yp + p) : 0.f;
+    }
+  }
+
+  // Rows base .. base + FW_CHUNK - 1 in order. Every lane runs every row
+  // and every shuffle; a row outside the segment only writes nothing.
+  __device__ __forceinline__ void process(int base, const FwdChunk& ch) {
+#pragma unroll
+    for (int i = 0; i < FW_CHUNK; ++i) {
+      const int t = base + i;
+      const float xt = ch.x[i], yt = ch.y[i];
+      const float xl = left_of(xt), xr = right_of(xt);
+      const float yl = left_of(yt), yr = right_of(yt);
+      if (own && t - 1 >= r0 && t - 1 < r1) {
+        // avg_pool2d's order: the nine taps row by row, the first row's
+        // three being ha, each product rounded.
+        float s_x = ha.x, s_y = ha.y, s_xx = ha.xx, s_yy = ha.yy,
+              s_xy = ha.xy;
+        const float rx[2][3] = {{px[0], px[1], px[2]}, {xl, xt, xr}};
+        const float ry[2][3] = {{py[0], py[1], py[2]}, {yl, yt, yr}};
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            const float a = rx[k][j], b = ry[k][j];
+            s_x = __fadd_rn(s_x, a);
+            s_y = __fadd_rn(s_y, b);
+            s_xx = __fadd_rn(s_xx, __fmul_rn(a, a));
+            s_yy = __fadd_rn(s_yy, __fmul_rn(b, b));
+            s_xy = __fadd_rn(s_xy, __fmul_rn(a, b));
+          }
+        op[(size_t)(t - 1) * W + c] =
+            clip01(ssim_terms(s_x, s_y, s_xx, s_yy, s_xy).s);
+      }
+      ha = hb;
+      hb = moments3(xl, xt, xr, yl, yt, yr);
+      px[0] = xl;
+      px[1] = xt;
+      px[2] = xr;
+      py[0] = yl;
+      py[1] = yt;
+      py[2] = yr;
+    }
+  }
+};
+
+// Warp `item` walks its segment: rows r0 - 1 .. r0 + rows, in nchunk chunks
+// (the same count for every warp); a warp past the last item loads nothing
+// and writes nothing.
+__global__ void __launch_bounds__(FW_NT, FW_MIN_BLOCKS) dssim_fwd_kernel(
+    const float* __restrict__ x, const float* __restrict__ y,
+    float* __restrict__ out, int N, int H, int W, int rows, int nchunk,
+    int nseg, int nstrip) {
+  const int lane = threadIdx.x & 31;
+  const long long item =
+      (long long)blockIdx.x * FW_NW + (threadIdx.x >> 5);
+  const bool active = item < (long long)N * nseg * nstrip;
+  const int strip = (int)(item % nstrip);
+  const int seg = (int)((item / nstrip) % nseg);
+  const size_t base =
+      active ? (size_t)(item / ((long long)nstrip * nseg)) * H * W : 0;
+  FwdWalker w;
+  w.xp = x + base;
+  w.yp = y + base;
+  w.op = out + base;
+  w.W = W;
+  w.c = strip * FW_COLS - 1 + lane;
+  w.col_in = active && w.c >= 0 && w.c < W;
+  w.own = lane >= 1 && lane <= FW_COLS && w.col_in;
+  w.r0 = seg * rows;
+  w.r1 = min(w.r0 + rows, H);
+  w.re = min(w.r1, H - 1);             // the last row loaded
+  w.ha = Moments{};
+  w.hb = Moments{};
+#pragma unroll
+  for (int j = 0; j < 3; ++j) w.px[j] = w.py[j] = 0.f;
+  // Two chunks in turn: the next one's loads are in flight while this one
+  // is processed.
+  FwdChunk a, b;
+  const int top = w.r0 - 1;
+  w.load(top, a);
+  for (int j = 0; j < nchunk; j += 2) {
+    if (j + 1 < nchunk) w.load(top + (j + 1) * FW_CHUNK, b);
+    w.process(top + j * FW_CHUNK, a);
+    if (j + 1 >= nchunk) break;
+    if (j + 2 < nchunk) w.load(top + (j + 2) * FW_CHUNK, a);
+    w.process(top + (j + 1) * FW_CHUNK, b);
+  }
 }
 
 // Adjoint coefficients A_x, A_y, B, Cxy; a side not wanted leaves its A
@@ -140,7 +228,9 @@ __device__ __forceinline__ Coef row_sum3(const Coef& v) {
 // from the last three rows of them, that window's adjoint coefficients and
 // their row 3-sums (valid on lanes 2 .. 29), and the output of row t - 2
 // from the last three rows of those.
-template <bool DX, bool DY>
+// MAP (a comparison variant, DSSIM_FWD_ADJOINT_WALKER): the same walk
+// writes the map of row t - 1 into dx and forms no coefficients.
+template <bool DX, bool DY, bool MAP = false>
 __global__ void __launch_bounds__(BW_NT, BW_MIN_BLOCKS) dssim_bwd_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ g, float* __restrict__ dx,
@@ -167,7 +257,7 @@ __global__ void __launch_bounds__(BW_NT, BW_MIN_BLOCKS) dssim_bwd_kernel(
     const size_t p = base + (size_t)t * W + c;
     xv = in ? __ldg(x + p) : 0.f;
     yv = in ? __ldg(y + p) : 0.f;
-    gv = in ? __ldg(g + p) : 0.f;
+    gv = in && !MAP ? __ldg(g + p) : 0.f;
   };
 
   Moments h0{}, h1{};                  // moments of rows t - 2, t - 1
@@ -177,11 +267,12 @@ __global__ void __launch_bounds__(BW_NT, BW_MIN_BLOCKS) dssim_bwd_kernel(
   float xb = 0.f, yb = 0.f;            // x, y at row t - 2
   float xn, yn, gn;
   load(r0 - 2, xn, yn, gn);
+  constexpr int trips = MAP ? BW_ROWS + 3 : BW_ROWS + 4;
 #pragma unroll 3
-  for (int i = 0; i < BW_ROWS + 4; ++i) {
+  for (int i = 0; i < trips; ++i) {
     const int t = r0 - 2 + i;               // the row of xt, yt, gt
     const float xt = xn, yt = yn, gt = gn;
-    if (i + 1 < BW_ROWS + 4) load(t + 1, xn, yn, gn);
+    if (i + 1 < trips) load(t + 1, xn, yn, gn);
     const float xl = left_of(xt), xr = right_of(xt);
     const float yl = left_of(yt), yr = right_of(yt);
     const Moments h2 = moments3(xl, xt, xr, yl, yt, yr);
@@ -220,6 +311,8 @@ __global__ void __launch_bounds__(BW_NT, BW_MIN_BLOCKS) dssim_bwd_kernel(
             s_xy = __fadd_rn(s_xy, __fmul_rn(a, b));
           }
         const Ssim m = ssim_terms(s_x, s_y, s_xx, s_yy, s_xy);
+        if (MAP && out_col && t - 1 >= r0 && t - 1 < r1)
+          dx[base + (size_t)(t - 1) * W + c] = clip01(m.s);
         // The pool's 1/9 rides the cotangent: the coefficients are linear
         // in it.
         const SsimAdjoint a =
@@ -229,6 +322,7 @@ __global__ void __launch_bounds__(BW_NT, BW_MIN_BLOCKS) dssim_bwd_kernel(
         v.b = a.b;
         v.c = a.c;
       }
+      if (!MAP) {
       const Coef q2 = row_sum3<DX, DY>(v);
       if (i >= 4 && out_col && t - 2 < r1) {
         const size_t p = base + (size_t)(t - 2) * W + c;
@@ -239,6 +333,7 @@ __global__ void __launch_bounds__(BW_NT, BW_MIN_BLOCKS) dssim_bwd_kernel(
       }
       q0 = q1;
       q1 = q2;
+      }
     }
     h0 = h1;
     h1 = h2;
@@ -255,8 +350,28 @@ bool bad_shape(int N, int H, int W) {
          (long long)H * W > 0x7fffffffLL;
 }
 
-dim3 tiles(int N, int H, int W) {
-  return dim3((W + TW - 1) / TW, (H + TH - 1) / TH, N);
+// The forward grid of a call: rows a segment, chunks a segment, segments
+// and strips a plane, blocks. Segments are as long as the grid allows while
+// it holds FW_MIN_WARPS warps (a warp's chunks run one after another, so a
+// small call is bound by that chain, a large one by the bytes), and no
+// shorter than FW_MIN_ROWS rows.
+struct FwdGrid {
+  int rows, nchunk, nseg, nstrip;
+  long long nb;
+};
+
+FwdGrid fwd_grid(int N, int H, int W) {
+  FwdGrid g;
+  g.nstrip = (W + FW_COLS - 1) / FW_COLS;
+  const long long per_seg = (long long)N * g.nstrip;
+  long long want = (FW_MIN_WARPS + per_seg - 1) / per_seg;
+  const int most = (H + FW_MIN_ROWS - 1) / FW_MIN_ROWS;
+  const int nseg = want > most ? most : (int)want;
+  g.rows = (H + nseg - 1) / nseg;
+  g.nseg = (H + g.rows - 1) / g.rows;
+  g.nchunk = (g.rows + 2 + FW_CHUNK - 1) / FW_CHUNK;
+  g.nb = (per_seg * g.nseg + FW_NW - 1) / FW_NW;
+  return g;
 }
 
 }  // namespace
@@ -266,8 +381,21 @@ dim3 tiles(int N, int H, int W) {
 extern "C" int dssim_fwd_launch(const float* x, const float* y, float* out,
                                 int N, int H, int W, void* stream) {
   if (bad_shape(N, H, W)) return (int)cudaErrorInvalidValue;
-  dssim_fwd_kernel<<<tiles(N, H, W), NT, 0, (cudaStream_t)stream>>>(x, y, out,
-                                                                   H, W);
+#ifdef DSSIM_FWD_ADJOINT_WALKER
+  {
+    const int nseg = (H + BW_ROWS - 1) / BW_ROWS;
+    const int nstrip = (W + BW_COLS - 1) / BW_COLS;
+    const long long nb = ((long long)N * nseg * nstrip + BW_NW - 1) / BW_NW;
+    dssim_bwd_kernel<false, false, true>
+        <<<(unsigned)nb, BW_NT, 0, (cudaStream_t)stream>>>(
+            x, y, nullptr, out, nullptr, N, H, W, nseg, nstrip);
+    return (int)cudaGetLastError();
+  }
+#endif
+  const FwdGrid g = fwd_grid(N, H, W);
+  if (g.nb > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  dssim_fwd_kernel<<<(unsigned)g.nb, FW_NT, 0, (cudaStream_t)stream>>>(
+      x, y, out, N, H, W, g.rows, g.nchunk, g.nseg, g.nstrip);
   return (int)cudaGetLastError();
 }
 
