@@ -71,7 +71,11 @@ constexpr int FW_COLS = 30;             // forward columns a warp
 constexpr int FW_CHUNK = DSSIM_FWD_CHUNK;  // forward rows loaded at once
 constexpr int FW_NW = 8;                // forward warps per block
 constexpr int FW_NT = 32 * FW_NW;
-constexpr int FW_MIN_BLOCKS = 4;        // 4 blocks of 8 warps: 64 registers
+#ifndef DSSIM_FWD_MIN_BLOCKS
+#define DSSIM_FWD_MIN_BLOCKS 3
+#endif
+// Blocks of 8 warps an SM: 3 leave 80 registers a thread.
+constexpr int FW_MIN_BLOCKS = DSSIM_FWD_MIN_BLOCKS;
 constexpr int FW_MIN_WARPS = 8192;      // the segment rule (fwd_grid)
 constexpr int FW_MIN_ROWS = 4;          // the shortest segment
 constexpr int BW_ROWS = 32;             // backward rows a warp
@@ -93,26 +97,71 @@ struct FwdChunk {
   float x[FW_CHUNK], y[FW_CHUNK];
 };
 
+// One row's taps around the lane (left of, at and right of its column): x,
+// y and the three products, each rounded, formed once a row and used by
+// the three windows that hold the row.
+struct Taps {
+  float x[3], y[3], xx[3], yy[3], xy[3];
+};
+
+__device__ __forceinline__ Taps row_taps(float xl, float xt, float xr,
+                                         float yl, float yt, float yr) {
+  Taps r;
+  r.x[0] = xl, r.x[1] = xt, r.x[2] = xr;
+  r.y[0] = yl, r.y[1] = yt, r.y[2] = yr;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    r.xx[j] = __fmul_rn(r.x[j], r.x[j]);
+    r.yy[j] = __fmul_rn(r.y[j], r.y[j]);
+    r.xy[j] = __fmul_rn(r.x[j], r.y[j]);
+  }
+  return r;
+}
+
+// The row's 3-sums, in the order of moments3 (ssim.cuh).
+__device__ __forceinline__ Moments row_sums(const Taps& r) {
+  Moments m;
+  m.x = __fadd_rn(__fadd_rn(r.x[0], r.x[1]), r.x[2]);
+  m.y = __fadd_rn(__fadd_rn(r.y[0], r.y[1]), r.y[2]);
+  m.xx = __fadd_rn(__fadd_rn(r.xx[0], r.xx[1]), r.xx[2]);
+  m.yy = __fadd_rn(__fadd_rn(r.yy[0], r.yy[1]), r.yy[2]);
+  m.xy = __fadd_rn(__fadd_rn(r.xy[0], r.xy[1]), r.xy[2]);
+  return m;
+}
+
+// Adds a row's three taps to the window sums, one by one.
+__device__ __forceinline__ void add_taps(Moments& s, const Taps& r) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    s.x = __fadd_rn(s.x, r.x[j]);
+    s.y = __fadd_rn(s.y, r.y[j]);
+    s.xx = __fadd_rn(s.xx, r.xx[j]);
+    s.yy = __fadd_rn(s.yy, r.yy[j]);
+    s.xy = __fadd_rn(s.xy, r.xy[j]);
+  }
+}
+
 // One warp of the forward walk: lane l is image column c = c0 - 1 + l, and
 // lanes 1 .. 30 own the strip's columns. At image row t it forms the row's
-// left and right values by shuffle, the window centred on row t - 1 from
-// the top row's moment 3-sums (row t - 2) and the six taps of rows t - 1
-// and t, and that row's output; then row t's moment 3-sums.
+// taps (left and right values by shuffle), the window centred on row t - 1
+// from the top row's 3-sums (row t - 2) and the taps of rows t - 1 and t,
+// and that row's output; then row t's 3-sums. Offsets are within a plane
+// (H W < 2^31).
 struct FwdWalker {
   const float* xp;
   const float* yp;
   float* op;
   int W, c, r0, r1, re;
   bool col_in, own;
-  Moments ha, hb;           // moment 3-sums of rows t - 2, t - 1
-  float px[3], py[3];       // x, y of row t - 1 left of, at, right of c
+  Moments ha, hb;           // 3-sums of rows t - 2, t - 1
+  Taps prev;                // taps of row t - 1
 
   __device__ __forceinline__ void load(int base, FwdChunk& ch) const {
 #pragma unroll
     for (int i = 0; i < FW_CHUNK; ++i) {
       const int r = base + i;
       const bool in = col_in && r >= 0 && r <= re;
-      const size_t p = (size_t)r * W + c;
+      const int p = r * W + c;
       ch.x[i] = in ? __ldg(xp + p) : 0.f;
       ch.y[i] = in ? __ldg(yp + p) : 0.f;
     }
@@ -125,37 +174,20 @@ struct FwdWalker {
     for (int i = 0; i < FW_CHUNK; ++i) {
       const int t = base + i;
       const float xt = ch.x[i], yt = ch.y[i];
-      const float xl = left_of(xt), xr = right_of(xt);
-      const float yl = left_of(yt), yr = right_of(yt);
+      const Taps cur = row_taps(left_of(xt), xt, right_of(xt), left_of(yt),
+                                yt, right_of(yt));
       if (own && t - 1 >= r0 && t - 1 < r1) {
         // avg_pool2d's order: the nine taps row by row, the first row's
-        // three being ha, each product rounded.
-        float s_x = ha.x, s_y = ha.y, s_xx = ha.xx, s_yy = ha.yy,
-              s_xy = ha.xy;
-        const float rx[2][3] = {{px[0], px[1], px[2]}, {xl, xt, xr}};
-        const float ry[2][3] = {{py[0], py[1], py[2]}, {yl, yt, yr}};
-#pragma unroll
-        for (int k = 0; k < 2; ++k)
-#pragma unroll
-          for (int j = 0; j < 3; ++j) {
-            const float a = rx[k][j], b = ry[k][j];
-            s_x = __fadd_rn(s_x, a);
-            s_y = __fadd_rn(s_y, b);
-            s_xx = __fadd_rn(s_xx, __fmul_rn(a, a));
-            s_yy = __fadd_rn(s_yy, __fmul_rn(b, b));
-            s_xy = __fadd_rn(s_xy, __fmul_rn(a, b));
-          }
-        op[(size_t)(t - 1) * W + c] =
-            clip01(ssim_terms(s_x, s_y, s_xx, s_yy, s_xy).s);
+        // three being ha.
+        Moments s = ha;
+        add_taps(s, prev);
+        add_taps(s, cur);
+        op[(t - 1) * W + c] =
+            clip01(ssim_terms(s.x, s.y, s.xx, s.yy, s.xy).s);
       }
       ha = hb;
-      hb = moments3(xl, xt, xr, yl, yt, yr);
-      px[0] = xl;
-      px[1] = xt;
-      px[2] = xr;
-      py[0] = yl;
-      py[1] = yt;
-      py[2] = yr;
+      hb = row_sums(cur);
+      prev = cur;
     }
   }
 };
@@ -188,8 +220,7 @@ __global__ void __launch_bounds__(FW_NT, FW_MIN_BLOCKS) dssim_fwd_kernel(
   w.re = min(w.r1, H - 1);             // the last row loaded
   w.ha = Moments{};
   w.hb = Moments{};
-#pragma unroll
-  for (int j = 0; j < 3; ++j) w.px[j] = w.py[j] = 0.f;
+  w.prev = Taps{};
   // Two chunks in turn: the next one's loads are in flight while this one
   // is processed.
   FwdChunk a, b;

@@ -4,7 +4,8 @@ process.
 
 Builds the earlier checkout's ``kernels/csrc/dssim.cu`` beside the current
 one and beside variants of the current one (``-D`` switches: the map as an
-instantiation of the adjoint's strip walker, other chunk heights), all with
+instantiation of the adjoint's strip walker, other chunk heights and
+register budgets), all with
 ``kernels/build.py``'s flags for ``dssim.cu``, checks every build against
 the plain version bit for bit (and to chip_smoke's tolerance) on the
 stage-2 shape, the equal-windows tie and a ragged plane, and times each at
@@ -48,8 +49,11 @@ def versions(old_csrc: str) -> dict:
         "old": (old_csrc, []),
         "new": (new, []),
         "adjoint_walker": (new, ["-DDSSIM_FWD_ADJOINT_WALKER"]),
-        "chunk2": (new, ["-DDSSIM_FWD_CHUNK=2"]),
+        "blocks4": (new, ["-DDSSIM_FWD_MIN_BLOCKS=4"]),
+        "blocks2": (new, ["-DDSSIM_FWD_MIN_BLOCKS=2"]),
         "chunk8": (new, ["-DDSSIM_FWD_CHUNK=8"]),
+        "chunk8_blocks2": (new, ["-DDSSIM_FWD_CHUNK=8",
+                                 "-DDSSIM_FWD_MIN_BLOCKS=2"]),
     }
 
 
