@@ -72,11 +72,14 @@ constexpr int FW_CHUNK = DSSIM_FWD_CHUNK;  // forward rows loaded at once
 constexpr int FW_NW = 8;                // forward warps per block
 constexpr int FW_NT = 32 * FW_NW;
 #ifndef DSSIM_FWD_MIN_BLOCKS
-#define DSSIM_FWD_MIN_BLOCKS 3
+#define DSSIM_FWD_MIN_BLOCKS 4
 #endif
-// Blocks of 8 warps an SM: 3 leave 80 registers a thread.
+#ifndef DSSIM_FWD_MIN_WARPS
+#define DSSIM_FWD_MIN_WARPS 8192
+#endif
+// Blocks of 8 warps an SM: 4 leave 64 registers a thread.
 constexpr int FW_MIN_BLOCKS = DSSIM_FWD_MIN_BLOCKS;
-constexpr int FW_MIN_WARPS = 8192;      // the segment rule (fwd_grid)
+constexpr int FW_MIN_WARPS = DSSIM_FWD_MIN_WARPS;  // the segment rule
 constexpr int FW_MIN_ROWS = 4;          // the shortest segment
 constexpr int BW_ROWS = 32;             // backward rows a warp
 constexpr int BW_COLS = 28;             // backward columns a warp

@@ -49,11 +49,11 @@ def versions(old_csrc: str) -> dict:
         "old": (old_csrc, []),
         "new": (new, []),
         "adjoint_walker": (new, ["-DDSSIM_FWD_ADJOINT_WALKER"]),
-        "blocks4": (new, ["-DDSSIM_FWD_MIN_BLOCKS=4"]),
-        "blocks2": (new, ["-DDSSIM_FWD_MIN_BLOCKS=2"]),
-        "chunk8": (new, ["-DDSSIM_FWD_CHUNK=8"]),
-        "chunk8_blocks2": (new, ["-DDSSIM_FWD_CHUNK=8",
-                                 "-DDSSIM_FWD_MIN_BLOCKS=2"]),
+        "blocks3": (new, ["-DDSSIM_FWD_MIN_BLOCKS=3"]),
+        "blocks5": (new, ["-DDSSIM_FWD_MIN_BLOCKS=5"]),
+        "warps4096": (new, ["-DDSSIM_FWD_MIN_WARPS=4096"]),
+        "warps16384": (new, ["-DDSSIM_FWD_MIN_WARPS=16384"]),
+        "warps32768": (new, ["-DDSSIM_FWD_MIN_WARPS=32768"]),
     }
 
 
