@@ -28,6 +28,20 @@
 //     FW_MIN_WARPS warps; the 2 rows above and below a segment and the 2 halo
 //     columns a strip are loaded again (32/30 x (R + 2)/R loads an output,
 //     1.13 at 64x3x128x416, against 1.195 for the 16 x 32 tiles before).
+//     Each row's nine products are formed once and kept for the windows
+//     below it.
+//     Measured (H100 80GB HBM3 at 700 W, against the 16 x 32 shared-memory
+//     tiles before it in the same call): 0.101 -> 0.069 ms at 64x3x128x416,
+//     53% of the byte bound (a copy of as many bytes takes 0.046 ms);
+//     8x3x376x1248 0.111 -> 0.074. Bit-equal to the plain version. What
+//     holds it back is its instructions (~1670 SASS for a loop of eight
+//     rows: the six taps of a window added one by one in plain order, the
+//     five divisions by 9 and the SSIM ratio's IEEE division), at 64
+//     registers. Tried and slower: the map as an instantiation of the
+//     adjoint's walker below (0.079 ms: one row in flight, a 2-column halo,
+//     and its shuffles took their divergent form); chunks of 2 rows
+//     (0.141) or 8 (0.072); 3 or 5 blocks an SM (0.072, 0.086 with
+//     spills); shorter or longer segments (0.070-0.074).
 //   * Backward: one warp walks a strip of BW_COLS columns (a lane a column,
 //     plus a 2-column halo each side) down BW_ROWS rows: the five moments'
 //     row 3-sums from the lanes beside it by shuffle, each window's sums,
@@ -54,9 +68,10 @@
 // registers.
 //
 // Built without fused multiply-adds (the default flags): the backward is as
-// fast either way, and the forward then stays bit-equal to the plain
-// version. The one exact tie, equal windows, holds because the x and y
-// sides of every window term round alike (ssim.cuh).
+// fast either way. The forward forms every product and sum with __fmul_rn /
+// __fadd_rn, which no build contracts, so it is bit-equal to the plain
+// version under either flag. The one exact tie, equal windows, holds
+// because the x and y sides of every window term round alike (ssim.cuh).
 
 #include <cuda_runtime.h>
 
@@ -64,22 +79,12 @@
 
 namespace {
 
-#ifndef DSSIM_FWD_CHUNK
-#define DSSIM_FWD_CHUNK 4
-#endif
 constexpr int FW_COLS = 30;             // forward columns a warp
-constexpr int FW_CHUNK = DSSIM_FWD_CHUNK;  // forward rows loaded at once
+constexpr int FW_CHUNK = 4;             // forward rows loaded at once
 constexpr int FW_NW = 8;                // forward warps per block
 constexpr int FW_NT = 32 * FW_NW;
-#ifndef DSSIM_FWD_MIN_BLOCKS
-#define DSSIM_FWD_MIN_BLOCKS 4
-#endif
-#ifndef DSSIM_FWD_MIN_WARPS
-#define DSSIM_FWD_MIN_WARPS 8192
-#endif
-// Blocks of 8 warps an SM: 4 leave 64 registers a thread.
-constexpr int FW_MIN_BLOCKS = DSSIM_FWD_MIN_BLOCKS;
-constexpr int FW_MIN_WARPS = DSSIM_FWD_MIN_WARPS;  // the segment rule
+constexpr int FW_MIN_BLOCKS = 4;        // 4 blocks of 8 warps: 64 registers
+constexpr int FW_MIN_WARPS = 8192;      // the segment rule (fwd_grid)
 constexpr int FW_MIN_ROWS = 4;          // the shortest segment
 constexpr int BW_ROWS = 32;             // backward rows a warp
 constexpr int BW_COLS = 28;             // backward columns a warp
@@ -262,9 +267,7 @@ __device__ __forceinline__ Coef row_sum3(const Coef& v) {
 // from the last three rows of them, that window's adjoint coefficients and
 // their row 3-sums (valid on lanes 2 .. 29), and the output of row t - 2
 // from the last three rows of those.
-// MAP (a comparison variant, DSSIM_FWD_ADJOINT_WALKER): the same walk
-// writes the map of row t - 1 into dx and forms no coefficients.
-template <bool DX, bool DY, bool MAP = false>
+template <bool DX, bool DY>
 __global__ void __launch_bounds__(BW_NT, BW_MIN_BLOCKS) dssim_bwd_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
     const float* __restrict__ g, float* __restrict__ dx,
@@ -291,7 +294,7 @@ __global__ void __launch_bounds__(BW_NT, BW_MIN_BLOCKS) dssim_bwd_kernel(
     const size_t p = base + (size_t)t * W + c;
     xv = in ? __ldg(x + p) : 0.f;
     yv = in ? __ldg(y + p) : 0.f;
-    gv = in && !MAP ? __ldg(g + p) : 0.f;
+    gv = in ? __ldg(g + p) : 0.f;
   };
 
   Moments h0{}, h1{};                  // moments of rows t - 2, t - 1
@@ -301,12 +304,11 @@ __global__ void __launch_bounds__(BW_NT, BW_MIN_BLOCKS) dssim_bwd_kernel(
   float xb = 0.f, yb = 0.f;            // x, y at row t - 2
   float xn, yn, gn;
   load(r0 - 2, xn, yn, gn);
-  constexpr int trips = MAP ? BW_ROWS + 3 : BW_ROWS + 4;
 #pragma unroll 3
-  for (int i = 0; i < trips; ++i) {
+  for (int i = 0; i < BW_ROWS + 4; ++i) {
     const int t = r0 - 2 + i;               // the row of xt, yt, gt
     const float xt = xn, yt = yn, gt = gn;
-    if (i + 1 < trips) load(t + 1, xn, yn, gn);
+    if (i + 1 < BW_ROWS + 4) load(t + 1, xn, yn, gn);
     const float xl = left_of(xt), xr = right_of(xt);
     const float yl = left_of(yt), yr = right_of(yt);
     const Moments h2 = moments3(xl, xt, xr, yl, yt, yr);
@@ -345,8 +347,6 @@ __global__ void __launch_bounds__(BW_NT, BW_MIN_BLOCKS) dssim_bwd_kernel(
             s_xy = __fadd_rn(s_xy, __fmul_rn(a, b));
           }
         const Ssim m = ssim_terms(s_x, s_y, s_xx, s_yy, s_xy);
-        if (MAP && out_col && t - 1 >= r0 && t - 1 < r1)
-          dx[base + (size_t)(t - 1) * W + c] = clip01(m.s);
         // The pool's 1/9 rides the cotangent: the coefficients are linear
         // in it.
         const SsimAdjoint a =
@@ -356,7 +356,6 @@ __global__ void __launch_bounds__(BW_NT, BW_MIN_BLOCKS) dssim_bwd_kernel(
         v.b = a.b;
         v.c = a.c;
       }
-      if (!MAP) {
       const Coef q2 = row_sum3<DX, DY>(v);
       if (i >= 4 && out_col && t - 2 < r1) {
         const size_t p = base + (size_t)(t - 2) * W + c;
@@ -367,7 +366,6 @@ __global__ void __launch_bounds__(BW_NT, BW_MIN_BLOCKS) dssim_bwd_kernel(
       }
       q0 = q1;
       q1 = q2;
-      }
     }
     h0 = h1;
     h1 = h2;
@@ -415,17 +413,6 @@ FwdGrid fwd_grid(int N, int H, int W) {
 extern "C" int dssim_fwd_launch(const float* x, const float* y, float* out,
                                 int N, int H, int W, void* stream) {
   if (bad_shape(N, H, W)) return (int)cudaErrorInvalidValue;
-#ifdef DSSIM_FWD_ADJOINT_WALKER
-  {
-    const int nseg = (H + BW_ROWS - 1) / BW_ROWS;
-    const int nstrip = (W + BW_COLS - 1) / BW_COLS;
-    const long long nb = ((long long)N * nseg * nstrip + BW_NW - 1) / BW_NW;
-    dssim_bwd_kernel<false, false, true>
-        <<<(unsigned)nb, BW_NT, 0, (cudaStream_t)stream>>>(
-            x, y, nullptr, out, nullptr, N, H, W, nseg, nstrip);
-    return (int)cudaGetLastError();
-  }
-#endif
   const FwdGrid g = fwd_grid(N, H, W);
   if (g.nb > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   dssim_fwd_kernel<<<(unsigned)g.nb, FW_NT, 0, (cudaStream_t)stream>>>(

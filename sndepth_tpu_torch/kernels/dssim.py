@@ -20,11 +20,12 @@ are equal, so the tie rule shows in real gradients; the kernel applies the
 same 0.5 factor.
 
 What bounds it on the card: DRAM bytes. The forward moves 12 bytes a
-pixel and channel (x, y in, the map out) for ~60 flops, the backward 12 in
-and 4 or 8 out for ~150. One block computes a 16x32 tile of one plane from
-shared memory with recomputed halos (1 pixel forward, 2 pixels backward),
-so the five pools, the SSIM terms and the four adjoint coefficient planes
-never reach DRAM, where the plain version round-trips each of them.
+pixel and channel (x, y in, the map out) for ~100 operations, the backward
+12 in and 4 or 8 out for ~170. Warps walk strips of columns down segments
+of rows in registers, neighbours by shuffle, with recomputed halos (1
+pixel forward, 2 pixels backward), so the five pools, the SSIM terms and
+the four adjoint coefficient planes never reach DRAM, where the plain
+version round-trips each of them.
 
 Layout: x, y, g (B, C, H, W), float32, contiguous.
 """
