@@ -2,7 +2,8 @@
 
 The inverse of ``sndepth_tpu/utils/convert_weights.py``
 (:func:`convert_dispnet`, :func:`convert_flownet`,
-:func:`convert_posenet`, :func:`convert_raft3d`). Parameters come in as
+:func:`convert_posenet`, :func:`convert_raft3d`,
+:func:`convert_efficientnet`, :func:`convert_normal_decoder`). Parameters come in as
 nested dicts of numpy arrays. Conv kernels (kh, kw, in, out) become
 (out, in, kh, kw); ConvTranspose kernels become (in, out, kh, kw) by a
 plain transpose, because the JAX ``TorchConvTranspose2x`` flips its taps at
@@ -144,4 +145,85 @@ def raft3d_state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
     for head in heads:
         _conv(sd, f"update_block.{head}.0", ub[f"{head}_0"])
         _conv(sd, f"update_block.{head}.2", ub[f"{head}_1"])
+    return sd
+
+
+def _efficientnet(sd: dict, prefix: str, params: dict, stats: dict) -> None:
+    """EfficientNet encoder params -> timm's names under ``prefix``. A
+    block with ``Conv_2`` is an inverted residual (conv_pw, conv_dw,
+    conv_pwl), one without it a depthwise-separable block (conv_dw,
+    conv_pw); depthwise kernels (k, k, 1, C) take the plain transpose."""
+    _conv(sd, f"{prefix}conv_stem", params["Conv_0"])
+    _bn(sd, f"{prefix}bn1", params["BatchNorm_0"], stats["BatchNorm_0"])
+    blocks = sorted((k for k in params if k.startswith("stage")),
+                    key=lambda k: tuple(map(int, k[5:].split("_block"))))
+    for name in blocks:
+        si, ri = name[5:].split("_block")
+        t = f"{prefix}blocks.{si}.{ri}"
+        p, st = params[name], stats[name]
+        se = p["SqueezeExcite_0"]
+        _conv(sd, f"{t}.se.conv_reduce", se["Conv_0"])
+        _conv(sd, f"{t}.se.conv_expand", se["Conv_1"])
+        if "Conv_2" in p:
+            convs = ("conv_pw", "conv_dw", "conv_pwl")
+        else:
+            convs = ("conv_dw", "conv_pw")
+        for i, conv in enumerate(convs):
+            _conv(sd, f"{t}.{conv}", p[f"Conv_{i}"])
+            _bn(sd, f"{t}.bn{i + 1}", p[f"BatchNorm_{i}"],
+                st[f"BatchNorm_{i}"])
+    _conv(sd, f"{prefix}conv_head", params["Conv_1"])
+    _bn(sd, f"{prefix}bn2", params["BatchNorm_1"], stats["BatchNorm_1"])
+
+
+def _normal_decoder(sd: dict, prefix: str, params: dict,
+                    stats: dict | None) -> None:
+    """Normal decoder params (either architecture) -> the reference's
+    names under ``prefix``; a Dense (in, out) becomes a kernel-1 Conv1d
+    (out, in, 1)."""
+    _conv(sd, f"{prefix}conv2", params["Conv_0"])
+    for bi in range(4):
+        p = params[f"UpSampleBlock_{bi}"]
+        t = f"{prefix}up{bi + 1}._net"
+        for i, idx in enumerate((0, 3)):
+            if f"WSConv_{i}" in p:
+                _conv(sd, f"{t}.{idx}", p[f"WSConv_{i}"])
+                gn = p[f"GroupNorm_{i}"]
+                sd[f"{t}.{idx + 1}.weight"] = _b(gn["scale"])
+                sd[f"{t}.{idx + 1}.bias"] = _b(gn["bias"])
+            else:
+                _conv(sd, f"{t}.{idx}", p[f"Conv_{i}"])
+                _bn(sd, f"{t}.{idx + 1}", p[f"BatchNorm_{i}"],
+                    stats[f"UpSampleBlock_{bi}"][f"BatchNorm_{i}"])
+    _conv(sd, f"{prefix}out_conv_res8", params["Conv_1"])
+    for r in (4, 2, 1):
+        mlp = params[f"out_conv_res{r}"]
+        for j, idx in enumerate((0, 2, 4, 6)):
+            dense = mlp[f"Dense_{j}"]
+            sd[f"{prefix}out_conv_res{r}.{idx}.weight"] = _t(
+                dense["kernel"], (1, 0))[..., None]
+            sd[f"{prefix}out_conv_res{r}.{idx}.bias"] = _b(dense["bias"])
+
+
+# The refiner's convolution stacks, in the JAX module's names.
+_REFINER_STACKS = ("noise_enc1", "noise_enc2", "norm_fusion",
+                   "depth_fusion", "edge_encoder", "edge_weight")
+
+
+def nnet_state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
+    """JAX NNET variables (``params`` and ``batch_stats`` with ``encoder``,
+    ``decoder`` and ``refiner`` subtrees) -> :class:`NNET` state_dict.
+
+    The encoder's keys (under ``encoder.``) are timm's and the decoder's
+    (under ``decoder.``) the reference's, so that ``convert_efficientnet``
+    and ``convert_normal_decoder`` map them back unchanged; the refiner's
+    ``{stack}.Conv_i`` are ``refiner.{stack}.{2 i}``."""
+    sd: dict = {}
+    _efficientnet(sd, "encoder.", params["encoder"], batch_stats["encoder"])
+    _normal_decoder(sd, "decoder.", params["decoder"],
+                    batch_stats.get("decoder"))
+    for stack in _REFINER_STACKS:
+        p = params["refiner"][stack]
+        for i in range(len(p)):
+            _conv(sd, f"refiner.{stack}.{2 * i}", p[f"Conv_{i}"])
     return sd
