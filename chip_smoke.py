@@ -6,8 +6,9 @@ PoseNet and, in stage 2, FlowNet at the reference channel counts, 128x416,
 3-frame snippets, 4 scales), RAFT3D scene-flow inference at full width
 (hidden 128, 4 correlation levels, ResNet-50 FPN context net, 16 iterations,
 at 128x416 and 376x1248) and RAFT3D training at full width (256x832, B = 2,
-12 iterations, bf16 encoders) through the kernels written for Hopper, and
-fails unless every phase passes:
+12 iterations, bf16 encoders), the NNET normal stack at full width and the
+fused GeoNet -> NNET -> RAFT3D prediction through the kernels written for
+Hopper, and fails unless every phase passes:
 
   env        card name and power limit (nvidia-smi), torch and CUDA versions
   build      one nvcc per CUDA source, all started together
@@ -82,6 +83,14 @@ fails unless every phase passes:
              card-resident batches at 256x832, B = 2 and 376x1248, B = 1;
              the written ``raft3d.pth`` served for one frame by the
              submission writer
+  nnet       the NNET serving stage at full width (EfficientNet-B5, the GN
+             decoder, the refiner) at 128x416: float32 card against CPU from
+             the same seeded weights (D2N's output handed across, D2N held
+             apart on the same inputs), bf16 on the card finite with unit
+             normals; frame times and peak memory
+  predict_raft3d  the fused GeoNet -> NNET -> RAFT3D CLI on two synthetic
+             batches: its files read back, 16 launches of K8 and of K5 a
+             frame, frame times
 
 Each phase prints one JSON line; the full report goes to
 ``chiprun_out/chip_smoke_report.json``. The last lines are the kernels
@@ -2245,6 +2254,215 @@ def phase_train_flow() -> dict:
     return launches
 
 
+NNET_HW = (128, 416)            # the fused pipeline's frame
+# Card against CPU, float32 (TF32 off), from the same seeded weights:
+# relative difference by norm of the normals, the depth and the decoder's
+# maps, the test's whole-net tolerance (tests/test_torch_nnet.py). D2N's
+# closed-form solve follows the last bits of its normal equations (a 33 x 33
+# window of points along nearly parallel rays: condition numbers of 1e4 and
+# more, singular where few taps agree), so the card takes the CPU's D2N
+# output, as the test takes JAX's; D2N is held apart on the CPU's inputs:
+# its agreement, point patches and normal equations within NNET_D2N_TOL by
+# norm, and the solve of the CPU's equations bit for bit (elementwise
+# operations only); how far the two float32 normals part end to end, and
+# on how many pixels a float64 solve agrees with both to 1e-2, is recorded.
+NNET_TOL = 1e-4
+NNET_D2N_TOL = 1e-5
+
+
+def _rel(got, want) -> float:
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).norm() / max(float(want.norm()), 1e-30))
+
+
+def _nnet_weights(seed: int) -> dict:
+    """The full-width NNET's weights from ``seed``, its normal heads biased
+    toward the camera (+3 in z), as a trained decoder's normals face it
+    (tests/test_torch_nnet.py does the same)."""
+    import torch
+    from sndepth_tpu_torch.models import nnet as nnet_lib
+    model = nnet_lib.NNET()
+    nnet_lib.init_weights(model, torch.Generator().manual_seed(seed))
+    dec = model.decoder
+    with torch.no_grad():
+        for head in (dec.out_conv_res8, dec.out_conv_res4[6],
+                     dec.out_conv_res2[6], dec.out_conv_res1[6]):
+            head.bias[2] += 3.0
+    return model.state_dict()
+
+
+def _nnet_inputs(h: int, w: int, seed: int):
+    """A smooth log2-depth (B, H, W) and a random image (B, 3, H, W)."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32),
+                            indexing="ij")
+    pre = (1.5 + 0.5 * torch.sin(xx / 37.0) * torch.cos(yy / 23.0))[None]
+    return pre, torch.rand(1, 3, h, w, generator=gen)
+
+
+def _d2n_determined(angle, patches, n_a, n_b) -> "torch.Tensor":
+    """Pixels where a float64 solve of the system (agreement ``angle``,
+    point ``patches``) lies within 1e-2 of both float32 normals."""
+    import torch
+    from sndepth_tpu_torch.models import nnet as nnet_lib
+    a = torch.where((angle > nnet_lib.THRESH)[:, :, :, None, :], patches,
+                    torch.zeros_like(patches)).double().cpu()
+    ata = torch.einsum("bhwit,bhwjt->bhwij", a, a)
+    atb = a.sum(-1)
+    ok = torch.linalg.det(ata) > 1e-5
+    eye = torch.eye(3, dtype=torch.float64)
+    x = torch.linalg.solve(torch.where(ok[..., None, None], ata, eye),
+                           atb[..., None])[..., 0]
+    x = torch.where(ok[..., None], x, atb)
+    n64 = x / (x.norm(dim=-1, keepdim=True) + 1e-12) * 10
+    return (((n_a.double().cpu() - n64).abs().amax(-1) <= 1e-2)
+            & ((n_b.double().cpu() - n64).abs().amax(-1) <= 1e-2))
+
+
+def _unit_normals_off(normals) -> float:
+    """The largest distance of a normal's length from 1, over the normals
+    that are not exactly zero; a zero normal may only lie on the border
+    (the last propagation pulls the zero border in at full weight)."""
+    import torch
+    norms = normals.float().norm(dim=-1).cpu()
+    zero = norms == 0
+    if zero[:, 1:-1, 1:-1].any():
+        raise AssertionError("a zero normal inside the image")
+    return float((norms[~zero] - 1).abs().max())
+
+
+def phase_nnet(smi: str) -> dict:
+    """The NNET serving stage at full width (EfficientNet-B5, the GN
+    decoder, the refiner) at 128x416, B = 1: float32 on the card against
+    the CPU from the same seeded weights, the card's D2N against the CPU's
+    on the same inputs, then bf16 (the stage's default) on the card: finite,
+    unit normals; frame times (CUDA events behind a spin, median of 10) and
+    peak memory for both types."""
+    import torch
+    from sndepth_tpu_torch.models import nnet as nnet_lib
+    from sndepth_tpu_torch.pipelines import NNETStage
+    h, w = NNET_HW
+    sd = _nnet_weights(7)
+    pre, rgb = _nnet_inputs(h, w, seed=8)
+    real_d2n = nnet_lib.d2n_least_squares
+    seen: dict = {}
+
+    def cpu_d2n(n, p):
+        out = real_d2n(n, p)
+        seen["cpu"] = (n, p, out)
+        return out
+
+    def card_d2n(n, p):
+        seen["card_in"] = (n, p)
+        return tuple(t.to(n.device) for t in seen["cpu"][2])
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu = NNETStage(sd, dtype=torch.float32, device="cpu")
+        card = NNETStage(sd, dtype=torch.float32, device=DEV)
+        nnet_lib.d2n_least_squares = cpu_d2n
+        want = cpu(pre, rgb)
+        nnet_lib.d2n_least_squares = card_d2n
+        got = card(pre, rgb)
+        torch.cuda.synchronize()
+    finally:
+        nnet_lib.d2n_least_squares = real_d2n
+        torch.backends.cudnn.allow_tf32 = tf32
+    n_cpu, p_cpu, d2n_cpu = seen["cpu"]
+    f32 = {"normals_rel": _rel(got["normals"], want["normals"]),
+           "depth_rel": _rel(got["depth"], want["depth"]),
+           "d2n_normals_in_rel": _rel(seen["card_in"][0], n_cpu),
+           "d2n_points_in_rel": _rel(seen["card_in"][1], p_cpu)}
+    with torch.no_grad():
+        d2n_card = real_d2n(n_cpu.to(DEV), p_cpu.to(DEV))
+        sys_cpu = nnet_lib.normal_equations(n_cpu, p_cpu)
+        sys_card = nnet_lib.normal_equations(n_cpu.to(DEV), p_cpu.to(DEV))
+        solved = nnet_lib._solve3x3(sys_cpu[0].to(DEV), sys_cpu[1].to(DEV))
+        torch.cuda.synchronize()
+    determined = _d2n_determined(d2n_cpu[1], d2n_cpu[2], d2n_cpu[0],
+                                 d2n_card[0])
+    d2n = {"angle_rel": _rel(d2n_card[1], d2n_cpu[1]),
+           "patches_rel": _rel(d2n_card[2], d2n_cpu[2]),
+           "ata_rel": _rel(sys_card[0], sys_cpu[0]),
+           "atb_rel": _rel(sys_card[1], sys_cpu[1]),
+           "solve_bit_equal": bool(torch.equal(
+               solved.cpu(), nnet_lib._solve3x3(sys_cpu[0], sys_cpu[1]))),
+           "normals_rel": _rel(d2n_card[0], d2n_cpu[0]),
+           "determined_share": float(determined.float().mean()),
+           "normals_rel_determined": _rel(d2n_card[0].cpu()[determined],
+                                          d2n_cpu[0][determined])}
+    _assert_finite("nnet f32", got["normals"], got["depth"], *d2n_card)
+    f32["unit_off"] = max(_unit_normals_off(got["normals"]),
+                          _unit_normals_off(want["normals"]))
+    for key in ("normals_rel", "depth_rel", "d2n_normals_in_rel",
+                "d2n_points_in_rel", "unit_off"):
+        if not f32[key] <= NNET_TOL:
+            raise AssertionError(f"nnet f32, card against CPU: {key} "
+                                 f"{f32[key]} > {NNET_TOL}")
+    for key in ("angle_rel", "patches_rel", "ata_rel", "atb_rel"):
+        if not d2n[key] <= NNET_D2N_TOL:
+            raise AssertionError(f"nnet D2N: {key} {d2n[key]}")
+    if not d2n["solve_bit_equal"]:
+        raise AssertionError("nnet D2N: the solve of the same system differs")
+
+    times = {}
+    pre_g, rgb_g = pre.to(DEV), rgb.to(DEV)
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        stage = card if dtype == torch.float32 else NNETStage(
+            sd, dtype=dtype, device=DEV)
+        out = stage(pre_g, rgb_g)
+        torch.cuda.synchronize()
+        _assert_finite(f"nnet {name}", out["normals"], out["depth"])
+        torch.cuda.reset_peak_memory_stats()
+        frame_ms = time_ms(lambda: stage(pre_g, rgb_g), 10)
+        times[name] = {"frame_ms": frame_ms,
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "unit_off": _unit_normals_off(out["normals"])}
+        if not times[name]["unit_off"] <= 1e-3:
+            raise AssertionError(f"nnet {name}: normals not unit: "
+                                 f"{times[name]['unit_off']}")
+        del stage
+    emit("nnet", hw=[h, w], batch=1, nvidia_smi=smi, torch=torch.__version__,
+         f32_card_vs_cpu=f32, d2n_card_vs_cpu=d2n, tolerance=NNET_TOL,
+         frames=times)
+    return times
+
+
+def phase_predict_raft3d(smi: str) -> dict:
+    """The fused prediction CLI on the card: GeoNet -> NNET -> RAFT3D over
+    two synthetic batches at 128x416; the files it writes read back; 16
+    launches of K8 and of K5 a frame and none of any other kernel."""
+    import numpy as np
+    from PIL import Image
+    from sndepth_tpu_torch.cli import predict_raft3d
+    frames = 2
+    out_dir = os.path.join(WORK_DIR, "predict_raft3d")
+    reset_launches()
+    recs = predict_raft3d.main(["--synthetic", "--max_batches", str(frames),
+                                "--out_dir", out_dir, "--device", DEV])
+    launches = _used(read_launches())
+    want = {k: v * frames for k, v in RAFT_FRAME_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"predict_raft3d: launches {launches}, want "
+                             f"{want}")
+    h, w = NNET_HW
+    files = {}
+    for i, rec in enumerate(recs):
+        for name, path in rec["paths"].items():
+            img = np.asarray(Image.open(path))
+            if img.shape[:2] != (h, w) or img.dtype != np.uint8:
+                raise AssertionError(f"{path}: {img.shape} {img.dtype}")
+            files[os.path.basename(path)] = {"shape": list(img.shape),
+                                             "std": float(img.std())}
+    emit("predict_raft3d", hw=[h, w], frames=frames, nvidia_smi=smi,
+         ms_per_frame=[rec["ms"] for rec in recs], launches=launches,
+         files=files)
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "sndepth_tpu_torch")):
         print("chip_smoke: sndepth_tpu_torch is not beside this script",
@@ -2279,6 +2497,8 @@ def main() -> int:
     launches["gn_build"] = raft_launches["gn_build"]
     raft_train_launches = phase_raft3d_train()
     launches["gn_build_bwd"] = raft_train_launches["gn_build_bwd"]
+    phase_nnet(smi)
+    predict_launches = phase_predict_raft3d(smi)
 
     csrc = "sndepth_tpu_torch/kernels/csrc/"
     where = {
@@ -2320,10 +2540,12 @@ def main() -> int:
         if k["name"] in sampler_times:
             k["raft3d_launches"] = raft_launches.get(k["name"], 0)
             k["raft3d_zero_pad_c1"] = sampler_times[k["name"]]
-    # K8 and K5 also run on the training path: their launches there.
+    # K8 and K5 also run on the training path and in the fused prediction
+    # CLI: their launches there.
     for k in kernels:
         if k["name"] in ("gn_build", "warp_gather"):
             k["raft3d_train_launches"] = raft_train_launches[k["name"]]
+            k["predict_raft3d_launches"] = predict_launches[k["name"]]
         if k["name"] == "gn_build":
             k["err_over_tolerance"] = errs["gn_build_err_over_tol"]
         if k["name"] == "gn_build_bwd":

@@ -42,6 +42,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log_every", default=100, type=int)
     p.add_argument("--data_workers", default=8, type=int)
     p.add_argument("--resume", action="store_true")
+    p.add_argument("--profile_at", default=0, type=int,
+                   help="trace this step with torch.profiler (0 = off): "
+                        "a Chrome trace in <graphs_dir>/trace and the "
+                        "kernel time by group on stdout")
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--device", default="cuda",
@@ -101,7 +105,8 @@ def main(argv=None):
     return train_geonet(config, batches, max_steps, device=args.device,
                         ckpt_dir=args.ckpt_dir, log_dir=args.graphs_dir,
                         log_every=args.log_every,
-                        ckpt_every=args.output_ckpt_iter, resume=args.resume)
+                        ckpt_every=args.output_ckpt_iter, resume=args.resume,
+                        profile_at=args.profile_at or None)
 
 
 if __name__ == "__main__":

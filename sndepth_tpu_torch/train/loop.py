@@ -58,13 +58,53 @@ def restore_checkpoint(state: geonet.TrainState, path: str) -> None:
     state.notfinite_count = int(ckpt["notfinite_count"])
 
 
+def profiled_step(step, trace_dir: str, label: str, device):
+    """Run ``step()`` under ``torch.profiler`` (the card's kernels too on a
+    CUDA device), write the Chrome trace to ``trace_dir/<label>.json`` and
+    print the device time by kernel group as ``cli/profile_step.py`` counts
+    it; returns what ``step()`` returned."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from sndepth_tpu_torch.cli.profile_step import group_of
+    cuda = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        out = step()
+        if cuda:
+            torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"{label}.json")
+    prof.export_chrome_trace(path)
+    by_group: dict[str, float] = {}
+    for evt in prof.events():
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or "#" in evt.name or evt.name.startswith("ProfilerStep")):
+            continue
+        us = getattr(evt, "device_time", None)
+        us = evt.cuda_time if us is None else us
+        by_group[group_of(evt.name)] = (by_group.get(group_of(evt.name), 0.0)
+                                        + us * 1e-3)
+    print(json.dumps({"trace": path, "wall_ms": wall_ms,
+                      "kernel_ms": sum(by_group.values()),
+                      "ms_by_group": by_group}), flush=True)
+    return out
+
+
 def train_geonet(config: GeoNetConfig, batches: Iterator[dict],
                  max_steps: int, *, device, ckpt_dir: str | None = None,
                  log_dir: str | None = None, log_every: int = 100,
-                 ckpt_every: int = 5000, resume: bool = False
+                 ckpt_every: int = 5000, resume: bool = False,
+                 profile_at: int | None = None
                  ) -> tuple[geonet.TrainState, list[dict]]:
     """Run train steps up to ``max_steps`` over numpy ``batches`` on
-    ``device``; returns the final state and the logged metric records."""
+    ``device``; returns the final state and the logged metric records.
+    ``profile_at`` traces that step (:func:`profiled_step`) into
+    ``<log_dir>/trace``."""
     device = torch.device(device)
     state = geonet.create_train_state(config, device)
     if resume and ckpt_dir is not None:
@@ -83,8 +123,14 @@ def train_geonet(config: GeoNetConfig, batches: Iterator[dict],
         except StopIteration:
             print("data stream exhausted")
             break
-        metrics = geonet.train_step(state, batch, config)
         step = i + 1
+        if step == profile_at:
+            metrics = profiled_step(
+                lambda: geonet.train_step(state, batch, config),
+                os.path.join(log_dir or "logs", "trace"), f"step_{step}",
+                device)
+        else:
+            metrics = geonet.train_step(state, batch, config)
         if step % log_every == 0 or step == max_steps:
             logger.log(step, metrics)
         if ckpt_dir is not None and (step % ckpt_every == 0

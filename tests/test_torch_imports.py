@@ -38,8 +38,9 @@ def _modules():
 
 def test_every_module_imports_with_jax_unavailable():
     """Every module imports, and a stage-2 step, a RAFT3D frame, a RAFT3D
-    train step and the CLIs run (so the imports inside functions run too),
-    with JAX and the JAX package blocked."""
+    train step, the GeoNet -> NNET -> RAFT3D prediction and the CLIs run
+    (so the imports inside functions run too), with JAX and the JAX package
+    blocked."""
     names = _modules()
     for name in ("cli.train_geonet", "cli.benchmark", "cli.kitti_submission",
                  "cli.profile_step", "data.kitti_sequence",
@@ -47,7 +48,11 @@ def test_every_module_imports_with_jax_unavailable():
                  "models.raft3d", "models.grid_smoother", "ops.se3",
                  "ops.projective", "ops.resize", "ops.patches", "pipelines",
                  "cli.train_raft3d", "train.raft3d", "data.raft3d_augment",
-                 "data.raft3d_datasets"):
+                 "data.raft3d_datasets", "utils.metrics", "ops.norm",
+                 "ops.edges", "models.efficientnet", "models.normal_decoder",
+                 "models.nnet", "data.nyu", "utils.visualize",
+                 "cli.evaluate_depth", "cli.evaluate_normals",
+                 "cli.predict_raft3d"):
         assert f"sndepth_tpu_torch.{name}" in names, name
     code = ("import sys, tempfile\n"
             "import torch\n"
@@ -95,6 +100,12 @@ def test_every_module_imports_with_jax_unavailable():
             "    assert state.step == 1 and len(records) == 1\n"
             "    assert records[0]['loss'] == records[0]['loss']\n"
             "    assert os.path.exists(d + '/ckpt/raft3d.pth')\n"
+            "from sndepth_tpu_torch.cli import predict_raft3d\n"
+            "with tempfile.TemporaryDirectory() as d:\n"
+            "    out = predict_raft3d.main(\n"
+            "        ['--synthetic', '--iters', '1', '--img_height', '64',\n"
+            "         '--img_width', '64', '--out_dir', d, '--device', 'cpu'])\n"
+            "    assert all(os.path.exists(p) for p in out[0]['paths'].values())\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             f"       {BLOCKED!r}\n"
             "       and sys.modules[m] is not None]\n"
