@@ -153,49 +153,54 @@ __device__ __forceinline__ void add_taps(Moments& s, const Taps& r) {
 // lanes 1 .. 30 own the strip's columns. At image row t it forms the row's
 // taps (left and right values by shuffle), the window centred on row t - 1
 // from the top row's 3-sums (row t - 2) and the taps of rows t - 1 and t,
-// and that row's output; then row t's 3-sums. Offsets are within a plane
-// (H W < 2^31).
+// and that row's output; then row t's 3-sums. The loads and the stores walk
+// row pointers down the lane's column (a lane outside the image keeps a
+// pointer it never dereferences), and a row's bounds are one unsigned
+// comparison.
 struct FwdWalker {
-  const float* xp;
-  const float* yp;
-  float* op;
-  int W, c, r0, r1, re;
+  const float* xr;          // x, y at the next row to load
+  const float* yr;
+  float* orow;              // the output at row t - 1
+  int W, rload, rt;         // the next row to load; the row t processed next
+  unsigned re, rows;        // the last row loaded; rows of the segment
+  int r0;
   bool col_in, own;
   Moments ha, hb;           // 3-sums of rows t - 2, t - 1
   Taps prev;                // taps of row t - 1
 
-  __device__ __forceinline__ void load(int base, FwdChunk& ch) const {
+  __device__ __forceinline__ void load(FwdChunk& ch) {
 #pragma unroll
     for (int i = 0; i < FW_CHUNK; ++i) {
-      const int r = base + i;
-      const bool in = col_in && r >= 0 && r <= re;
-      const int p = r * W + c;
-      ch.x[i] = in ? __ldg(xp + p) : 0.f;
-      ch.y[i] = in ? __ldg(yp + p) : 0.f;
+      const bool in = col_in && (unsigned)rload <= re;
+      ch.x[i] = in ? __ldg(xr) : 0.f;
+      ch.y[i] = in ? __ldg(yr) : 0.f;
+      xr += W;
+      yr += W;
+      ++rload;
     }
   }
 
-  // Rows base .. base + FW_CHUNK - 1 in order. Every lane runs every row
-  // and every shuffle; a row outside the segment only writes nothing.
-  __device__ __forceinline__ void process(int base, const FwdChunk& ch) {
+  // FW_CHUNK rows in order. Every lane runs every row and every shuffle; a
+  // row outside the segment only writes nothing.
+  __device__ __forceinline__ void process(const FwdChunk& ch) {
 #pragma unroll
     for (int i = 0; i < FW_CHUNK; ++i) {
-      const int t = base + i;
       const float xt = ch.x[i], yt = ch.y[i];
       const Taps cur = row_taps(left_of(xt), xt, right_of(xt), left_of(yt),
                                 yt, right_of(yt));
-      if (own && t - 1 >= r0 && t - 1 < r1) {
+      if (own && (unsigned)(rt - 1 - r0) < rows) {
         // avg_pool2d's order: the nine taps row by row, the first row's
         // three being ha.
         Moments s = ha;
         add_taps(s, prev);
         add_taps(s, cur);
-        op[(t - 1) * W + c] =
-            clip01(ssim_terms(s.x, s.y, s.xx, s.yy, s.xy).s);
+        *orow = clip01(ssim_terms(s.x, s.y, s.xx, s.yy, s.xy).s);
       }
       ha = hb;
       hb = row_sums(cur);
       prev = cur;
+      orow += W;
+      ++rt;
     }
   }
 };
@@ -213,33 +218,36 @@ __global__ void __launch_bounds__(FW_NT, FW_MIN_BLOCKS) dssim_fwd_kernel(
   const bool active = item < (long long)N * nseg * nstrip;
   const int strip = (int)(item % nstrip);
   const int seg = (int)((item / nstrip) % nseg);
-  const size_t base =
-      active ? (size_t)(item / ((long long)nstrip * nseg)) * H * W : 0;
+  const long long plane =
+      active ? (item / ((long long)nstrip * nseg)) * H * W : 0;
+  const int c = strip * FW_COLS - 1 + lane;
+  const int r0 = seg * rows, r1 = min(r0 + rows, H);
+  const int top = r0 - 1;
+  const long long start = plane + (long long)top * W + c;
   FwdWalker w;
-  w.xp = x + base;
-  w.yp = y + base;
-  w.op = out + base;
+  w.xr = x + start;
+  w.yr = y + start;
+  w.orow = out + start - W;
   w.W = W;
-  w.c = strip * FW_COLS - 1 + lane;
-  w.col_in = active && w.c >= 0 && w.c < W;
+  w.rload = w.rt = top;
+  w.re = (unsigned)min(r1, H - 1);
+  w.rows = (unsigned)(r1 - r0);
+  w.r0 = r0;
+  w.col_in = active && c >= 0 && c < W;
   w.own = lane >= 1 && lane <= FW_COLS && w.col_in;
-  w.r0 = seg * rows;
-  w.r1 = min(w.r0 + rows, H);
-  w.re = min(w.r1, H - 1);             // the last row loaded
   w.ha = Moments{};
   w.hb = Moments{};
   w.prev = Taps{};
   // Two chunks in turn: the next one's loads are in flight while this one
   // is processed.
   FwdChunk a, b;
-  const int top = w.r0 - 1;
-  w.load(top, a);
+  w.load(a);
   for (int j = 0; j < nchunk; j += 2) {
-    if (j + 1 < nchunk) w.load(top + (j + 1) * FW_CHUNK, b);
-    w.process(top + j * FW_CHUNK, a);
+    if (j + 1 < nchunk) w.load(b);
+    w.process(a);
     if (j + 1 >= nchunk) break;
-    if (j + 2 < nchunk) w.load(top + (j + 2) * FW_CHUNK, a);
-    w.process(top + (j + 1) * FW_CHUNK, b);
+    if (j + 2 < nchunk) w.load(a);
+    w.process(b);
   }
 }
 
