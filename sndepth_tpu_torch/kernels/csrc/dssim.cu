@@ -83,7 +83,10 @@ constexpr int FW_COLS = 30;             // forward columns a warp
 constexpr int FW_CHUNK = 4;             // forward rows loaded at once
 constexpr int FW_NW = 8;                // forward warps per block
 constexpr int FW_NT = 32 * FW_NW;
-constexpr int FW_MIN_BLOCKS = 4;        // 4 blocks of 8 warps: 64 registers
+#ifndef DSSIM_FWD_MIN_BLOCKS
+#define DSSIM_FWD_MIN_BLOCKS 4
+#endif
+constexpr int FW_MIN_BLOCKS = DSSIM_FWD_MIN_BLOCKS;  // 4 blocks of 8 warps: 64 registers
 constexpr int FW_MIN_WARPS = 8192;      // the segment rule (fwd_grid)
 constexpr int FW_MIN_ROWS = 4;          // the shortest segment
 constexpr int BW_ROWS = 32;             // backward rows a warp
@@ -188,6 +191,18 @@ struct FwdWalker {
       const float xt = ch.x[i], yt = ch.y[i];
       const Taps cur = row_taps(left_of(xt), xt, right_of(xt), left_of(yt),
                                 yt, right_of(yt));
+#ifdef DSSIM_FWD_STORE_ONLY
+      {
+        Moments s = ha;
+        add_taps(s, prev);
+        add_taps(s, cur);
+        const float v = clip01(ssim_terms(s.x, s.y, s.xx, s.yy, s.xy).s);
+        asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %2, 0;\n\t"
+                     "@p st.global.f32 [%0], %1;\n\t}"
+                     :: "l"(orow), "f"(v),
+                        "r"((int)(own && (unsigned)(rt - 1 - r0) < rows)));
+      }
+#else
       if (own && (unsigned)(rt - 1 - r0) < rows) {
         // avg_pool2d's order: the nine taps row by row, the first row's
         // three being ha.
@@ -196,6 +211,7 @@ struct FwdWalker {
         add_taps(s, cur);
         *orow = clip01(ssim_terms(s.x, s.y, s.xx, s.yy, s.xy).s);
       }
+#endif
       ha = hb;
       hb = row_sums(cur);
       prev = cur;

@@ -42,7 +42,9 @@ FLAGS = build.nvcc_flags("dssim.cu")
 
 def versions(old_csrc: str, prev_csrc: str | None) -> dict:
     """name -> (csrc directory, extra flags)."""
-    table = {"old": (old_csrc, []), "new": (build.CSRC, [])}
+    table = {"old": (old_csrc, []), "new": (build.CSRC, []),
+             "store_only": (build.CSRC, ["-DDSSIM_FWD_STORE_ONLY"]),
+             "blocks3": (build.CSRC, ["-DDSSIM_FWD_MIN_BLOCKS=3"])}
     if prev_csrc:
         table["prev"] = (prev_csrc, [])
     return table
