@@ -31,17 +31,20 @@
 //     Each row's nine products are formed once and kept for the windows
 //     below it.
 //     Measured (H100 80GB HBM3 at 700 W, against the 16 x 32 shared-memory
-//     tiles before it in the same call): 0.101 -> 0.069 ms at 64x3x128x416,
-//     53% of the byte bound (a copy of as many bytes takes 0.046 ms);
-//     8x3x376x1248 0.111 -> 0.074. Bit-equal to the plain version. What
-//     holds it back is its instructions (~1670 SASS for a loop of eight
+//     tiles before it in the same call): 0.101 -> 0.066 ms at 64x3x128x416,
+//     55% of the byte bound (a copy of as many bytes takes 0.046 ms);
+//     8x3x376x1248 0.111 -> 0.070. Bit-equal to the plain version. What
+//     holds it back is its instructions (~1620 SASS for a loop of eight
 //     rows: the six taps of a window added one by one in plain order, the
-//     five divisions by 9 and the SSIM ratio's IEEE division), at 64
-//     registers. Tried and slower: the map as an instantiation of the
-//     adjoint's walker below (0.079 ms: one row in flight, a 2-column halo,
-//     and its shuffles took their divergent form); chunks of 2 rows
-//     (0.141) or 8 (0.072); 3 or 5 blocks an SM (0.072, 0.086 with
-//     spills); shorter or longer segments (0.070-0.074).
+//     five divisions by 9 and the SSIM ratio's IEEE division, each with its
+//     slow-path branch), at 64 registers. Walking row pointers instead of
+//     forming each address from the row took 3% off. Tried and slower: the
+//     map as an instantiation of the adjoint's walker below (0.079 ms: one
+//     row in flight, a 2-column halo, and its shuffles took their divergent
+//     form); chunks of 2 rows (0.141) or 8 (0.072); 3 or 5 blocks an SM
+//     (0.067, 0.086 with spills); shorter or longer segments (0.070-0.074);
+//     the window formed on every lane with only the store predicated
+//     (0.0665).
 //   * Backward: one warp walks a strip of BW_COLS columns (a lane a column,
 //     plus a 2-column halo each side) down BW_ROWS rows: the five moments'
 //     row 3-sums from the lanes beside it by shuffle, each window's sums,
@@ -83,10 +86,7 @@ constexpr int FW_COLS = 30;             // forward columns a warp
 constexpr int FW_CHUNK = 4;             // forward rows loaded at once
 constexpr int FW_NW = 8;                // forward warps per block
 constexpr int FW_NT = 32 * FW_NW;
-#ifndef DSSIM_FWD_MIN_BLOCKS
-#define DSSIM_FWD_MIN_BLOCKS 4
-#endif
-constexpr int FW_MIN_BLOCKS = DSSIM_FWD_MIN_BLOCKS;  // 4 blocks of 8 warps: 64 registers
+constexpr int FW_MIN_BLOCKS = 4;        // 4 blocks of 8 warps: 64 registers
 constexpr int FW_MIN_WARPS = 8192;      // the segment rule (fwd_grid)
 constexpr int FW_MIN_ROWS = 4;          // the shortest segment
 constexpr int BW_ROWS = 32;             // backward rows a warp
@@ -191,18 +191,6 @@ struct FwdWalker {
       const float xt = ch.x[i], yt = ch.y[i];
       const Taps cur = row_taps(left_of(xt), xt, right_of(xt), left_of(yt),
                                 yt, right_of(yt));
-#ifdef DSSIM_FWD_STORE_ONLY
-      {
-        Moments s = ha;
-        add_taps(s, prev);
-        add_taps(s, cur);
-        const float v = clip01(ssim_terms(s.x, s.y, s.xx, s.yy, s.xy).s);
-        asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %2, 0;\n\t"
-                     "@p st.global.f32 [%0], %1;\n\t}"
-                     :: "l"(orow), "f"(v),
-                        "r"((int)(own && (unsigned)(rt - 1 - r0) < rows)));
-      }
-#else
       if (own && (unsigned)(rt - 1 - r0) < rows) {
         // avg_pool2d's order: the nine taps row by row, the first row's
         // three being ha.
@@ -211,7 +199,6 @@ struct FwdWalker {
         add_taps(s, cur);
         *orow = clip01(ssim_terms(s.x, s.y, s.xx, s.yy, s.xy).s);
       }
-#endif
       ha = hb;
       hb = row_sums(cur);
       prev = cur;
