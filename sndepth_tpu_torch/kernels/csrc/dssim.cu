@@ -28,8 +28,8 @@
 //     FW_MIN_WARPS warps; the 2 rows above and below a segment and the 2 halo
 //     columns a strip are loaded again (32/30 x (R + 2)/R loads an output,
 //     1.13 at 64x3x128x416, against 1.195 for the 16 x 32 tiles before).
-//     Each row's nine products are formed once and kept for the windows
-//     below it.
+//     Each row's nine products are formed once in the source; where
+//     registers are short the compiler forms some again inside a window.
 //     Measured (H100 80GB HBM3 at 700 W, against the 16 x 32 shared-memory
 //     tiles before it in the same call): 0.101 -> 0.066 ms at 64x3x128x416,
 //     55% of the byte bound (a copy of as many bytes takes 0.046 ms);
@@ -37,14 +37,14 @@
 //     holds it back is its instructions (~1620 SASS for a loop of eight
 //     rows: the six taps of a window added one by one in plain order, the
 //     five divisions by 9 and the SSIM ratio's IEEE division, each with its
-//     slow-path branch), at 64 registers. Walking row pointers instead of
-//     forming each address from the row took 3% off. Tried and slower: the
-//     map as an instantiation of the adjoint's walker below (0.079 ms: one
-//     row in flight, a 2-column halo, and its shuffles took their divergent
-//     form); chunks of 2 rows (0.141) or 8 (0.072); 3 or 5 blocks an SM
-//     (0.067, 0.086 with spills); shorter or longer segments (0.070-0.074);
-//     the window formed on every lane with only the store predicated
-//     (0.0665).
+//     slow-path branch), at 64 registers (12 bytes of spill). Walking row
+//     pointers instead of forming each address from the row took 3% off.
+//     Tried and slower: the map as an instantiation of the adjoint's walker
+//     below (0.079 ms: one row in flight, a 2-column halo, and its shuffles
+//     took their divergent form); chunks of 2 rows (0.141) or 8 (0.072); 3
+//     or 5 blocks an SM (0.067, 0.086 with spills); shorter or longer
+//     segments (0.070-0.074); the window formed on every lane with only the
+//     store predicated (0.0665).
 //   * Backward: one warp walks a strip of BW_COLS columns (a lane a column,
 //     plus a 2-column halo each side) down BW_ROWS rows: the five moments'
 //     row 3-sums from the lanes beside it by shuffle, each window's sums,
