@@ -2338,11 +2338,12 @@ def phase_nnet(smi: str) -> dict:
     decoder, the refiner) at 128x416, B = 1: float32 on the card against
     the CPU from the same seeded weights, the card's D2N against the CPU's
     on the same inputs, then bf16 (the stage's default) on the card: finite,
-    unit normals; frame times (CUDA events behind a spin, median of 10) and
-    peak memory for both types."""
+    unit normals; frame times (CUDA events behind a spin, median of 10),
+    peak memory and one frame's kernels by the profiler for both types."""
     import torch
     from sndepth_tpu_torch.models import nnet as nnet_lib
     from sndepth_tpu_torch.pipelines import NNETStage
+    from sndepth_tpu_torch.train.loop import profiled_step
     h, w = NNET_HW
     sd = _nnet_weights(7)
     pre, rgb = _nnet_inputs(h, w, seed=8)
@@ -2424,6 +2425,15 @@ def phase_nnet(smi: str) -> dict:
         if not times[name]["unit_off"] <= 1e-3:
             raise AssertionError(f"nnet {name}: normals not unit: "
                                  f"{times[name]['unit_off']}")
+        # One warm frame's kernels by the profiler.
+        _, prof = profiled_step(lambda: stage(pre_g, rgb_g),
+                                os.path.join(WORK_DIR, "trace"),
+                                f"nnet_{name}", DEV)
+        times[name]["profile"] = {
+            "kernel_ms": prof["kernel_ms"], "launches": prof["launches"],
+            "wall_ms": prof["wall_ms"],
+            "idle_share": 1.0 - prof["kernel_ms"] / prof["wall_ms"],
+            "ms_by_group": prof["ms_by_group"]}
         del stage
     emit("nnet", hw=[h, w], batch=1, nvidia_smi=smi, torch=torch.__version__,
          f32_card_vs_cpu=f32, d2n_card_vs_cpu=d2n, tolerance=NNET_TOL,

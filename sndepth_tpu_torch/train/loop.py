@@ -62,7 +62,7 @@ def profiled_step(step, trace_dir: str, label: str, device):
     """Run ``step()`` under ``torch.profiler`` (the card's kernels too on a
     CUDA device), write the Chrome trace to ``trace_dir/<label>.json`` and
     print the device time by kernel group as ``cli/profile_step.py`` counts
-    it; returns what ``step()`` returned."""
+    it; returns what ``step()`` returned and that summary."""
     import json
 
     from torch.profiler import ProfilerActivity, profile
@@ -81,18 +81,22 @@ def profiled_step(step, trace_dir: str, label: str, device):
     path = os.path.join(trace_dir, f"{label}.json")
     prof.export_chrome_trace(path)
     by_group: dict[str, float] = {}
+    launches = 0
     for evt in prof.events():
         if (evt.device_type != torch.autograd.DeviceType.CUDA
                 or "#" in evt.name or evt.name.startswith("ProfilerStep")):
             continue
         us = getattr(evt, "device_time", None)
         us = evt.cuda_time if us is None else us
+        launches += 1
         by_group[group_of(evt.name)] = (by_group.get(group_of(evt.name), 0.0)
                                         + us * 1e-3)
-    print(json.dumps({"trace": path, "wall_ms": wall_ms,
-                      "kernel_ms": sum(by_group.values()),
-                      "ms_by_group": by_group}), flush=True)
-    return out
+    summary = {"trace": path, "wall_ms": wall_ms,
+               "kernel_ms": sum(by_group.values()), "launches": launches,
+               "ms_by_group": dict(sorted(by_group.items(),
+                                          key=lambda kv: -kv[1]))}
+    print(json.dumps(summary), flush=True)
+    return out, summary
 
 
 def train_geonet(config: GeoNetConfig, batches: Iterator[dict],
@@ -125,7 +129,7 @@ def train_geonet(config: GeoNetConfig, batches: Iterator[dict],
             break
         step = i + 1
         if step == profile_at:
-            metrics = profiled_step(
+            metrics, _ = profiled_step(
                 lambda: geonet.train_step(state, batch, config),
                 os.path.join(log_dir or "logs", "trace"), f"step_{step}",
                 device)
