@@ -53,6 +53,32 @@ def group_of(name: str) -> str:
     return "other"
 
 
+def device_kernels(prof, steps: int = 1) -> tuple[dict, dict, int]:
+    """The kernels a ``torch.profiler`` run recorded on the card: ms a step
+    by group, [ms a step, launches] by name, and the launch count."""
+    import torch
+    by_group: dict[str, float] = {}
+    by_name: dict[str, list] = {}
+    launches = 0
+    for evt in prof.events():
+        # Device-side events only, without the device-side mirror of a
+        # host annotation (such as the optimizer's step scope), whose time
+        # is that of the kernels inside it.
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or "#" in evt.name or evt.name.startswith("ProfilerStep")):
+            continue
+        us = getattr(evt, "device_time", None)
+        if us is None:
+            us = evt.cuda_time
+        ms = us * 1e-3 / steps
+        launches += 1
+        by_group[group_of(evt.name)] = by_group.get(group_of(evt.name), 0) + ms
+        entry = by_name.setdefault(evt.name, [0.0, 0])
+        entry[0] += ms
+        entry[1] += 1
+    return by_group, by_name, launches
+
+
 def _train_step(family: str, batch: int, h: int, w: int, device):
     """A warm train step of the family as a function of no arguments."""
     import torch
@@ -143,25 +169,7 @@ def main(argv=None) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
-    by_group: dict[str, float] = {}
-    by_name: dict[str, list] = {}
-    launches = 0
-    for evt in prof.events():
-        # Device-side events only, without the device-side mirror of a
-        # host annotation (such as the optimizer's step scope), whose time
-        # is that of the kernels inside it.
-        if (evt.device_type != torch.autograd.DeviceType.CUDA
-                or "#" in evt.name or evt.name.startswith("ProfilerStep")):
-            continue
-        us = getattr(evt, "device_time", None)
-        if us is None:
-            us = evt.cuda_time
-        ms = us * 1e-3 / args.steps
-        launches += 1
-        by_group[group_of(evt.name)] = by_group.get(group_of(evt.name), 0) + ms
-        entry = by_name.setdefault(evt.name, [0.0, 0])
-        entry[0] += ms
-        entry[1] += 1
+    by_group, by_name, launches = device_kernels(prof, args.steps)
     kernel_ms = sum(by_group.values())
     if not kernel_ms > 0:
         p.exit(3, "the profiler recorded no device time\n")

@@ -77,15 +77,14 @@ class NNETStage:
                  seed: int = 0, architecture: str = "GN",
                  model: nnet_lib.NNET | None = None):
         self.device = torch.device(device)
-        self.model = model or nnet_lib.NNET(architecture, dtype)
-        if model is not None:
-            pass
-        elif state_dict is None:
-            nnet_lib.init_weights(self.model,
-                                  torch.Generator().manual_seed(seed))
-        else:
-            self.model.load_state_dict(state_dict)
-        self.model.to(self.device).eval()
+        if model is None:
+            model = nnet_lib.NNET(architecture, dtype)
+            if state_dict is None:
+                nnet_lib.init_weights(model,
+                                      torch.Generator().manual_seed(seed))
+            else:
+                model.load_state_dict(state_dict)
+        self.model = model.to(self.device).eval()
 
     @torch.no_grad()
     def __call__(self, pre_depth: torch.Tensor, rgb: torch.Tensor) -> dict:

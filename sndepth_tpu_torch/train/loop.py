@@ -67,7 +67,7 @@ def profiled_step(step, trace_dir: str, label: str, device):
 
     from torch.profiler import ProfilerActivity, profile
 
-    from sndepth_tpu_torch.cli.profile_step import group_of
+    from sndepth_tpu_torch.cli.profile_step import device_kernels
     cuda = torch.device(device).type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                            if cuda else [])
@@ -80,17 +80,7 @@ def profiled_step(step, trace_dir: str, label: str, device):
     os.makedirs(trace_dir, exist_ok=True)
     path = os.path.join(trace_dir, f"{label}.json")
     prof.export_chrome_trace(path)
-    by_group: dict[str, float] = {}
-    launches = 0
-    for evt in prof.events():
-        if (evt.device_type != torch.autograd.DeviceType.CUDA
-                or "#" in evt.name or evt.name.startswith("ProfilerStep")):
-            continue
-        us = getattr(evt, "device_time", None)
-        us = evt.cuda_time if us is None else us
-        launches += 1
-        by_group[group_of(evt.name)] = (by_group.get(group_of(evt.name), 0.0)
-                                        + us * 1e-3)
+    by_group, _, launches = device_kernels(prof)
     summary = {"trace": path, "wall_ms": wall_ms,
                "kernel_ms": sum(by_group.values()), "launches": launches,
                "ms_by_group": dict(sorted(by_group.items(),
