@@ -2325,7 +2325,6 @@ def _unit_normals_off(normals) -> float:
     """The largest distance of a normal's length from 1, over the normals
     that are not exactly zero; a zero normal may only lie on the border
     (the last propagation pulls the zero border in at full weight)."""
-    import torch
     norms = normals.float().norm(dim=-1).cpu()
     zero = norms == 0
     if zero[:, 1:-1, 1:-1].any():

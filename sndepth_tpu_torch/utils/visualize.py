@@ -22,7 +22,6 @@ def normalize01(x: np.ndarray) -> np.ndarray:
 
 def flow_to_rgb(flow: np.ndarray) -> np.ndarray:
     """(H, W, 2) flow -> (H, W, 3) float RGB via HSV encoding."""
-    import colorsys
     fx, fy = flow[..., 0], flow[..., 1]
     mag = np.sqrt(fx ** 2 + fy ** 2)
     ang = (np.arctan2(fy, fx) + np.pi) / (2 * np.pi)

@@ -58,7 +58,6 @@ from sndepth_tpu.utils.convert_weights import (convert_efficientnet,
                                                convert_normal_decoder)
 from sndepth_tpu_torch.models import efficientnet as teff
 from sndepth_tpu_torch.models import nnet as tnnet
-from sndepth_tpu_torch.models import normal_decoder as tdec
 from sndepth_tpu_torch.ops import edges as tedges
 from sndepth_tpu_torch.ops import patches as tpatches
 from sndepth_tpu_torch.utils import metrics as tmetrics
