@@ -277,8 +277,7 @@ def test_normal_metrics_match(n):
     mask = rng.rand(n) > 0.1
     err_t = tmetrics.normal_angular_errors(pred, gt, mask)
     err_j = jmetrics.normal_angular_errors(pred, gt, mask)
-    np.testing.assert_allclose(err_t.numpy(), np.asarray(err_j), rtol=1e-6,
-                               atol=1e-4)
+    np.testing.assert_allclose(err_t.numpy(), np.asarray(err_j), rtol=1e-6)
     got = tmetrics.compute_normal_errors(np.asarray(err_j))
     want = jmetrics.compute_normal_errors(err_j)
     assert set(got) == set(want)
