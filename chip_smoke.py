@@ -2264,10 +2264,18 @@ NNET_HW = (128, 416)            # the fused pipeline's frame
 # output, as the test takes JAX's; D2N is held apart on the CPU's inputs:
 # its agreement, point patches and normal equations within NNET_D2N_TOL by
 # norm, and the solve of the CPU's equations bit for bit (elementwise
-# operations only); how far the two float32 normals part end to end, and
-# on how many pixels a float64 solve agrees with both to 1e-2, is recorded.
+# operations only). End to end, the two float32 normals must agree with a
+# float64 solve to 1e-2 on at least NNET_D2N_SHARE of the pixels, and with
+# each other within NNET_D2N_DETERMINED_TOL by norm there. These limits are
+# looser than the test's (99%, 1e-4 at 64x96): the camera grid spans a
+# fixed field of view, so a 9 x 9 window's rays span 4.4 times less angle
+# across at 416 wide than at 96 (2 times less down, 128 against 64), and
+# the frame's depth is smooth where the test's is noisy; both worsen the
+# systems' conditioning (recorded on the H100: 92.0% of pixels, 3.5e-4).
 NNET_TOL = 1e-4
 NNET_D2N_TOL = 1e-5
+NNET_D2N_SHARE = 0.85
+NNET_D2N_DETERMINED_TOL = 1e-3
 
 
 def _rel(got, want) -> float:
@@ -2407,6 +2415,13 @@ def phase_nnet(smi: str) -> dict:
             raise AssertionError(f"nnet D2N: {key} {d2n[key]}")
     if not d2n["solve_bit_equal"]:
         raise AssertionError("nnet D2N: the solve of the same system differs")
+    if not (d2n["determined_share"] >= NNET_D2N_SHARE
+            and d2n["normals_rel_determined"] <= NNET_D2N_DETERMINED_TOL):
+        raise AssertionError(
+            f"nnet D2N end to end: {d2n['determined_share']} of pixels "
+            f"determined (want >= {NNET_D2N_SHARE}), normals "
+            f"{d2n['normals_rel_determined']} apart there (want <= "
+            f"{NNET_D2N_DETERMINED_TOL})")
 
     times = {}
     pre_g, rgb_g = pre.to(DEV), rgb.to(DEV)

@@ -6,11 +6,10 @@ plus ``--device``; prints the reference's metric line
 
 Predictions: ``--pred_file`` (normals ``.npy``, (N, H, W, 3)), or the
 EfficientNet-B5 encoder and the normal decoder run on each image. Their
-weights: ``--ckpt_dir`` holds ``nnet.pth``, a state_dict with the port's
-``encoder.*`` (timm's names) and ``decoder.*`` keys, as
-``utils.weights.nnet_state_dict_from_jax`` writes them, or the reference's
-``nyu.pt`` layout (``encoder.original_model.*``, under ``"model"``, with or
-without ``module.``); random weights from a seed without it.
+weights: ``--ckpt_dir`` holds ``nnet.pth``, the NNET state_dict that
+``utils.weights.nnet_state_dict_from_jax`` makes (``encoder.*`` with timm's
+names, ``decoder.*``, ``refiner.*``), of which the encoder and the decoder
+are read; random weights from a seed without it.
 
 Usage:
     python -m sndepth_tpu_torch.cli.evaluate_normals --data_dir data/nyu \
@@ -33,16 +32,9 @@ def load_normal_net(model, path: str) -> None:
     module with ``encoder`` and ``decoder``); keys of other parts, such as
     the refiner's, are ignored."""
     import torch
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    sd = ckpt.get("model", ckpt)
-    sd = {(k[len("module."):] if k.startswith("module.") else k): v
-          for k, v in sd.items()}
-    sd = {("encoder." + k[len("encoder.original_model."):]
-           if k.startswith("encoder.original_model.") else k): v
-          for k, v in sd.items()}
-    wanted = {k: v for k, v in sd.items()
-              if k.startswith(("encoder.", "decoder."))}
-    model.load_state_dict(wanted)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict({k: v for k, v in sd.items()
+                           if k.startswith(("encoder.", "decoder."))})
 
 
 def normal_net(device, seed: int = 0):

@@ -2,7 +2,7 @@
 scene flow, on one device.
 
 The flags and artifacts of ``python -m sndepth_tpu.cli.predict_raft3d``
-(reference `predict_raft3d.py:36-58`), plus ``--device`` and ``--seed``:
+(reference `predict_raft3d.py:36-58`), plus ``--device``:
 each batch of the synthetic stream (the JAX CLI reads no other frames;
 ``--root`` and ``--synthetic`` are taken as it takes them) goes through
 :class:`~sndepth_tpu_torch.pipelines.GeoNetStage` (float32),
@@ -12,7 +12,8 @@ as the JAX CLI feeds it, and :class:`~sndepth_tpu_torch.pipelines.
 RAFT3DStage` (``--dtype``) on the target and the first source frame with
 the refined depth clipped to [0.1, 80] for both frames. Writes
 ``tau_{i}.png``, ``phi_{i}.png`` and ``depth_{i}.png`` under ``--out_dir``.
-Every stage's weights are random, from ``--seed``.
+Every stage's weights are random, from fixed seeds (GeoNet from the
+config's, NNET and RAFT3D from 0), and the stream's seed is 0.
 
 Usage:
     python -m sndepth_tpu_torch.cli.predict_raft3d --synthetic \
@@ -42,7 +43,6 @@ def main(argv=None) -> list[dict]:
                         "stay f32)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cuda:1, cpu)")
-    p.add_argument("--seed", default=0, type=int)
     args = p.parse_args(argv)
 
     import time
@@ -58,14 +58,14 @@ def main(argv=None) -> list[dict]:
     b, h, w = 1, args.img_height, args.img_width
     device = torch.device(args.device)
     config = GeoNetConfig(batch_size=b, img_height=h, img_width=w,
-                          compute_dtype=torch.float32, seed=args.seed)
+                          compute_dtype=torch.float32)
     geonet = GeoNetStage(config, device=device)
-    nnet = NNETStage(device=device, seed=args.seed)
-    raft3d = RAFT3DStage(iters=args.iters, device=device, seed=args.seed,
+    nnet = NNETStage(device=device)
+    raft3d = RAFT3DStage(iters=args.iters, device=device,
                          dtype=torch.bfloat16 if args.dtype == "bf16"
                          else torch.float32)
 
-    it = synthetic_batches(b, h, w, seed=args.seed)
+    it = synthetic_batches(b, h, w)
     os.makedirs(args.out_dir, exist_ok=True)
     k = torch.tensor([[w * 0.58, h * 1.92, w / 2.0, h / 2.0]], device=device)
     written = []

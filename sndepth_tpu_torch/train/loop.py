@@ -67,7 +67,7 @@ def profiled_step(step, trace_dir: str, label: str, device):
 
     from torch.profiler import ProfilerActivity, profile
 
-    from sndepth_tpu_torch.cli.profile_step import device_kernels
+    from sndepth_tpu_torch.utils.profiling import device_kernels
     cuda = torch.device(device).type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                            if cuda else [])

@@ -52,7 +52,7 @@ def test_every_module_imports_with_jax_unavailable():
                  "ops.edges", "models.efficientnet", "models.normal_decoder",
                  "models.nnet", "data.nyu", "utils.visualize",
                  "cli.evaluate_depth", "cli.evaluate_normals",
-                 "cli.predict_raft3d"):
+                 "cli.predict_raft3d", "utils.profiling"):
         assert f"sndepth_tpu_torch.{name}" in names, name
     code = ("import sys, tempfile\n"
             "import torch\n"
@@ -304,12 +304,12 @@ def test_profile_step_cli_needs_a_card_and_knows_the_train_family(capsys):
         profile_step.main(["--family", "raft3d_train"])
     assert exc.value.code == 2
     assert "needs a CUDA device" in capsys.readouterr().err
-    assert profile_step.group_of(
+    from sndepth_tpu_torch.utils.profiling import group_of
+    assert group_of(
         "void (anonymous namespace)::gn_bwd_kernel<false, false>(float const*"
     ).startswith("K8b ")
-    assert profile_step.group_of("gn_bwd_kernel<true, true>").startswith(
-        "K8b ")
-    assert profile_step.group_of("gn_build_kernel(float").startswith("K8 ")
+    assert group_of("gn_bwd_kernel<true, true>").startswith("K8b ")
+    assert group_of("gn_build_kernel(float").startswith("K8 ")
 
 
 def test_kitti_submission_cli_says_that_data_parallel_waits(capsys):
