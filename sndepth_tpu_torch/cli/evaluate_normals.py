@@ -9,7 +9,7 @@ EfficientNet-B5 encoder and the normal decoder run on each image. Their
 weights: ``--ckpt_dir`` holds ``nnet.pth``, the NNET state_dict that
 ``utils.weights.nnet_state_dict_from_jax`` makes (``encoder.*`` with timm's
 names, ``decoder.*``, ``refiner.*``), of which the encoder and the decoder
-are read; random weights from a seed without it.
+are read; random weights from seed 0 without it.
 
 Usage:
     python -m sndepth_tpu_torch.cli.evaluate_normals --data_dir data/nyu \
@@ -37,7 +37,7 @@ def load_normal_net(model, path: str) -> None:
                            if k.startswith(("encoder.", "decoder."))})
 
 
-def normal_net(device, seed: int = 0):
+def normal_net(device):
     """EfficientNet-B5 encoder + normal decoder (GN), float32, in eval
     mode on ``device``; ``net(rgb)`` maps (B, H, W, 3) RGB in [0, 1] to the
     decoder's full-resolution normals (B, H, W, 3)."""
@@ -59,7 +59,7 @@ def normal_net(device, seed: int = 0):
                 ..., :3]
 
     net = NormalNet()
-    nnet_lib.init_weights(net, torch.Generator().manual_seed(seed))
+    nnet_lib.init_weights(net, torch.Generator().manual_seed(0))
     return net.to(device).eval()
 
 

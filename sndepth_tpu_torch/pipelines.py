@@ -68,19 +68,18 @@ class NNETStage:
     pipeline hands it GeoNet's depth). The Canny edges are computed on the
     device. ``dtype`` bfloat16 (the default, as in JAX) runs the convolution
     stacks in bf16; the normal heads and the D2N/N2D solves stay float32.
-    Without a ``state_dict`` the weights are random, drawn from ``seed``;
+    Without a ``state_dict`` the weights are random, drawn from seed 0;
     ``model`` serves an NNET built elsewhere (another encoder plan, or the
     decoder's ``BN`` architecture) instead of the full-width GN one."""
 
     def __init__(self, state_dict: dict | None = None,
                  dtype: torch.dtype = torch.bfloat16, device="cuda",
-                 seed: int = 0, model: nnet_lib.NNET | None = None):
+                 model: nnet_lib.NNET | None = None):
         self.device = torch.device(device)
         if model is None:
             model = nnet_lib.NNET("GN", dtype)
             if state_dict is None:
-                nnet_lib.init_weights(model,
-                                      torch.Generator().manual_seed(seed))
+                nnet_lib.init_weights(model, torch.Generator().manual_seed(0))
             else:
                 model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
