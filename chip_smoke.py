@@ -8,7 +8,9 @@ PoseNet and, in stage 2, FlowNet at the reference channel counts, 128x416,
 at 128x416 and 376x1248) and RAFT3D training at full width (256x832, B = 2,
 12 iterations, bf16 encoders), the NNET normal stack at full width and the
 fused GeoNet -> NNET -> RAFT3D prediction through the kernels written for
-Hopper, and fails unless every phase passes:
+Hopper, then MotionFusionNet serving and training, NNET training and the
+fused GeoNet -> NNET -> rigid flow -> motion prediction (which launch no
+hand-written kernel), and fails unless every phase passes:
 
   env        card name and power limit (nvidia-smi), torch and CUDA versions
   build      one nvcc per CUDA source, all started together
@@ -91,6 +93,21 @@ Hopper, and fails unless every phase passes:
   predict_raft3d  the fused GeoNet -> NNET -> RAFT3D CLI on two synthetic
              batches: its files read back, 16 launches of K8 and of K5 a
              frame, frame times
+  motion     MotionStage at full width at 128x416: float32 card against
+             CPU (logits by norm, the class map where decided); float32 and
+             bf16 frames timed, one profiled
+  motion_train  one float32 MotionFusionNet step at 64x128, B = 2, card
+             against CPU, each against a float64 step on the card; the bf16
+             step at B = 16, 384x768 through the benchmark CLI and profiled;
+             ``train_motion`` for 5 steps
+  nnet_train  one float32 NNET train step (B5 + decoder) at 64x96, B = 2,
+             card against CPU with the CPU's sampled points handed across,
+             each against a float64 step; the bf16 step at B = 4, 480x640
+             through the benchmark CLI and profiled
+  predict    the fused GeoNet -> NNET -> rigid flow -> motion CLI on two
+             synthetic batches at 128x416: PNGs and poses.csv read back,
+             classes in {0, 1, 2}, frame times; none of the eleven kernels
+             launched on these four phases' paths
 
 Each phase prints one JSON line; the full report goes to
 ``chiprun_out/chip_smoke_report.json``. The last lines are the kernels
@@ -2487,6 +2504,408 @@ def phase_predict_raft3d(smi: str) -> dict:
     return launches
 
 
+MOTION_HW = (128, 416)          # the fused prediction's frame
+# MotionStage, card against CPU in float32 (TF32 off), from the same seeded
+# weights: the logits within MOTION_TOL by norm, the class map equal
+# wherever the top two logits are more than MOTION_MARGIN apart.
+MOTION_TOL = 1e-4
+MOTION_MARGIN = 1e-3
+# A float32 train step on the card against the same step on the CPU, from
+# the same seeded weights and batch. Through the full depth of either net a
+# train step is ill-conditioned in float32 (BatchNorm on batch statistics
+# layer after layer: two float32 evaluations of MotionFusionNet's step part
+# by ~7% on their gradients, tests/test_torch_motion.py), so each float32
+# step is measured against a float64 step on the card: the loss within
+# STEP_LOSS_TOL of the CPU's, and the card's distance from the float64 step
+# (the gradients and the running statistics by norm over all tensors, the
+# share of weights more than a hundredth of a learning rate off after the
+# update, the median over the tensors of each one's gradient by its norm)
+# at most STEP_YARDSTICK times the CPU's plus STEP_FLOOR; the weights no
+# entry more than 2 learning rates from the CPU's.
+STEP_LOSS_TOL = 1e-4
+STEP_YARDSTICK = 2.0
+STEP_FLOOR = {"grads_rel": 1e-6, "grads_rel_tensor_median": 1e-6,
+              "stats_rel": 1e-6, "params_frac_off": 1e-3}
+
+
+def _no_hand_written_launches(name: str) -> dict:
+    """The hand-written kernels' launch counts since the last reset: the
+    motion and NNET paths launch none of them."""
+    launches = _used(read_launches())
+    if launches:
+        raise AssertionError(f"{name}: hand-written kernels launched: "
+                             f"{launches}")
+    return {k: 0 for k in read_launches()}
+
+
+def _motion_weights(seed: int) -> dict:
+    import torch
+    from sndepth_tpu_torch.models import motionseg
+    model = motionseg.MotionFusionNet()
+    motionseg.init_weights(model, torch.Generator().manual_seed(seed))
+    return model.state_dict()
+
+
+def _motion_inputs(b: int, h: int, w: int, seed: int):
+    """A random image and the colouring of a smooth flow, (B, 3, H, W) in
+    [0, 1]."""
+    import numpy as np
+    import torch
+    from sndepth_tpu_torch.utils.visualize import flow_to_rgb
+    gen = torch.Generator().manual_seed(seed)
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    flows = [np.stack([np.sin(xx / 31.0 + i) * 6, np.cos(yy / 17.0) * 3], -1)
+             for i in range(b)]
+    flow_rgb = torch.from_numpy(np.stack([flow_to_rgb(f) for f in flows]))
+    return (torch.rand(b, 3, h, w, generator=gen),
+            flow_rgb.permute(0, 3, 1, 2).contiguous())
+
+
+def phase_motion(smi: str) -> dict:
+    """MotionStage at full width at 128x416, B = 1: float32 on the card
+    against the CPU from the same seeded weights (TF32 off), then a float32
+    (TF32 convolutions, as served) and a bf16 frame timed (CUDA events
+    behind a spin, median of 10) with their peak memory, and one float32
+    frame's kernels by the profiler."""
+    import torch
+    from sndepth_tpu_torch.models import motionseg
+    from sndepth_tpu_torch.pipelines import MotionStage
+    from sndepth_tpu_torch.train.loop import profiled_step
+    h, w = MOTION_HW
+    sd = _motion_weights(11)
+    img, flow = _motion_inputs(1, h, w, seed=12)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu = MotionStage(sd, device="cpu")
+        card = MotionStage(sd, device=DEV)
+        with torch.no_grad():
+            want = cpu.model(img, flow)
+            reset_launches()
+            got = card.model(img.to(DEV), flow.to(DEV))
+            pred = card(img, flow)
+            torch.cuda.synchronize()
+        launches = _no_hand_written_launches("motion")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    _assert_finite("motion logits", got, want)
+    top2 = want.topk(2, dim=1).values
+    decided = (top2[:, 0] - top2[:, 1]) > MOTION_MARGIN
+    want_pred = want.argmax(1)
+    check = {"logits_rel": _rel(got, want),
+             "decided_share": float(decided.float().mean()),
+             "pred_differs_where_decided": int(
+                 ((pred.cpu() != want_pred) & decided).sum()),
+             "classes": sorted(int(c) for c in pred.unique())}
+    if not check["logits_rel"] <= MOTION_TOL:
+        raise AssertionError(f"motion logits, card against CPU: "
+                             f"{check['logits_rel']} > {MOTION_TOL}")
+    if check["pred_differs_where_decided"]:
+        raise AssertionError(f"motion class map, card against CPU: "
+                             f"{check['pred_differs_where_decided']} pixels")
+    if not set(check["classes"]) <= {0, 1, 2}:
+        raise AssertionError(f"motion classes {check['classes']}")
+
+    frames = {}
+    img_g, flow_g = img.to(DEV), flow.to(DEV)
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        model = motionseg.MotionFusionNet(dtype=dtype)
+        model.load_state_dict(sd)
+        model.to(DEV).eval()
+
+        def frame():
+            with torch.no_grad():
+                return model(img_g, flow_g).argmax(1)
+
+        out = frame()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        frames[name] = {"frame_ms": time_ms(frame, 10),
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "classes": sorted(int(c) for c in out.unique())}
+        if name == "f32":
+            _, prof = profiled_step(frame, os.path.join(WORK_DIR, "trace"),
+                                    "motion_f32", DEV)
+            frames[name]["profile"] = {
+                "kernel_ms": prof["kernel_ms"], "launches": prof["launches"],
+                "wall_ms": prof["wall_ms"],
+                "idle_share": 1.0 - prof["kernel_ms"] / prof["wall_ms"],
+                "ms_by_group": prof["ms_by_group"]}
+        del model
+    emit("motion", hw=[h, w], batch=1, nvidia_smi=smi,
+         f32_card_vs_cpu=check, tolerance=MOTION_TOL, margin=MOTION_MARGIN,
+         frames=frames, hand_written_launches=launches)
+    return frames
+
+
+def _step_distances(run: dict, ref: dict) -> dict:
+    """Distances of one train step's results from another's: gradients and
+    running statistics by norm over all tensors, each tensor's gradient by
+    its norm (floored at 1e-5 of the global norm; the median and the worst
+    three), the largest weight difference and the share of weights more
+    than 0.01 ``lr`` apart."""
+    import torch
+
+    def global_rel(a: dict, b: dict) -> float:
+        num = sum(float(((a[k].double() - b[k].double()) ** 2).sum())
+                  for k in b)
+        den = sum(float((b[k].double() ** 2).sum()) for k in b)
+        return (num / max(den, 1e-300)) ** 0.5
+
+    floor = 1e-5 * sum(float((g.double() ** 2).sum())
+                       for g in ref["grads"].values()) ** 0.5
+    per_tensor = sorted(
+        ((float((run["grads"][k].double() - g.double()).norm()
+                / max(float(g.double().norm()), floor)), k)
+         for k, g in ref["grads"].items()), reverse=True)
+
+    n_off = n_all = 0
+    max_d = 0.0
+    for k, p in ref["params"].items():
+        d = (run["params"][k].double() - p.double()).abs()
+        max_d = max(max_d, float(d.max()))
+        n_off += int((d > 0.01 * ref["lr"]).sum())
+        n_all += d.numel()
+    return {"grads_rel": global_rel(run["grads"], ref["grads"]),
+            "grads_rel_tensor_median": per_tensor[len(per_tensor) // 2][0],
+            "grads_rel_tensor_worst": per_tensor[:3],
+            "stats_rel": global_rel(run["stats"], ref["stats"]),
+            "params_over_lr": max_d / ref["lr"],
+            "params_frac_off": n_off / n_all,
+            "loss_rel": abs(run["loss"] - ref["loss"]) / abs(ref["loss"])}
+
+
+def _step_record(state, metrics: dict, lr: float) -> dict:
+    named = list(state.model.named_parameters())
+    for n, p in named:
+        _assert_finite(f"gradient {n}", p.grad)
+    return {"loss": float(metrics["loss"]), "lr": lr,
+            "grads": {n: p.grad.detach().cpu() for n, p in named},
+            "params": {n: p.detach().cpu() for n, p in named},
+            "stats": {n: b.detach().cpu().clone()
+                      for n, b in state.model.named_buffers()
+                      if "running" in n}}
+
+
+def _compare_steps(name: str, runs: dict) -> dict:
+    """The card's float32 step against the CPU's, each measured against the
+    card's float64 step (STEP_YARDSTICK)."""
+    card, cpu, f64 = runs["card"], runs["cpu"], runs["card_f64"]
+    d_card, d_cpu = _step_distances(card, f64), _step_distances(cpu, f64)
+    direct = _step_distances(card, cpu)
+    got = {"card_vs_f64": d_card, "cpu_vs_f64": d_cpu, "card_vs_cpu": direct}
+    if not direct["loss_rel"] <= STEP_LOSS_TOL:
+        raise AssertionError(f"{name}: loss, card against CPU, "
+                             f"{direct['loss_rel']} > {STEP_LOSS_TOL}")
+    if not direct["params_over_lr"] <= 2.01:
+        raise AssertionError(f"{name}: a weight {direct['params_over_lr']} "
+                             "learning rates from the CPU's")
+    for key, floor in STEP_FLOOR.items():
+        if not d_card[key] <= STEP_YARDSTICK * d_cpu[key] + floor:
+            raise AssertionError(
+                f"{name}: {key} from the float64 step, card {d_card[key]} "
+                f"against CPU {d_cpu[key]}")
+    return got
+
+
+def _train_family_run(family: str, smi: str) -> dict:
+    """The family's bf16 train step through ``cli/benchmark.py`` at its JAX
+    defaults (ms/step, img/s, peak memory, hand-written launches) and one
+    warm step's kernels through ``cli/profile_step.py``."""
+    import torch
+    from sndepth_tpu_torch.cli import benchmark, profile_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    result = benchmark.main(["--family", family, "--device", DEV])[0]
+    launches = _no_hand_written_launches(f"{family} benchmark")
+    result["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if not (result["family"] == family and result["ms_per_step"] > 0):
+        raise AssertionError(f"benchmark result {result}")
+    profile = profile_step.main(["--family", family, "--steps", "1"])
+    result["step_profile"] = {k: profile[k] for k in (
+        "batch", "hw", "launches_per_step", "kernel_ms_per_step",
+        "wall_ms_per_step", "idle_share", "ms_by_group")}
+    result["hand_written_launches"] = launches
+    result["nvidia_smi"] = smi
+    return result
+
+
+def phase_motion_train(smi: str) -> dict:
+    """MotionFusionNet training at full width: one float32 step at 64x128,
+    B = 2, card against CPU from the same seeded weights and batch (TF32
+    off; each against a float64 step on the card); the bf16 step at B = 16,
+    384x768 through the benchmark CLI's ``motion`` family; ``train_motion``
+    for a few steps on the synthetic stream, its checkpoint written."""
+    import torch
+    from sndepth_tpu_torch.cli import train_motion
+    from sndepth_tpu_torch.data.kitti_motion import synthetic_motion_batches
+    from sndepth_tpu_torch.models import motionseg
+    from sndepth_tpu_torch.train import loop
+    from sndepth_tpu_torch.train import motion as tmt
+    h, w = 64, 128
+    sd = _motion_weights(13)
+    batch = {k: torch.from_numpy(v) for k, v in
+             next(synthetic_motion_batches(2, h, w, seed=14)).items()}
+    batch["image"] = torch.rand(2, h, w, 3,
+                                generator=torch.Generator().manual_seed(15))
+    runs = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, dev, dtype in (("cpu", "cpu", torch.float32),
+                                 ("card", DEV, torch.float32),
+                                 ("card_f64", DEV, torch.float64)):
+            model = motionseg.MotionFusionNet(dtype=dtype)
+            model.load_state_dict(sd)
+            state = tmt.create_train_state(model.to(dtype), dev)
+            reset_launches()
+            met = tmt.train_step(state, {
+                k: v.to(dev, dtype) if v.is_floating_point() else v.to(dev)
+                for k, v in batch.items()})
+            if dev == DEV:
+                torch.cuda.synchronize()
+                _no_hand_written_launches(f"motion step {name}")
+            runs[name] = _step_record(state, met, tmt.lr_at(0))
+            del state, model
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    step = _compare_steps("motion train step", runs)
+
+    bench = _train_family_run("motion", smi)
+
+    steps = 5
+    ckpt_dir = os.path.join(WORK_DIR, "ckpt_motion")
+    reset_launches()
+    state, records = train_motion.main(
+        ["--max_steps", str(steps), "--log_every", "1", "--device", DEV,
+         "--data_dir", os.path.join(WORK_DIR, "no_data"),
+         "--ckpt_dir", ckpt_dir])
+    cli_launches = _no_hand_written_launches("train_motion")
+    if len(records) != steps or not all(
+            _finite(r["loss"]) and 0 <= r["pixel_acc"] <= 1
+            for r in records):
+        raise AssertionError(f"train_motion records {records}")
+    if not os.path.exists(os.path.join(ckpt_dir, loop.MOTION_MODEL_FILE)):
+        raise AssertionError("train_motion wrote no checkpoint")
+    del state
+    emit("motion_train", nvidia_smi=smi, step_hw=[h, w], step_batch=2,
+         step=step, loss_cpu=runs["cpu"]["loss"],
+         loss_card=runs["card"]["loss"], yardstick=STEP_YARDSTICK,
+         benchmark=bench, cli_steps=steps, cli_records=records,
+         hand_written_launches=cli_launches)
+    return bench
+
+
+def phase_nnet_train(smi: str) -> dict:
+    """NNET training at full width (EfficientNet-B5, the GN decoder): one
+    float32 step at 64x96, B = 2, card against CPU from the same seeded
+    weights and batch, the CPU's sampled rows and columns handed to the
+    card (TF32 off; each against a float64 step on the card); the bf16 step
+    at B = 4, 480x640 through the benchmark CLI's ``nnet`` family."""
+    import numpy as np
+    import torch
+    from sndepth_tpu_torch.cli.train_nnet import synthetic_batches
+    from sndepth_tpu_torch.models import nnet as nnet_lib
+    from sndepth_tpu_torch.models import normal_decoder
+    from sndepth_tpu_torch.train import nnet as tn
+    h, w = 64, 96
+    start = tn.NormalNet()
+    nnet_lib.init_weights(start, torch.Generator().manual_seed(16))
+    sd = start.state_dict()
+    del start
+    raw = next(synthetic_batches(2, h, w, seed=17))
+    raw["mask"] = np.random.RandomState(18).rand(2, h, w) > 0.2
+    batch = {k: torch.from_numpy(v) for k, v in raw.items()}
+    real_sample = normal_decoder.sample_points
+    drawn: list = []
+
+    def recording(*args):
+        out = real_sample(*args)
+        drawn.append(tuple(t.cpu() for t in out))
+        return out
+
+    runs = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, dev, dtype in (("cpu", "cpu", torch.float32),
+                                 ("card", DEV, torch.float32),
+                                 ("card_f64", DEV, torch.float64)):
+            model = tn.NormalNet(dtype)
+            model.load_state_dict(sd)
+            state = tn.create_train_state(model.to(dtype), dev)
+            if name == "cpu":
+                normal_decoder.sample_points = recording
+            else:
+                handed = iter(drawn)
+                normal_decoder.sample_points = lambda *a: tuple(
+                    t.to(DEV) for t in next(handed))
+            reset_launches()
+            met = tn.train_step(state, {
+                k: v.to(dev, dtype) if v.is_floating_point() else v.to(dev)
+                for k, v in batch.items()})
+            if dev == DEV:
+                torch.cuda.synchronize()
+                _no_hand_written_launches(f"nnet step {name}")
+            runs[name] = _step_record(state, met, tn.LR)
+            del state, model
+    finally:
+        normal_decoder.sample_points = real_sample
+        torch.backends.cudnn.allow_tf32 = tf32
+    if len(drawn) != 3:
+        raise AssertionError(f"the sampler drew {len(drawn)} levels")
+    step = _compare_steps("nnet train step", runs)
+    bench = _train_family_run("nnet", smi)
+    emit("nnet_train", nvidia_smi=smi, step_hw=[h, w], step_batch=2,
+         step=step, loss_cpu=runs["cpu"]["loss"],
+         loss_card=runs["card"]["loss"], yardstick=STEP_YARDSTICK,
+         samples_per_level=[int(r.shape[1]) for r, _ in drawn],
+         benchmark=bench)
+    return bench
+
+
+def phase_predict(smi: str) -> dict:
+    """The fused prediction CLI (GeoNet -> NNET -> rigid flow ->
+    MotionFusionNet) on two synthetic batches at 128x416: its PNGs and
+    ``poses.csv`` read back, classes in {0, 1, 2}, each frame's time, no
+    hand-written kernel launched."""
+    import csv
+
+    import numpy as np
+    from PIL import Image
+    from sndepth_tpu_torch.cli import predict
+    frames = 2
+    out_dir = os.path.join(WORK_DIR, "predict")
+    reset_launches()
+    recs = predict.main(["--synthetic", "--max_batches", str(frames),
+                         "--out_dir", out_dir, "--device", DEV])
+    launches = _no_hand_written_launches("predict")
+    h, w = MOTION_HW
+    files = {}
+    for i, rec in enumerate(recs):
+        if not set(np.unique(rec["seg"])) <= {0, 1, 2}:
+            raise AssertionError(f"predict: classes {np.unique(rec['seg'])}")
+        for name, path in rec["paths"][0].items():
+            img = np.asarray(Image.open(path))
+            if img.shape[:2] != (h, w) or img.dtype != np.uint8:
+                raise AssertionError(f"{path}: {img.shape} {img.dtype}")
+            files[os.path.basename(path)] = {"shape": list(img.shape),
+                                             "std": float(img.std())}
+    with open(os.path.join(out_dir, "poses.csv")) as f:
+        rows = list(csv.reader(f))
+    if rows[0][0] != "source_index" or len(rows) != 3 or not all(
+            _finite(float(x)) for r in rows[1:] for x in r):
+        raise AssertionError(f"predict: poses.csv {rows}")
+    emit("predict", hw=[h, w], frames=frames, nvidia_smi=smi,
+         ms_per_frame=[rec["ms"] for rec in recs],
+         seg_class_shares=[np.bincount(rec["seg"].ravel(),
+                                       minlength=3).tolist() for rec in recs],
+         files=files, poses_rows=len(rows) - 1,
+         hand_written_launches=launches)
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "sndepth_tpu_torch")):
         print("chip_smoke: sndepth_tpu_torch is not beside this script",
@@ -2523,6 +2942,10 @@ def main() -> int:
     launches["gn_build_bwd"] = raft_train_launches["gn_build_bwd"]
     phase_nnet(smi)
     predict_launches = phase_predict_raft3d(smi)
+    phase_motion(smi)
+    phase_motion_train(smi)
+    phase_nnet_train(smi)
+    phase_predict(smi)
 
     csrc = "sndepth_tpu_torch/kernels/csrc/"
     where = {

@@ -9,15 +9,19 @@ on the device; the loop is timed with CUDA events on the device's stream
 Families:
   geonet   self-supervised stage-1 train step (DispNetS + PoseNet + loss)
   flow     stage-2 full-flow train step (FlowNet + geometric consistency)
+  nnet     normal-net train step (EfficientNet-B5 + decoder), bf16, B = 4 at
+           480x640, in img/sec
+  motion   MotionFusionNet train step, bf16, B = 16 at 384x768, in img/sec
   raft3d   RAFT3D scene-flow inference: one frame pair a call (B = 1), 16
            refinement iterations, each call's second frame made from the
            call before so that no two calls do the same work; ``--dtype``
            is the type of the encoders and the GRU (f32 or bf16)
-The JAX package's other families (nnet, motion, vae) are not ported yet:
-asking for one exits with an error, and ``all`` runs the ported ones.
+The JAX package's ``vae`` family is not ported yet: asking for it exits with
+an error, and ``all`` runs the ported ones.
 
 Usage:
     python -m sndepth_tpu_torch.cli.benchmark --family flow
+    python -m sndepth_tpu_torch.cli.benchmark --family motion
     python -m sndepth_tpu_torch.cli.benchmark --family raft3d \
         --img_height 376 --img_width 1248
 """
@@ -30,8 +34,8 @@ import time
 
 import numpy as np
 
-PORTED = ("geonet", "flow", "raft3d")
-NOT_PORTED = ("nnet", "motion", "vae")
+PORTED = ("geonet", "flow", "nnet", "motion", "raft3d")
+NOT_PORTED = ("vae",)
 
 
 def _result(family: str, ms: float, value: float, unit: str) -> dict:
@@ -95,6 +99,62 @@ def _timed(fn, iters: int, device) -> float:
     return (time.perf_counter() - t0) / iters
 
 
+def nnet_step(batch: int, h: int, w: int, device):
+    """The ``nnet`` family's bf16 train step on seeded inputs on ``device``
+    (the JAX benchmark's: random images, normals in [-1, 1), every pixel
+    valid), as a function of no arguments returning its metrics."""
+    import torch
+
+    from sndepth_tpu_torch.train import nnet as nt
+
+    device = torch.device(device)
+    rng = np.random.RandomState(0)
+    data = {"rgb": rng.rand(batch, h, w, 3).astype(np.float32),
+            "normals": (rng.rand(batch, h, w, 3) * 2 - 1).astype(np.float32),
+            "mask": np.ones((batch, h, w), bool)}
+    data = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+    state = nt.create_train_state(device=device, dtype=torch.bfloat16)
+    return lambda: nt.train_step(state, data)
+
+
+def motion_step(batch: int, h: int, w: int, device):
+    """The ``motion`` family's bf16 train step on seeded inputs on
+    ``device``, as a function of no arguments returning its metrics."""
+    import torch
+
+    from sndepth_tpu_torch.train import motion
+
+    device = torch.device(device)
+    rng = np.random.RandomState(0)
+    data = {"image": rng.rand(batch, h, w, 3).astype(np.float32),
+            "flow": rng.rand(batch, h, w, 3).astype(np.float32),
+            "label": rng.randint(0, 3, (batch, h, w)).astype(np.int64)}
+    data = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+    state = motion.create_train_state(device=device, dtype=torch.bfloat16)
+    return lambda: motion.train_step(state, data)
+
+
+def _train_family(family: str, make, batch: int, h: int, w: int,
+                  iters: int, device) -> dict:
+    """Time ``make(batch, h, w, device)``'s step after two warm-up steps."""
+    import torch
+
+    device = torch.device(device)
+    step = make(batch, h, w, device)
+    for _ in range(2):
+        m = step()
+    float(m["loss"])
+    last = {}
+
+    def timed():
+        last["m"] = step()
+
+    dt = _timed(timed, iters, device)
+    if not np.isfinite(float(last["m"]["loss"])):
+        raise FloatingPointError("non-finite loss in the timed loop")
+    return _result(family, dt * 1e3, batch / dt, "img/sec")
+
+
 def raft3d_frame(h: int, w: int, device, dtype: str):
     """The ``raft3d`` family's stage (16 iterations, seeded weights) and its
     seeded inputs on ``device``: ``(stage, (img1, img2, depth1, depth2,
@@ -155,7 +215,10 @@ def main(argv=None) -> list[dict]:
     if args.iters < 1:
         p.error("--iters must be at least 1")
 
-    h, w = args.img_height or 128, args.img_width or 416
+    def dims(dh, dw):
+        return args.img_height or dh, args.img_width or dw
+
+    h, w = dims(128, 416)
     fam = args.family
     results = []
     if fam in ("all", "geonet"):
@@ -164,6 +227,14 @@ def main(argv=None) -> list[dict]:
     if fam in ("all", "flow"):
         results.append(_geonet_like(True, args.batch or 32, h, w,
                                     args.iters, args.device))
+    if fam in ("all", "nnet"):
+        results.append(_train_family("nnet", nnet_step, args.batch or 4,
+                                     *dims(480, 640), args.iters,
+                                     args.device))
+    if fam in ("all", "motion"):
+        results.append(_train_family("motion", motion_step, args.batch or 16,
+                                     *dims(384, 768), args.iters,
+                                     args.device))
     if fam in ("all", "raft3d"):
         results.append(_raft3d(h, w, args.iters, args.device, args.dtype))
     return results

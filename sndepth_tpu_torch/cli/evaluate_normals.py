@@ -9,7 +9,8 @@ EfficientNet-B5 encoder and the normal decoder run on each image. Their
 weights: ``--ckpt_dir`` holds ``nnet.pth``, the NNET state_dict that
 ``utils.weights.nnet_state_dict_from_jax`` makes (``encoder.*`` with timm's
 names, ``decoder.*``, ``refiner.*``), of which the encoder and the decoder
-are read; random weights from seed 0 without it.
+are read (``train_nnet`` writes only those two); random weights from seed
+0 without it.
 
 Usage:
     python -m sndepth_tpu_torch.cli.evaluate_normals --data_dir data/nyu \
@@ -38,25 +39,13 @@ def load_normal_net(model, path: str) -> None:
 
 
 def normal_net(device):
-    """EfficientNet-B5 encoder + normal decoder (GN), float32, in eval
-    mode on ``device``; ``net(rgb)`` maps (B, H, W, 3) RGB in [0, 1] to the
-    decoder's full-resolution normals (B, H, W, 3)."""
+    """The EfficientNet-B5 encoder and the normal decoder (GN)
+    (:class:`~sndepth_tpu_torch.train.nnet.NormalNet`), float32, random
+    weights from seed 0, in eval mode on ``device``."""
     import torch
 
     from sndepth_tpu_torch.models import nnet as nnet_lib
-    from sndepth_tpu_torch.models.efficientnet import EfficientNetEncoder
-    from sndepth_tpu_torch.models.normal_decoder import NormalDecoder
-
-    class NormalNet(torch.nn.Module):
-        def __init__(self):
-            super().__init__()
-            self.encoder = EfficientNetEncoder()
-            self.decoder = NormalDecoder(self.encoder.channels())
-
-        def forward(self, rgb):
-            x = nnet_lib.bgr_preprocess(rgb) / 255.0
-            return self.decoder(self.encoder(x.permute(0, 3, 1, 2)))[-1][
-                ..., :3]
+    from sndepth_tpu_torch.train.nnet import NormalNet
 
     net = NormalNet()
     nnet_lib.init_weights(net, torch.Generator().manual_seed(0))
@@ -101,8 +90,8 @@ def main(argv=None) -> dict:
             print("warning: no checkpoint; random weights")
         with torch.no_grad():
             preds = np.stack([
-                net(torch.from_numpy(ds[i]["rgb"])[None].to(device))[0]
-                .cpu().numpy() for i in range(len(ds))])
+                net(torch.from_numpy(ds[i]["rgb"])[None].to(device))[-1][
+                    0, ..., :3].cpu().numpy() for i in range(len(ds))])
 
     errors = np.concatenate([
         normal_angular_errors(preds[i], ds[i]["normals"],

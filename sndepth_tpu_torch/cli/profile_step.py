@@ -1,7 +1,8 @@
 """CLI: where one warm step's time goes on the GPU.
 
-Runs the ``geonet`` (stage 1) or ``flow`` (stage 2) train step or the
-``raft3d`` inference frame (B = 1, 16 iterations) of
+Runs the ``geonet`` (stage 1) or ``flow`` (stage 2) train step, the
+``nnet`` (B = 4 at 480x640) or ``motion`` (B = 16 at 384x768) bf16 train
+step or the ``raft3d`` inference frame (B = 1, 16 iterations) of
 ``sndepth_tpu_torch.cli.benchmark``, or the ``raft3d_train`` step (12
 iterations, the train CLI's defaults: 256x832, B = 2, bf16), on inputs that
 lie on the card, warms it up, then traces ``--steps`` steps with
@@ -15,6 +16,7 @@ Usage:
     python -m sndepth_tpu_torch.cli.profile_step --family raft3d \
         --img_height 376 --img_width 1248
     python -m sndepth_tpu_torch.cli.profile_step --family raft3d_train
+    python -m sndepth_tpu_torch.cli.profile_step --family motion
 """
 
 from __future__ import annotations
@@ -70,22 +72,28 @@ def _raft3d_train_step(batch: int, h: int, w: int, dtype: str, device):
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description="Profile one warm step")
     p.add_argument("--family", default="flow",
-                   choices=["geonet", "flow", "raft3d", "raft3d_train"])
+                   choices=["geonet", "flow", "nnet", "motion", "raft3d",
+                            "raft3d_train"])
     p.add_argument("--batch", default=0, type=int,
                    help="override the family's default batch (128 / 32; "
-                        "raft3d runs one frame pair, raft3d_train 2)")
+                        "nnet 4, motion 16; raft3d runs one frame pair, "
+                        "raft3d_train 2)")
     p.add_argument("--steps", default=2, type=int, help="steps to trace")
     p.add_argument("--img_height", default=0, type=int,
-                   help="default 128 (raft3d_train: 256)")
+                   help="default 128 (raft3d_train: 256, nnet: 480, "
+                        "motion: 384)")
     p.add_argument("--img_width", default=0, type=int,
-                   help="default 416 (raft3d_train: 832)")
+                   help="default 416 (raft3d_train: 832, nnet: 640, "
+                        "motion: 768)")
     p.add_argument("--dtype", default=None, choices=["f32", "bf16"],
                    help="raft3d, raft3d_train: encoder/GRU compute dtype "
                         "(default f32; raft3d_train: bf16)")
     args = p.parse_args(argv)
     training = args.family == "raft3d_train"
-    args.img_height = args.img_height or (256 if training else 128)
-    args.img_width = args.img_width or (832 if training else 416)
+    hw = {"raft3d_train": (256, 832), "nnet": (480, 640),
+          "motion": (384, 768)}.get(args.family, (128, 416))
+    args.img_height = args.img_height or hw[0]
+    args.img_width = args.img_width or hw[1]
     args.dtype = args.dtype or ("bf16" if training else "f32")
 
     import torch
@@ -103,6 +111,12 @@ def main(argv=None) -> dict:
     elif training:
         batch = args.batch or 2
         step = _raft3d_train_step(batch, h, w, args.dtype, device)
+    elif args.family in ("nnet", "motion"):
+        from sndepth_tpu_torch.cli import benchmark
+        batch = args.batch or (4 if args.family == "nnet" else 16)
+        make = (benchmark.nnet_step if args.family == "nnet"
+                else benchmark.motion_step)
+        step = make(batch, h, w, device)
     else:
         batch = args.batch or (32 if args.family == "flow" else 128)
         step = _train_step(args.family, batch, h, w, device)

@@ -30,7 +30,8 @@ import torch.nn.functional as F
 from sndepth_tpu_torch.models.efficientnet import (BlockSpec,
                                                    EfficientNetEncoder,
                                                    same_pad)
-from sndepth_tpu_torch.models.normal_decoder import NormalDecoder
+from sndepth_tpu_torch.models.normal_decoder import (NormalDecoder,
+                                                     resize_nearest)
 from sndepth_tpu_torch.ops.edges import propagate
 from sndepth_tpu_torch.ops.patches import extract_patches_tap_last
 
@@ -157,17 +158,6 @@ def n2d_depth(pre_norm: torch.Tensor, grid: torch.Tensor,
     weight = valid_angle / (valid_angle.sum(-1, keepdim=True) + 1e-5)
     depth = (est_depth * weight).sum(-1)
     return depth.clamp(0.0, 10.0)[..., None]
-
-
-def resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """(B, C, H, W) -> (B, C, h, w) by ``jax.image.resize(...,
-    "nearest")``: half-pixel centres, source index floor((i + 0.5) n / m)
-    in float32 (torch's ``"nearest-exact"``, not ``"nearest"``)."""
-    def index(n_in, n_out):
-        i = torch.arange(n_out, dtype=torch.float32, device=x.device)
-        return torch.floor((i + 0.5) * n_in / n_out).long()
-    return x.index_select(2, index(x.shape[2], h)).index_select(
-        3, index(x.shape[3], w))
 
 
 class ConvStack(nn.Sequential):

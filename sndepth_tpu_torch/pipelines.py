@@ -2,7 +2,8 @@
 
 Counterpart of ``sndepth_tpu/pipelines.py``. Ported so far:
 :class:`GeoNetStage` (disparity, depth and poses from a 3-view batch),
-:class:`NNETStage` (normals and refined depth) and :class:`RAFT3DStage`
+:class:`NNETStage` (normals and refined depth), :class:`MotionStage` (the
+motion class map from an image and a flow image) and :class:`RAFT3DStage`
 (scene flow from two frames, their depths and the intrinsics). A stage
 builds its model once, on an explicit device, and runs it without
 gradients; everything between its input and its output stays on that
@@ -15,11 +16,13 @@ from __future__ import annotations
 import torch
 
 from sndepth_tpu_torch.core.config import GeoNetConfig, apply_precision
+from sndepth_tpu_torch.models import motionseg
 from sndepth_tpu_torch.models import nnet as nnet_lib
 from sndepth_tpu_torch.models import raft3d
 from sndepth_tpu_torch.ops import se3
 from sndepth_tpu_torch.ops.edges import edge_model_inputs
 from sndepth_tpu_torch.train import geonet as geonet_lib
+from sndepth_tpu_torch.train import motion as motion_lib
 
 
 class GeoNetStage:
@@ -92,6 +95,35 @@ class NNETStage:
         norm, depth, _ = self.model(pre_depth.to(self.device), rgb, edge_in,
                                     edge_in[..., :1])
         return {"normals": norm, "depth": depth}
+
+
+class MotionStage:
+    """``stage(image01, flow_rgb)`` -> the argmax class map (B, H, W),
+    int64: MotionFusionNet in float32 on its running statistics, as the JAX
+    stage runs it (`predict.py:74-85`).
+
+    ``image01`` and ``flow_rgb`` (B, 3, H, W) in [0, 1], H and W multiples
+    of 16. Without a ``state_dict`` (the reference's key names) the weights
+    are random, drawn from seed 0."""
+
+    def __init__(self, state_dict: dict | None = None, device="cuda"):
+        self.device = torch.device(device)
+        self.model = motionseg.MotionFusionNet()
+        if state_dict is None:
+            motionseg.init_weights(self.model,
+                                   torch.Generator().manual_seed(0))
+        else:
+            self.model.load_state_dict(state_dict)
+        self.model.to(self.device).eval()
+
+    def __call__(self, image01: torch.Tensor,
+                 flow_rgb: torch.Tensor) -> torch.Tensor:
+        image01 = image01.to(self.device)
+        batch = {"image": image01.permute(0, 2, 3, 1),
+                 "flow": flow_rgb.to(self.device).permute(0, 2, 3, 1),
+                 "label": torch.zeros(image01.shape[0], *image01.shape[2:],
+                                      dtype=torch.long, device=self.device)}
+        return motion_lib.eval_step(self.model, batch)["pred"]
 
 
 class RAFT3DStage:

@@ -3,10 +3,11 @@
 Counterpart of ``sndepth_tpu/train/loop.py`` on one device, without its
 mesh, multi-host and trace branches. A GeoNet checkpoint is one
 ``torch.save`` of the state dicts of the nets (DispNetS, PoseNet and, in
-stage 2, FlowNet) and of the optimizer, and the counters. A RAFT3D checkpoint
-is two files in its directory: ``raft3d.pth``, the model's state dict as the
-submission writer's ``--ckpt_dir`` loads it, and ``raft3d_train_state.pt``,
-the optimizer's moments and the counters.
+stage 2, FlowNet) and of the optimizer, and the counters. A RAFT3D, motion
+or NNET checkpoint is two files in its directory: the model's state dict
+(``raft3d.pth``, ``motion.pth``, ``nnet.pth``), as the serving and evaluation
+CLIs' ``--ckpt_dir`` load it, and the optimizer's moments with the counters
+(``*_train_state.pt``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,13 @@ from sndepth_tpu_torch.core.config import GeoNetConfig
 from sndepth_tpu_torch.data.prefetch import device_prefetch
 from sndepth_tpu_torch.train import geonet, raft3d
 from sndepth_tpu_torch.utils.logging import MetricLogger
+
+RAFT3D_MODEL_FILE = "raft3d.pth"
+RAFT3D_STATE_FILE = "raft3d_train_state.pt"
+MOTION_MODEL_FILE = "motion.pth"
+MOTION_STATE_FILE = "motion_train_state.pt"
+NNET_MODEL_FILE = "nnet.pth"
+NNET_STATE_FILE = "nnet_train_state.pt"
 
 
 def _save(obj, path: str) -> None:
@@ -140,35 +148,123 @@ def train_geonet(config: GeoNetConfig, batches: Iterator[dict],
     return state, logger.records
 
 
-RAFT3D_MODEL_FILE = "raft3d.pth"
-RAFT3D_STATE_FILE = "raft3d_train_state.pt"
+def _save_split(model: torch.nn.Module, rest: dict, ckpt_dir: str,
+                model_file: str, state_file: str) -> str:
+    """Write ``model``'s state dict and ``rest`` (the optimizer's and the
+    counters) as two files of ``ckpt_dir``; returns the model's path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, model_file)
+    _save(model.state_dict(), path)
+    _save(rest, os.path.join(ckpt_dir, state_file))
+    return path
+
+
+def _restore_split(model: torch.nn.Module, optimizer, ckpt_dir: str,
+                   model_file: str, state_file: str) -> dict:
+    """Load what :func:`_save_split` wrote into ``model`` and ``optimizer``;
+    returns the counters' dict."""
+    model.load_state_dict(torch.load(os.path.join(ckpt_dir, model_file),
+                                     map_location="cpu", weights_only=True))
+    rest = torch.load(os.path.join(ckpt_dir, state_file),
+                      map_location="cpu", weights_only=True)
+    optimizer.load_state_dict(rest["optimizer"])
+    return rest
 
 
 def save_raft3d_checkpoint(state: raft3d.RAFT3DTrainState,
                            ckpt_dir: str) -> str:
     """Write the model and the rest of the train state; returns the
     model's path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    path = os.path.join(ckpt_dir, RAFT3D_MODEL_FILE)
-    _save(state.model.state_dict(), path)
-    _save({"step": state.step, "notfinite_count": state.notfinite_count,
-           "calls": state.calls, "optimizer": state.optimizer.state_dict()},
-          os.path.join(ckpt_dir, RAFT3D_STATE_FILE))
-    return path
+    return _save_split(
+        state.model, {"step": state.step,
+                      "notfinite_count": state.notfinite_count,
+                      "calls": state.calls,
+                      "optimizer": state.optimizer.state_dict()},
+        ckpt_dir, RAFT3D_MODEL_FILE, RAFT3D_STATE_FILE)
 
 
 def restore_raft3d_checkpoint(state: raft3d.RAFT3DTrainState,
                               ckpt_dir: str) -> None:
     """Load what :func:`save_raft3d_checkpoint` wrote into ``state``."""
-    state.model.load_state_dict(torch.load(
-        os.path.join(ckpt_dir, RAFT3D_MODEL_FILE), map_location="cpu",
-        weights_only=True))
-    rest = torch.load(os.path.join(ckpt_dir, RAFT3D_STATE_FILE),
-                      map_location="cpu", weights_only=True)
-    state.optimizer.load_state_dict(rest["optimizer"])
+    rest = _restore_split(state.model, state.optimizer, ckpt_dir,
+                          RAFT3D_MODEL_FILE, RAFT3D_STATE_FILE)
     state.step = int(rest["step"])
     state.notfinite_count = int(rest["notfinite_count"])
     state.calls = int(rest.get("calls", state.step))
+
+
+def save_motion_checkpoint(state, ckpt_dir: str) -> str:
+    """Write a :class:`~sndepth_tpu_torch.train.motion.MotionTrainState`:
+    ``motion.pth`` (the model, in the reference's key names) and its
+    optimizer and step; returns the model's path."""
+    return _save_split(
+        state.model, {"step": state.step,
+                      "optimizer": state.optimizer.state_dict()},
+        ckpt_dir, MOTION_MODEL_FILE, MOTION_STATE_FILE)
+
+
+def restore_motion_checkpoint(state, ckpt_dir: str) -> None:
+    """Load what :func:`save_motion_checkpoint` wrote into ``state``."""
+    rest = _restore_split(state.model, state.optimizer, ckpt_dir,
+                          MOTION_MODEL_FILE, MOTION_STATE_FILE)
+    state.step = int(rest["step"])
+
+
+def load_motion_weights(path: str) -> dict:
+    """A MotionFusionNet state dict in the reference's key names: the
+    ``motion.pth`` of ``path`` where it is a directory (what
+    :func:`save_motion_checkpoint` writes), else the file at ``path`` (such
+    as the reference's ``best.pt`` saved as a state dict), DataParallel's
+    ``module.`` prefixes dropped as ``convert_motionfusion`` drops them."""
+    if os.path.isdir(path):
+        path = os.path.join(path, MOTION_MODEL_FILE)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k.removeprefix("module."): v for k, v in sd.items()}
+
+
+def save_nnet_checkpoint(state, ckpt_dir: str) -> str:
+    """Write a :class:`~sndepth_tpu_torch.train.nnet.NNETTrainState`:
+    ``nnet.pth`` (the encoder's and decoder's weights, which
+    ``cli/evaluate_normals.py --ckpt_dir`` reads) and the optimizer, step
+    and sampler state; returns the model's path."""
+    return _save_split(state.model, {
+        "step": state.step, "optimizer": state.optimizer.state_dict(),
+        "generator": state.generator.get_state()},
+        ckpt_dir, NNET_MODEL_FILE, NNET_STATE_FILE)
+
+
+def restore_nnet_checkpoint(state, ckpt_dir: str) -> None:
+    """Load what :func:`save_nnet_checkpoint` wrote into ``state``."""
+    rest = _restore_split(state.model, state.optimizer, ckpt_dir,
+                          NNET_MODEL_FILE, NNET_STATE_FILE)
+    state.step = int(rest["step"])
+    state.generator.set_state(rest["generator"])
+
+
+def run_steps(step, batches: Iterator[dict], max_steps: int, *, device,
+              log_every: int) -> list[dict]:
+    """``step(batch)`` on ``max_steps`` numpy ``batches`` moved to
+    ``device``, printing ``step i/n`` and the metrics, detached scalars, of
+    every ``log_every``-th step and the last; returns those records with
+    their ``step``."""
+    device = torch.device(device)
+    records = []
+    t0 = time.perf_counter()
+    batches = device_prefetch(batches, device)
+    for i in range(1, max_steps + 1):
+        metrics = step(next(batches))
+        if i % log_every == 0 or i == max_steps:
+            record = {"step": i, **{k: float(v) for k, v in metrics.items()}}
+            records.append(record)
+            print(f"step {i}/{max_steps} " + " ".join(
+                f"{k}={v:.4f}" for k, v in record.items() if k != "step"),
+                flush=True)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    print(f"trained {max_steps} steps in {dt:.1f}s "
+          f"({dt / max(max_steps, 1) * 1e3:.0f} ms/step)", flush=True)
+    return records
 
 
 def train_raft3d(batches: Iterator[dict], max_steps: int, *, device,

@@ -3,12 +3,13 @@
 The inverse of ``sndepth_tpu/utils/convert_weights.py``
 (:func:`convert_dispnet`, :func:`convert_flownet`,
 :func:`convert_posenet`, :func:`convert_raft3d`,
-:func:`convert_efficientnet`, :func:`convert_normal_decoder`). Parameters come in as
-nested dicts of numpy arrays. Conv kernels (kh, kw, in, out) become
-(out, in, kh, kw); ConvTranspose kernels become (in, out, kh, kw) by a
-plain transpose, because the JAX ``TorchConvTranspose2x`` flips its taps at
-apply time. Flax ``_UpConv_i`` / ``_IConv_i`` are torch level ``7 - i``;
-heads ``Conv_0..3`` are ``predict_disp4..1`` (DispNetS) or ``flow4..1``
+:func:`convert_efficientnet`, :func:`convert_normal_decoder`,
+:func:`convert_motionfusion`). Parameters come in as nested dicts of numpy
+arrays. Conv kernels (kh, kw, in, out) become (out, in, kh, kw);
+ConvTranspose kernels become (in, out, kh, kw) by a plain transpose, because
+the JAX ``TorchConvTranspose2x`` flips its taps at apply time, except
+MotionFusionNet's head, whose taps flax stores flipped. Flax ``_UpConv_i`` /
+``_IConv_i`` are torch level ``7 - i``; heads ``Conv_0..3`` are ``predict_disp4..1`` (DispNetS) or ``flow4..1``
 (FlowNet).
 """
 
@@ -226,4 +227,74 @@ def nnet_state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
         p = params["refiner"][stack]
         for i in range(len(p)):
             _conv(sd, f"refiner.{stack}.{2 * i}", p[f"Conv_{i}"])
+    return sd
+
+
+def normalnet_state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
+    """JAX ``NormalNet`` variables (``EfficientNetEncoder_0`` and
+    ``NormalDecoder_0`` subtrees) -> :class:`~sndepth_tpu_torch.train.nnet.
+    NormalNet` state_dict, under the ``encoder.`` and ``decoder.`` names of
+    :func:`nnet_state_dict_from_jax`."""
+    sd: dict = {}
+    _efficientnet(sd, "encoder.", params["EfficientNetEncoder_0"],
+                  batch_stats["EfficientNetEncoder_0"])
+    _normal_decoder(sd, "decoder.", params["NormalDecoder_0"],
+                    batch_stats.get("NormalDecoder_0"))
+    return sd
+
+
+def _conv_bn(sd: dict, conv: str, bn: str, p: dict, stats: dict,
+             i: int) -> None:
+    _conv(sd, conv, p[f"Conv_{i}"])
+    _bn(sd, bn, p[f"BatchNorm_{i}"], stats[f"BatchNorm_{i}"])
+
+
+def _residual_unit(sd: dict, t: str, spec, p: dict, stats: dict) -> None:
+    """One ``ResidualUnit``: ``Conv_i`` / ``BatchNorm_i`` in the order the
+    JAX unit makes them, the shortcut's last."""
+    if spec.branch_dilations is None:
+        names = [(f"{t}.layer_1.{j}", f"{t}.layer_1.{j + 1}")
+                 for j in (0, 3, 6)]
+        if spec.project:
+            names.append((f"{t}.layer_2.0", f"{t}.layer_2.1"))
+    else:
+        names = [(f"{t}.{n}.0", f"{t}.{n}.1") for n in (
+            "initial_conv", "branch1", "branch2", "final_conv")]
+        if spec.project:
+            names.append((f"{t}.down_conv.0", f"{t}.down_conv.1"))
+    for i, (conv, bn) in enumerate(names):
+        _conv_bn(sd, conv, bn, p, stats, i)
+
+
+def motionfusion_state_dict_from_jax(params: dict, batch_stats: dict
+                                     ) -> dict:
+    """JAX ``MotionFusionNet`` variables -> :class:`~sndepth_tpu_torch.
+    models.motionseg.MotionFusionNet` state_dict, in the reference's names
+    (what ``convert_motionfusion`` reads). The head's flax kernel (16, 16,
+    in, out) holds its taps flipped: it becomes (in, out, 16, 16) flipped
+    back."""
+    from sndepth_tpu_torch.models.motionseg import (FUSION_UNITS,
+                                                    MOTION_UNITS,
+                                                    SEMANTIC_UNITS)
+    sd: dict = {}
+    for tower, jname, units, layer1 in (
+            ("motionFeatureNet", "MotionFeatureNet_0", MOTION_UNITS, (0,)),
+            ("semanticFeatureNet", "SemanticFeatureNet_0", SEMANTIC_UNITS,
+             (0, 3))):
+        p, st = params[jname], batch_stats[jname]
+        for i, j in enumerate(layer1):
+            _conv_bn(sd, f"{tower}.layer1.{j}", f"{tower}.layer1.{j + 1}",
+                     p, st, i)
+        for i, spec in enumerate(units):
+            _residual_unit(sd, f"{tower}.layer3.{i}", spec,
+                           p[f"ResidualUnit_{i}"], st[f"ResidualUnit_{i}"])
+    for i, spec in enumerate(FUSION_UNITS):
+        _residual_unit(sd, f"layer1.{i}", spec, params[f"ResidualUnit_{i}"],
+                       batch_stats[f"ResidualUnit_{i}"])
+    _conv_bn(sd, "layer2.0", "layer2.1", params, batch_stats, 0)
+    head = params["ConvTranspose_0"]
+    sd["layer3.0.weight"] = _t(np.asarray(head["kernel"])[::-1, ::-1],
+                               (2, 3, 0, 1))
+    sd["layer3.0.bias"] = _b(head["bias"])
+    _bn(sd, "layer3.1", params["BatchNorm_1"], batch_stats["BatchNorm_1"])
     return sd

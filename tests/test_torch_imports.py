@@ -52,7 +52,11 @@ def test_every_module_imports_with_jax_unavailable():
                  "ops.edges", "models.efficientnet", "models.normal_decoder",
                  "models.nnet", "data.nyu", "utils.visualize",
                  "cli.evaluate_depth", "cli.evaluate_normals",
-                 "cli.predict_raft3d", "utils.profiling"):
+                 "cli.predict_raft3d", "utils.profiling", "models.motionseg",
+                 "losses.segmentation", "losses.normal_loss", "train.motion",
+                 "train.nnet", "data.kitti_motion", "cli.predict",
+                 "cli.predict_motion", "cli.evaluate_motion",
+                 "cli.train_motion", "cli.train_nnet"):
         assert f"sndepth_tpu_torch.{name}" in names, name
     code = ("import sys, tempfile\n"
             "import torch\n"
@@ -320,7 +324,7 @@ def test_kitti_submission_cli_says_that_data_parallel_waits(capsys):
     assert "not ported yet" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("family", ["nnet", "motion", "vae"])
+@pytest.mark.parametrize("family", ["vae"])
 def test_benchmark_cli_refuses_families_that_are_not_ported(family, capsys):
     from sndepth_tpu_torch.cli import benchmark
     with pytest.raises(SystemExit) as exc:
@@ -338,7 +342,42 @@ def test_benchmark_cli_prints_one_json_line_per_family(capsys):
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("{")]
     assert lines == results
-    assert [r["family"] for r in results] == ["geonet", "flow", "raft3d"]
+    assert [r["family"] for r in results] == ["geonet", "flow", "nnet",
+                                              "motion", "raft3d"]
     for r in results:
         assert set(r) == {"family", "ms_per_step", "value", "unit"}
-        assert r["unit"] == "frames/sec" and r["ms_per_step"] > 0
+        assert r["ms_per_step"] > 0
+        assert r["unit"] == ("img/sec" if r["family"] in ("nnet", "motion")
+                             else "frames/sec")
+
+
+@pytest.mark.parametrize("cli", ["train_motion", "train_nnet", "predict",
+                                 "predict_motion"])
+def test_motion_and_nnet_clis_default_device_needs_a_card(cli, tmp_path):
+    """Without ``--device`` the new CLIs run on the card: without one they
+    raise and write nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    import importlib
+
+    import numpy as np
+    from PIL import Image
+    main = importlib.import_module(f"sndepth_tpu_torch.cli.{cli}").main
+    out = tmp_path / "out"
+    argv = {
+        "train_motion": ["--max_steps", "1", "--batch_size", "1",
+                         "--height", "32", "--width", "64", "--data_dir",
+                         str(tmp_path / "none"), "--ckpt_dir", str(out)],
+        "train_nnet": ["--max_steps", "1", "--batch_size", "1",
+                       "--img_height", "32", "--img_width", "64",
+                       "--ckpt_dir", str(out)],
+        "predict": ["--synthetic", "--img_height", "32", "--img_width", "64",
+                    "--out_dir", str(out)],
+        "predict_motion": [str(tmp_path / "i.png"), str(tmp_path / "i.png"),
+                           "--ckpt_dir", str(tmp_path / "none"), "--out",
+                           str(out)],
+    }[cli]
+    Image.fromarray(np.zeros((20, 30, 3), np.uint8)).save(tmp_path / "i.png")
+    with pytest.raises((AssertionError, RuntimeError)):
+        main(argv)
+    assert not out.exists()

@@ -1,17 +1,23 @@
 """The port's GeoNet close and prediction entry points on the CPU:
 ``GeoNetStage`` against the JAX stage on the same weights and batch; the
-evaluation CLIs against the JAX CLIs on the same generated files, both with
-``--pred_file`` and on their network paths, each side restoring the same
-weights from its own checkpoint layout; the NYU reader and the savers
-against the JAX package's; the code that joins the GeoNet -> NNET -> RAFT3D
-prediction CLI's stages against the JAX CLI's, and the CLI at a small size;
-and ``train_geonet --profile_at``.
+evaluation CLIs (depth, normals, motion) against the JAX CLIs on the same
+generated files, both with ``--pred_file`` and on their network paths, each
+side restoring the same weights from its own checkpoint layout;
+``predict_motion`` against the JAX CLI; the NYU reader and the savers
+against the JAX package's; the code that joins the stages of the GeoNet ->
+NNET -> RAFT3D and of the fused GeoNet -> NNET -> rigid flow -> motion
+prediction CLIs against the JAX CLIs', and both CLIs at a small size;
+``train_geonet --profile_at``; ``train_motion`` and ``train_nnet`` for two
+steps, their checkpoints restored.
 
 Tolerances: the stage's disparity, depth and images 1e-5 relative by norm,
 its poses 1e-4 (float32 convolutions summed in another order; the pose head
 averages small values); the CLIs' metrics rtol 1e-5 (the same arithmetic in
 float32, means summed in another order), DispNetS's disparities 1e-5
-relative by norm. Every output is asserted finite.
+relative by norm; the motion class maps and PNGs equal; in the fused
+prediction the images handed to the motion stage within 1e-5 (the rigid
+flow's float32 arithmetic in another order, through the HSV colouring) and
+the flow PNG within one level. Every output is asserted finite.
 """
 
 import json
@@ -27,24 +33,35 @@ from PIL import Image
 
 from sndepth_tpu import pipelines as jpipe
 from sndepth_tpu.cli import evaluate_depth as jeval_depth
+from sndepth_tpu.cli import evaluate_motion as jeval_motion
 from sndepth_tpu.cli import evaluate_normals as jeval_normals
+from sndepth_tpu.cli import predict as jpredict
+from sndepth_tpu.cli import predict_motion as jpredict_motion
 from sndepth_tpu.core.config import GeoNetConfig as JaxGeoNetConfig
 from sndepth_tpu.data.nyu import NYUv2Dataset as JaxNYU
+from sndepth_tpu.models import motionseg as jm
 from sndepth_tpu.models import nnet as jnnet
 from sndepth_tpu.train import checkpoint as jckpt
 from sndepth_tpu.train import geonet as jgeo
+from sndepth_tpu.train import motion as jmt
 from sndepth_tpu.utils import visualize as jvis
 from sndepth_tpu_torch import pipelines as tpipe
 from sndepth_tpu_torch.cli import evaluate_depth, evaluate_normals
+from sndepth_tpu_torch.cli import evaluate_motion, predict, predict_motion
 from sndepth_tpu_torch.cli import predict_raft3d, train_geonet
+from sndepth_tpu_torch.cli import train_motion, train_nnet
 from sndepth_tpu_torch.core.config import GeoNetConfig
 from sndepth_tpu_torch.data.nyu import NYUv2Dataset
 from sndepth_tpu_torch.data.synthetic import synthetic_batches
+from sndepth_tpu_torch.models.motionseg import MotionFusionNet
 from sndepth_tpu_torch.train import geonet as tgeo
 from sndepth_tpu_torch.train import loop
+from sndepth_tpu_torch.train import motion as tmt
+from sndepth_tpu_torch.train import nnet as tnt
 from sndepth_tpu_torch.utils import visualize as tvis
 from sndepth_tpu_torch.utils.threads import torch_threads
 from sndepth_tpu_torch.utils.weights import (dispnet_state_dict_from_jax,
+                                             motionfusion_state_dict_from_jax,
                                              nnet_state_dict_from_jax,
                                              posenet_state_dict_from_jax)
 
@@ -417,3 +434,310 @@ def test_train_geonet_profile_at_writes_a_trace(tmp_path, capsys):
     lines = [ln for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("{")]
     assert json.loads(lines[0])["trace"] == str(trace)
+
+
+# --- motion segmentation and the fused prediction --------------------------
+
+MH, MW = 32, 64
+
+
+def _motion_tree(root, n, h, w, seed):
+    rng = np.random.RandomState(seed)
+    for sub in ("image", "flow", "label"):
+        os.makedirs(os.path.join(root, "val", sub))
+    for i in range(n):
+        for sub in ("image", "flow"):
+            Image.fromarray(rng.randint(0, 256, (h, w, 3), np.uint8)).save(
+                os.path.join(root, "val", sub, f"{i:06d}.png"))
+        label = np.zeros((h, w, 3), np.uint8)
+        label[..., 0] = 100 * rng.randint(0, 3, (h, w))
+        Image.fromarray(label).save(
+            os.path.join(root, "val", "label", f"{i:06d}.png"))
+
+
+@pytest.fixture(scope="module")
+def motion_ckpts(tmp_path_factory):
+    """Full-width MotionFusionNet variables drawn by numpy for
+    ``jax.eval_shape`` of ``init``, saved for the JAX CLIs through
+    ``sndepth_tpu.train.checkpoint`` as a train state (its optimizer state
+    empty: the CLIs restore into a template of that structure) and for the
+    port as ``train_motion`` writes them (``motion.pth``). Returns the two
+    directories and the template."""
+    x = jnp.zeros((1, MH, MW, 3))
+    shapes = jax.eval_shape(lambda k: jm.MotionFusionNet().init(k, x, x),
+                            jax.random.PRNGKey(0))
+    rng = np.random.RandomState(20)
+
+    def fill(path, leaf):
+        name = path[-1].key
+        if name == "kernel":
+            a = rng.randn(*leaf.shape) / np.sqrt(np.prod(leaf.shape[:-1]))
+        elif name == "var":
+            a = 0.5 + rng.rand(*leaf.shape)
+        elif name == "scale":
+            a = 1.0 + 0.1 * rng.randn(*leaf.shape)
+        else:                                    # bias, mean
+            a = 0.1 * rng.randn(*leaf.shape)
+        return a.astype(np.float32)
+
+    v = jax.tree_util.tree_map_with_path(fill, shapes)
+
+    def state(tree):
+        return jmt.MotionTrainState(step=np.zeros((), np.int32),
+                                    params=tree["params"],
+                                    batch_stats=tree["batch_stats"],
+                                    opt_state=())
+
+    root = tmp_path_factory.mktemp("motion_ckpts")
+    jckpt.save_checkpoint(str(root / "jax"), state(v), step=0)
+    os.makedirs(root / "torch")
+    torch.save(motionfusion_state_dict_from_jax(v["params"],
+                                                v["batch_stats"]),
+               root / "torch" / loop.MOTION_MODEL_FILE)
+    template = state(jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, s.dtype), shapes))
+    return str(root / "jax"), str(root / "torch"), template
+
+
+def _motion_template(monkeypatch, template):
+    """The JAX CLIs' ``init_motion_state`` (a jitted full-width init) only
+    makes the template their restore fills: hand them the template."""
+    monkeypatch.setattr(jmt, "init_motion_state",
+                        lambda *args, **kwargs: template)
+
+
+def test_evaluate_motion_matches_jax(tmp_path, motion_ckpts, monkeypatch):
+    """Four validation samples in batches of two, the same weights on both
+    sides: the mean of the batches' mIoU in ``--metrics_json``."""
+    jdir, tdir, template = motion_ckpts
+    _motion_tree(str(tmp_path), 4, MH, MW, 21)
+    _motion_template(monkeypatch, template)
+    argv = ["--data_dir", str(tmp_path), "--batch_size", "2"]
+    got = _cli_metrics(evaluate_motion.main, argv + [
+        "--ckpt_dir", tdir, "--device", "cpu"], str(tmp_path / "t.json"))
+    want = _cli_metrics(jeval_motion.main, argv + ["--ckpt_dir", jdir],
+                        str(tmp_path / "j.json"))
+    assert set(got) == {"miou"} and 0 < got["miou"] <= 1
+    _assert_same_metrics(got, want)
+
+
+def test_predict_motion_matches_jax(tmp_path, motion_ckpts, monkeypatch,
+                                    capsys):
+    """A 30x60 image and flow image, padded to 32x64: the same overlay PNG
+    and the same class histogram line."""
+    jdir, tdir, template = motion_ckpts
+    _motion_template(monkeypatch, template)
+    rng = np.random.RandomState(22)
+    for name in ("image", "flow"):
+        Image.fromarray(rng.randint(0, 256, (30, 60, 3), np.uint8)).save(
+            tmp_path / f"{name}.png")
+    args = [str(tmp_path / "image.png"), str(tmp_path / "flow.png")]
+    pred = predict_motion.main(args + ["--ckpt_dir", tdir, "--out", str(
+        tmp_path / "t.png"), "--device", "cpu"])
+    t_line = capsys.readouterr().out.strip().splitlines()[-1]
+    jpredict_motion.main(args + ["--ckpt_dir", jdir, "--out",
+                                 str(tmp_path / "j.png")])
+    j_line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert pred.shape == (30, 60) and set(np.unique(pred)) <= {0, 1, 2}
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "t.png")),
+                                  np.asarray(Image.open(tmp_path / "j.png")))
+    assert t_line.split(";")[1] == j_line.split(";")[1]
+
+
+def test_motion_weights_load_from_a_reference_state_dict(tmp_path,
+                                                         motion_ckpts):
+    """``--ckpt_dir`` also takes a file: a state dict in the reference's
+    names, with DataParallel's ``module.`` prefixes."""
+    sd = torch.load(os.path.join(motion_ckpts[1], loop.MOTION_MODEL_FILE),
+                    weights_only=True)
+    torch.save({"module." + k: v for k, v in sd.items()},
+               tmp_path / "best.pt")
+    got = loop.load_motion_weights(str(tmp_path / "best.pt"))
+    assert set(got) == set(sd)
+    assert all(torch.equal(got[k], sd[k]) for k in sd)
+
+
+def _kitti_testing_tree(root, frames, seed):
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "testing", "seq"))
+    os.makedirs(os.path.join(root, "testing", "calib_cam_to_cam"))
+    for i in range(frames):
+        Image.fromarray(rng.randint(0, 256, (40, 70, 3), np.uint8)).save(
+            os.path.join(root, "testing", "seq", f"{i:06d}.png"))
+        with open(os.path.join(root, "testing", "calib_cam_to_cam",
+                               f"{i:06d}.txt"), "w") as f:
+            f.write("K_02: 50 0 32 0 50 20 0 0 1\n")
+
+
+@pytest.mark.parametrize("source", ["synthetic", "testing_tree"])
+def test_predict_joins_its_stages_as_jax_does(tmp_path, monkeypatch,
+                                              source):
+    """The code between the fused prediction CLI's stages against the JAX
+    CLI's: on each side GeoNet, NNET and the motion stage are stubs that
+    record what they are handed and return the same numpy values in their
+    side's layout; the rigid flow and its colouring are each side's own.
+    On the synthetic stream the batch's 3x3 intrinsics are used, on a
+    ``testing/seq`` tree (4-vector intrinsics) a K made from the image
+    size. Compared: the batches, the depth and image NNET gets, the image
+    and flow colouring the motion stage gets, the PNGs and ``poses.csv``
+    (the last batch's poses)."""
+    h, w = 16, 24
+    rng = np.random.RandomState(23)
+    argv = ["--img_height", str(h), "--img_width", str(w)]
+    if source == "synthetic":
+        argv += ["--synthetic", "--max_batches", "2"]
+    else:
+        _kitti_testing_tree(str(tmp_path / "data"), 2, 24)
+        argv += ["--root", str(tmp_path / "data")]
+
+    def draw(*shape, lo=-1.0, hi=1.0):
+        return (lo + (hi - lo) * rng.rand(*shape)).astype(np.float32)
+
+    outs = [{"depth": draw(1, h, w, lo=1.0, hi=30), "tgt": draw(1, h, w, 3),
+             "src": draw(1, h, w, 6), "poses": draw(1, 2, 6, lo=-0.1,
+                                                     hi=0.1),
+             "refined": draw(1, h, w, 1, lo=1.0, hi=20),
+             "normals": draw(1, h, w, 3),
+             "seg": rng.randint(0, 3, (1, h, w))} for _ in range(2)]
+
+    def stubs(seen, arr, nchw, nhwc):
+        class Stage:
+            def __init__(self, *args, **kwargs):
+                pass
+
+        class GeoNet(Stage):
+            def __call__(self, batch):
+                seen.append({k: np.asarray(v) for k, v in batch.items()})
+                o = outs[len(seen) - 1]
+                return {"depth": arr(o["depth"]), "tgt_norm": nchw(o["tgt"]),
+                        "src_norm": nchw(o["src"]), "poses": arr(o["poses"])}
+
+        class NNET(Stage):
+            def __call__(self, pre_depth, rgb):
+                seen[-1].update(pre_depth=np.asarray(pre_depth),
+                                rgb=np.asarray(nhwc(rgb)))
+                o = outs[len(seen) - 1]
+                return {"depth": arr(o["refined"]),
+                        "normals": arr(o["normals"])}
+
+        class Motion(Stage):
+            def __call__(self, image01, flow_rgb):
+                seen[-1].update(image01=np.asarray(nhwc(image01)),
+                                flow_rgb=np.asarray(nhwc(flow_rgb)))
+                return arr(outs[len(seen) - 1]["seg"])
+        return GeoNet, NNET, Motion
+
+    seen = {"jax": [], "torch": []}
+    for side, mod, arr, nchw, nhwc in (
+            ("jax", jpipe, jnp.asarray, jnp.asarray, lambda x: x),
+            ("torch", tpipe, torch.from_numpy,
+             lambda a: torch.from_numpy(a).permute(0, 3, 1, 2),
+             lambda x: x.permute(0, 2, 3, 1))):
+        for name, stub in zip(("GeoNetStage", "NNETStage", "MotionStage"),
+                              stubs(seen[side], arr, nchw, nhwc)):
+            monkeypatch.setattr(mod, name, stub)
+    jpredict.main(argv + ["--out_dir", str(tmp_path / "jax")])
+    predict.main(argv + ["--out_dir", str(tmp_path / "torch"),
+                         "--device", "cpu"])
+    assert len(seen["torch"]) == len(seen["jax"]) == 2
+    for got, want in zip(seen["torch"], seen["jax"]):
+        assert set(got) == set(want)
+        for k in want:
+            if k == "flow_rgb":
+                np.testing.assert_allclose(got[k], want[k], atol=1e-5)
+                assert want[k].std() > 0.05
+            else:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for i in range(2):
+        for name in ("depth", "norm", "seg", "flow"):
+            a, b = (np.asarray(Image.open(tmp_path / side / f"{name}_{i}.png"),
+                               np.int32) for side in ("torch", "jax"))
+            assert np.abs(a - b).max() <= (1 if name == "flow" else 0), name
+    assert ((tmp_path / "torch" / "poses.csv").read_text()
+            == (tmp_path / "jax" / "poses.csv").read_text())
+
+
+def test_predict_writes_its_files(tmp_path):
+    """GeoNet, NNET, the rigid flow and MotionFusionNet at full width on
+    the CPU at 64x64, two synthetic batches."""
+    out = predict.main(["--synthetic", "--max_batches", "2",
+                        "--img_height", "64", "--img_width", "64",
+                        "--device", "cpu", "--out_dir", str(tmp_path)])
+    assert len(out) == 2
+    for i, rec in enumerate(out):
+        assert rec["seg"].shape == (1, 64, 64)
+        assert set(np.unique(rec["seg"])) <= {0, 1, 2}
+        for name, path in rec["paths"][0].items():
+            assert path == str(tmp_path / f"{name}_{i}.png")
+            img = np.asarray(Image.open(path))
+            assert img.shape[:2] == (64, 64) and img.dtype == np.uint8
+    rows = (tmp_path / "poses.csv").read_text().strip().splitlines()
+    assert rows[0].startswith("source_index") and len(rows) == 3
+    assert all(np.isfinite(float(x)) for r in rows[1:]
+               for x in r.split(","))
+
+
+def test_predict_refuses_raft2d_flow(capsys):
+    """RAFT2D is not ported: the CLI exits rather than fall back to rigid
+    flow."""
+    for source in ("raft2d", "raft2d_large"):
+        with pytest.raises(SystemExit) as exc:
+            predict.main(["--flow_source", source, "--device", "cpu"])
+        assert exc.value.code != 0
+        assert "not ported" in capsys.readouterr().err
+
+
+def _assert_same_optimizer(got, want):
+    got, want = got.state_dict(), want.state_dict()
+    assert got["param_groups"] == want["param_groups"]
+    assert set(got["state"]) == set(want["state"]) and want["state"]
+    for i, moments in want["state"].items():
+        for k, v in moments.items():
+            assert torch.equal(got["state"][i][k], v), (i, k)
+
+
+def test_train_motion_writes_a_checkpoint_that_restores(tmp_path):
+    """Two float32 steps on the synthetic stream, logged each step; the
+    checkpoint restores the model, Adam's moments and the step."""
+    state, records = train_motion.main(
+        ["--max_steps", "2", "--batch_size", "1", "--height", str(MH),
+         "--width", str(MW), "--log_every", "1", "--dtype", "f32",
+         "--data_dir", str(tmp_path / "none"), "--ckpt_dir",
+         str(tmp_path / "ckpt"), "--device", "cpu"])
+    assert [r["step"] for r in records] == [1, 2] and state.step == 2
+    assert all(np.isfinite(r["loss"]) and 0 <= r["pixel_acc"] <= 1
+               for r in records)
+    fresh = tmt.create_train_state(MotionFusionNet(), "cpu")
+    loop.restore_motion_checkpoint(fresh, str(tmp_path / "ckpt"))
+    assert fresh.step == 2
+    for (name, a), b in zip(state.model.state_dict().items(),
+                            fresh.model.state_dict().values()):
+        assert torch.equal(a, b), name
+    _assert_same_optimizer(fresh.optimizer, state.optimizer)
+
+
+def test_train_nnet_writes_a_checkpoint_that_restores_and_serves(tmp_path):
+    """Two steps on the synthetic stream; the checkpoint restores the
+    model, AdamW's moments, the step and the sampler's generator, and its
+    ``nnet.pth`` serves ``evaluate_normals --ckpt_dir``."""
+    state, records = train_nnet.main(
+        ["--max_steps", "2", "--batch_size", "1", "--img_height", str(MH),
+         "--img_width", str(MW), "--log_every", "1", "--ckpt_dir",
+         str(tmp_path / "ckpt"), "--device", "cpu"])
+    assert [r["step"] for r in records] == [1, 2] and state.step == 2
+    assert all(np.isfinite(r["loss"]) for r in records)
+    fresh = tnt.create_train_state(tnt.NormalNet(), "cpu", seed=1)
+    loop.restore_nnet_checkpoint(fresh, str(tmp_path / "ckpt"))
+    assert fresh.step == 2
+    assert torch.equal(fresh.generator.get_state(),
+                       state.generator.get_state())
+    for (name, a), b in zip(state.model.state_dict().items(),
+                            fresh.model.state_dict().values()):
+        assert torch.equal(a, b), name
+    _assert_same_optimizer(fresh.optimizer, state.optimizer)
+    _nyu_tree(str(tmp_path / "nyu"), 1, MH, MW, 25)
+    metrics = evaluate_normals.main([
+        "--data_dir", str(tmp_path / "nyu"), "--img_height", str(MH),
+        "--img_width", str(MW), "--ckpt_dir", str(tmp_path / "ckpt"),
+        "--device", "cpu", "--log_file", str(tmp_path / "log.txt")])
+    assert all(np.isfinite(v) for v in metrics.values())
