@@ -10,7 +10,10 @@ at 128x416 and 376x1248) and RAFT3D training at full width (256x832, B = 2,
 fused GeoNet -> NNET -> RAFT3D prediction through the kernels written for
 Hopper, then MotionFusionNet serving and training, NNET training and the
 fused GeoNet -> NNET -> rigid flow -> motion prediction (which launch no
-hand-written kernel), and fails unless every phase passes:
+hand-written kernel), RAFT2D and RAFT2D-Large flow (whose lookup launches
+the gather kernel) in that prediction, the RAFT3D demo, and the VAE /
+diffusion stack (no hand-written kernel), and fails unless every phase
+passes:
 
   env        card name and power limit (nvidia-smi), torch and CUDA versions
   build      one nvcc per CUDA source, all started together
@@ -108,6 +111,26 @@ hand-written kernel), and fails unless every phase passes:
              synthetic batches at 128x416: PNGs and poses.csv read back,
              classes in {0, 1, 2}, frame times; none of the eleven kernels
              launched on these four phases' paths
+  raft2d     K5 and K5b against their plain versions on what RAFT2D-Large's
+             lookup hands K5 in a real frame at 128x416 and 376x1248 (and
+             with wild coordinates), and at a folded batch of 70,000
+             planes; float32 RAFT2D-Large and RAFT2D frames at full width,
+             128x416, 12 iterations, card against CPU; 48 K5 launches a
+             RAFT2D-Large frame (none of any other kernel, none in a RAFT2D
+             frame); frames timed and profiled; K5 at the lookup's level
+             shapes beside its plain version, ``F.grid_sample`` and its
+             bound
+  predict_raft2d  the fused prediction CLI with ``--flow_source
+             raft2d_large`` and ``raft2d`` on two synthetic batches: PNGs
+             read back, 48 K5 launches a frame with RAFT2D-Large
+  demo       the RAFT3D demo on its synthetic pair and on png / pfm files
+             the phase writes: the panel read back, 16 launches of K8 and
+             of K5 a frame
+  vae        the AutoencoderKL at full width (B = 1, 128x416), the
+             full-depth ViT and its multi-scale extractor and the pose
+             denoiser, float32 card against CPU; ``testvae``,
+             ``predict_vae`` and ``benchmark --family vae`` (B = 8,
+             profiled); none of the eleven kernels launched
 
 Each phase prints one JSON line; the full report goes to
 ``chiprun_out/chip_smoke_report.json``. The last lines are the kernels
@@ -2906,6 +2929,412 @@ def phase_predict(smi: str) -> dict:
     return launches
 
 
+RAFT2D_HW = ((128, 416), (376, 1248))   # the fused prediction; a KITTI frame
+RAFT2D_ITERS = 12               # the prediction CLI's default
+RAFT2D_LEVELS = 4
+# RAFT2DLarge's lookup: one K5 call a pyramid level an iteration.
+RAFT2D_FRAME_LAUNCHES = {"warp_gather": RAFT2D_LEVELS * RAFT2D_ITERS}
+# A folded batch past the 65535 images a grid's y dimension holds.
+K5_BIG_BATCH = 70_000
+# Float32 RAFT2D frames, card against CPU (TF32 off), from the same seeded
+# weights with the flow head's last layer scaled by RAFT2D_HEAD_SCALE, so
+# that an iteration moves the flow by a pixel or less, as a trained net
+# does: the upsampled flow within RAFT2D_TOL by norm. (With an O(10) pixel
+# random step a coordinate's last bits decide which bilinear piece of the
+# lookup it lands on, and float32 noise grows from iteration to
+# iteration.)
+RAFT2D_HEAD_SCALE = 0.01
+RAFT2D_TOL = 1e-4
+
+
+def _lookup_inputs(model, h: int, w: int, seed: int) -> list:
+    """What RAFT2DLarge's lookup hands K5 in the last of 12 iterations of a
+    frame at h x w: per level, the (B h/8 w/8, 1, h_l, w_l) planes and the
+    (B h/8 w/8, 2, 9, 9) coordinates (recorded through a wrapper around the
+    sampler the model calls)."""
+    import torch
+    from sndepth_tpu_torch.models import raft2d
+    gen = torch.Generator().manual_seed(seed)
+    img1, img2 = (torch.rand(1, 3, h, w, generator=gen).to(DEV)
+                  for _ in range(2))
+    calls = []
+    real = raft2d.bilinear_sampler_zero_pad
+
+    def record(imgs, coords):
+        calls.append((imgs, coords))
+        return real(imgs, coords)
+
+    raft2d.bilinear_sampler_zero_pad = record
+    try:
+        with torch.no_grad():
+            model(img1, img2, iters=RAFT2D_ITERS)
+    finally:
+        raft2d.bilinear_sampler_zero_pad = real
+    return calls[-RAFT2D_LEVELS:]
+
+
+def _lookup_bytes(imgs, coords) -> dict:
+    """Bytes the lookup's gather must move: the coordinates and samples,
+    and of the planes either all of them (``plane``) or only the cells its
+    taps touch (``tap_cells``: each query's window, one cell wider than
+    its 9x9 taps for the bilinear blend, cut to its plane; each cell
+    counted once a query)."""
+    import torch
+    b, c, hs, ws = imgs.shape
+
+    def span(v, size):
+        lo = torch.floor(v.flatten(1).amin(1)).clamp(min=0)
+        hi = (torch.floor(v.flatten(1).amax(1)) + 1).clamp(max=size - 1)
+        return (hi - lo + 1).clamp(min=0)
+
+    cells = (span(coords[:, 0], ws) * span(coords[:, 1], hs)).sum()
+    io = _nbytes(coords) + coords[:, :1].numel() * c * 4
+    return {"plane": io + _nbytes(imgs),
+            "tap_cells": io + float(cells) * c * 4}
+
+
+def _lookup_rows(calls, gen) -> list:
+    """K5 at each level's call: kernel, plain version and ``F.grid_sample``
+    (zeros padding, align_corners=True) timed, with the bound counted on
+    the cells the taps touch and on the whole plane."""
+    import torch
+    import torch.nn.functional as F
+    from sndepth_tpu_torch.kernels import warp as K5
+    rows = []
+    for level, (imgs, coords) in enumerate(calls):
+        b, c, hs, ws = imgs.shape
+        npix = coords.shape[2] * coords.shape[3]
+        grid = torch.stack([coords[:, 0] * (2.0 / (ws - 1)) - 1.0,
+                            coords[:, 1] * (2.0 / (hs - 1)) - 1.0], -1)
+        flops = b * npix * (20 + 7 * c)
+        nbytes = _lookup_bytes(imgs, coords)
+        by_rows = _bound(nbytes["tap_cells"], flops)
+        by_plane = _bound(nbytes["plane"], flops)
+        rows.append({
+            "level": level, "imgs": list(imgs.shape),
+            "coords": list(coords.shape),
+            "ms": time_ms(lambda: K5.warp_gather(imgs, coords, "zero_pad"),
+                          10),
+            "plain_ms": time_ms(lambda: K5.warp_gather_reference(
+                imgs, coords, "zero_pad"), 5),
+            "library_ms": time_ms(lambda: F.grid_sample(
+                imgs, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True), 10),
+            "bound_counts": "tap_cells", **by_rows,
+            "bound_ms": max(by_rows["bytes_ms"], by_rows["flops_ms"]),
+            "bound_by": ("bytes" if by_rows["bytes_ms"] >= by_rows["flops_ms"]
+                         else "operations"),
+            "plane_bytes": nbytes["plane"],
+            "plane_bound_ms": max(by_plane["bytes_ms"], by_plane["flops_ms"])})
+    return rows
+
+
+def _k5_case(name: str, imgs, coords, gen) -> dict:
+    """K5 and K5b against their plain versions on one call (the tolerances
+    of ``phase_warp``)."""
+    import torch
+    from sndepth_tpu_torch.kernels import warp as K5
+    g = torch.randn(imgs.shape[0], imgs.shape[1], *coords.shape[2:],
+                    generator=gen).to(DEV)
+    got = K5.warp_gather(imgs, coords, "zero_pad")
+    want = K5.warp_gather_reference(imgs, coords, "zero_pad")
+    dc_k = K5.warp_coord_grad(imgs, coords, g, "zero_pad")
+    dc_p = K5.warp_coord_grad_reference(imgs, coords, g, "zero_pad")
+    torch.cuda.synchronize()
+    _assert_finite(f"K5 {name}", got, dc_k)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(dc_k, dc_p, atol=1e-5, rtol=1e-5)
+    return {"case": name, "imgs": list(imgs.shape),
+            "coords": list(coords.shape), "gather_err": _max_err(got, want),
+            "coord_grad_err": _max_err(dc_k, dc_p),
+            "bit_equal": bool(torch.equal(got, want))}
+
+
+def _raft2d_pair(arch: str, seed: int):
+    """One seeded RAFT2D (``native``) or RAFT2DLarge (``large``) in float32
+    twice, on the CPU and on the card, the flow head scaled as
+    RAFT2D_HEAD_SCALE says."""
+    import torch
+    from sndepth_tpu_torch.models import raft2d
+    from sndepth_tpu_torch.models.raft3d import init_weights
+    cpu = (raft2d.RAFT2DLarge() if arch == "large" else raft2d.RAFT2D()).eval()
+    init_weights(cpu, torch.Generator().manual_seed(seed))
+    head = (cpu.update_block.flow_head.conv2 if arch == "large"
+            else cpu.update.delta[2])
+    with torch.no_grad():
+        head.weight.mul_(RAFT2D_HEAD_SCALE)
+    card = (raft2d.RAFT2DLarge() if arch == "large" else raft2d.RAFT2D())
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card.to(DEV).eval()
+
+
+def phase_raft2d(smi: str) -> tuple[dict, dict]:
+    """RAFT2D and RAFT2DLarge at full width on the card. K5 (and K5b) against
+    their plain versions on what RAFT2DLarge's lookup hands K5 in a real
+    frame at 128x416 and 376x1248, on the same planes with wild
+    coordinates, and at a folded batch of 70,000 planes of 4x6; a float32
+    frame of each net at 128x416, 12 iterations, card against CPU (TF32
+    off); 48 K5 launches and no other kernel's in a RAFT2DLarge frame
+    through ``Raft2DFlowStage``, none in a RAFT2D frame; each frame timed
+    and one profiled; K5 at the lookup's level shapes timed beside its plain
+    version and ``F.grid_sample``."""
+    import torch
+    from sndepth_tpu_torch.kernels import warp as K5
+    from sndepth_tpu_torch.pipelines import Raft2DFlowStage
+    from sndepth_tpu_torch.train.loop import profiled_step
+    gen = torch.Generator().manual_seed(31)
+    checks, lookup = [], {}
+    stages = {}
+    for h, w in RAFT2D_HW:
+        stage = Raft2DFlowStage(iters=RAFT2D_ITERS, arch="large", device=DEV)
+        calls = _lookup_inputs(stage.model, h, w, seed=h)
+        for level, (imgs, coords) in enumerate(calls):
+            checks.append(_k5_case(f"{h}x{w} level {level}", imgs, coords,
+                                   gen))
+            h8 = imgs.shape[3]
+            wild = coords + ((torch.rand(coords.shape, generator=gen) - 0.5)
+                             * 4 * (h8 + 8)).to(DEV)
+            checks.append(_k5_case(f"{h}x{w} level {level} wild", imgs, wild,
+                                   gen))
+        lookup[f"{h}x{w}"] = _lookup_rows(calls, gen)
+        stages[(h, w)] = stage
+        del calls
+    big = torch.rand(K5_BIG_BATCH, 1, 4, 6, generator=gen).to(DEV)
+    big_coords = (torch.rand(K5_BIG_BATCH, 2, 9, 9, generator=gen) * 12
+                  - 3).to(DEV)
+    checks.append(_k5_case(f"folded batch {K5_BIG_BATCH}", big, big_coords,
+                           gen))
+    del big, big_coords
+
+    # Float32 frames, card against CPU.
+    h, w = RAFT2D_HW[0]
+    img1, img2 = (torch.rand(1, 3, h, w, generator=gen) for _ in range(2))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = {}
+    try:
+        for arch in ("large", "native"):
+            cpu, card = _raft2d_pair(arch, seed=32)
+            with torch.no_grad():
+                lo_c, up_c = cpu(img1, img2, iters=RAFT2D_ITERS,
+                                 train_mode=True)
+                lo_g, up_g = card(img1.to(DEV), img2.to(DEV),
+                                  iters=RAFT2D_ITERS, train_mode=True)
+            torch.cuda.synchronize()
+            _assert_finite(f"RAFT2D {arch}", up_g, up_c)
+            f32[arch] = {"flow_up_rel": _rel(up_g, up_c),
+                         "flow_rel": _rel(lo_g, lo_c),
+                         "flow_up_max_abs": _max_err(up_g.cpu(), up_c),
+                         "flow_up_mean_abs_px": float(up_c.abs().mean())}
+            del cpu, card
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+    # Frames through the stage, as the prediction CLI runs them.
+    frames = {}
+    native = Raft2DFlowStage(iters=RAFT2D_ITERS, arch="native", device=DEV)
+    for (h, w), stage in stages.items():
+        for arch, st in (("large", stage), ("native", native)):
+            a, b = (torch.rand(1, 3, h, w, generator=gen).to(DEV)
+                    for _ in range(2))
+            reset_launches()
+            flow = st(a, b)
+            torch.cuda.synchronize()
+            launches = _used(read_launches())
+            want = RAFT2D_FRAME_LAUNCHES if arch == "large" else {}
+            if launches != want:
+                raise AssertionError(f"RAFT2D {arch} {h}x{w} frame: launches "
+                                     f"{launches}, want {want}")
+            _assert_finite(f"RAFT2D {arch} {h}x{w} frame", flow)
+            torch.cuda.reset_peak_memory_stats()
+            rec = {"launches": launches,
+                   "frame_ms": time_ms(lambda: st(a, b), 5),
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            if (h, w) == RAFT2D_HW[0]:
+                _, prof = profiled_step(lambda: st(a, b),
+                                        os.path.join(WORK_DIR, "trace"),
+                                        f"raft2d_{arch}", DEV)
+                rec["profile"] = {
+                    "kernel_ms": prof["kernel_ms"],
+                    "launches": prof["launches"], "wall_ms": prof["wall_ms"],
+                    "idle_share": 1.0 - prof["kernel_ms"] / prof["wall_ms"],
+                    "ms_by_group": prof["ms_by_group"]}
+            frames[f"{arch} {h}x{w}"] = rec
+    del stages, native
+    emit("raft2d", nvidia_smi=smi, k5_checks=checks, f32_card_vs_cpu=f32,
+         tolerance=RAFT2D_TOL, head_scale=RAFT2D_HEAD_SCALE, frames=frames,
+         lookup_times=lookup, torch=torch.__version__)
+    for arch, rec in f32.items():
+        if not rec["flow_up_rel"] <= RAFT2D_TOL:
+            raise AssertionError(f"RAFT2D {arch}, card against CPU: "
+                                 f"{rec['flow_up_rel']} > {RAFT2D_TOL}")
+    err = max(max(c["gather_err"] for c in checks),
+              max(c["coord_grad_err"] for c in checks))
+    return {"warp_gather": err}, lookup
+
+
+def phase_predict_raft2d(smi: str) -> dict:
+    """The fused prediction CLI with RAFT2D flow, each ``--flow_source``,
+    on two synthetic batches at 128x416: its PNGs read back, 48 K5 launches
+    a frame with RAFT2DLarge and no hand-written launch with the native
+    RAFT2D, frame times."""
+    import numpy as np
+    from PIL import Image
+    from sndepth_tpu_torch.cli import predict
+    frames = 2
+    h, w = MOTION_HW
+    out, counts = {}, {}
+    for source in ("raft2d_large", "raft2d"):
+        out_dir = os.path.join(WORK_DIR, f"predict_{source}")
+        reset_launches()
+        recs = predict.main(["--synthetic", "--max_batches", str(frames),
+                             "--flow_source", source, "--out_dir", out_dir,
+                             "--device", DEV])
+        launches = _used(read_launches())
+        want = ({k: v * frames for k, v in RAFT2D_FRAME_LAUNCHES.items()}
+                if source == "raft2d_large" else {})
+        if launches != want:
+            raise AssertionError(f"predict {source}: launches {launches}, "
+                                 f"want {want}")
+        files = {}
+        for rec in recs:
+            if not set(np.unique(rec["seg"])) <= {0, 1, 2}:
+                raise AssertionError(f"predict {source}: classes "
+                                     f"{np.unique(rec['seg'])}")
+            for path in rec["paths"][0].values():
+                img = np.asarray(Image.open(path))
+                if img.shape[:2] != (h, w) or img.dtype != np.uint8:
+                    raise AssertionError(f"{path}: {img.shape} {img.dtype}")
+                files[os.path.basename(path)] = float(img.std())
+        out[source] = {"ms_per_frame": [rec["ms"] for rec in recs],
+                       "launches": launches, "png_std": files}
+        counts[source] = launches
+    emit("predict_raft2d", hw=[h, w], frames=frames, nvidia_smi=smi, **out)
+    return counts
+
+
+def phase_demo(smi: str) -> dict:
+    """The RAFT3D demo on the card: its synthetic pair, then a png pair
+    with pfm depths that the phase writes (117x203, edge padded to
+    120x208): the panel read back, finite tau / phi, 16 launches of K8 and
+    of K5 a frame and none of any other kernel."""
+    import numpy as np
+    from PIL import Image
+    from sndepth_tpu_torch.cli import demo
+    from sndepth_tpu_torch.data.frame_codecs import write_pfm
+    rng = np.random.RandomState(33)
+    work = os.path.join(WORK_DIR, "demo")
+    os.makedirs(work, exist_ok=True)
+    args = []
+    for i in (1, 2):
+        Image.fromarray(rng.randint(0, 256, (117, 203, 3), np.uint8)).save(
+            os.path.join(work, f"im{i}.png"))
+        write_pfm(os.path.join(work, f"d{i}.pfm"),
+                  (2 + 8 * rng.rand(117, 203)).astype(np.float32))
+        args += [f"--image{i}", os.path.join(work, f"im{i}.png"),
+                 f"--depth{i}", os.path.join(work, f"d{i}.pfm")]
+    runs = {}
+    for name, extra, hw in (("synthetic", [], (64, 96)),
+                            ("files", args, (120, 208))):
+        out = os.path.join(work, f"{name}.png")
+        reset_launches()
+        rec = demo.main(extra + ["--out", out, "--device", DEV])
+        launches = _used(read_launches())
+        if launches != RAFT_FRAME_LAUNCHES:
+            raise AssertionError(f"demo {name}: launches {launches}, want "
+                                 f"{RAFT_FRAME_LAUNCHES}")
+        if not np.isfinite(rec["tau_phi"]).all():
+            raise AssertionError(f"demo {name}: non-finite tau / phi")
+        panel = np.asarray(Image.open(out))
+        if panel.shape != (hw[0], 2 * hw[1], 3):
+            raise AssertionError(f"demo {name}: panel {panel.shape}")
+        runs[name] = {"hw": list(hw), "ms": rec["ms"], "launches": launches,
+                      "panel_std": float(panel.std())}
+    emit("demo", nvidia_smi=smi, **runs)
+    return runs
+
+
+# The VAE stack in float32, card against CPU (TF32 off), from the same
+# seeded weights: each output within VAE_TOL by norm.
+VAE_TOL = 1e-4
+VAE_HW = (128, 416)
+
+
+def phase_vae(smi: str) -> dict:
+    """The VAE / diffusion stack at full width: the AutoencoderKL at B = 1,
+    128x416 (posterior and the reconstruction of a draw with the same
+    noise), the full-depth ViT at 128x416 and its multi-scale extractor, and
+    ``get_opt_model()`` on 32 tracks, each float32 card against CPU (TF32
+    off); then ``testvae``, ``predict_vae`` (two frames) and ``benchmark
+    --family vae`` (B = 8, profiled) on the card. None of the eleven kernels
+    is launched."""
+    import torch
+    from sndepth_tpu_torch.cli import predict_vae, testvae
+    from sndepth_tpu_torch.models import denoiser, vae, vit
+    h, w = VAE_HW
+    gen = torch.Generator().manual_seed(41)
+    reset_launches()
+
+    def pair(make, seed):
+        cpu = make().eval()
+        # The shared seeded init, and a ViT's embeddings where there is one.
+        vit.init_weights(cpu, torch.Generator().manual_seed(seed))
+        card = make()
+        card.load_state_dict(cpu.state_dict())
+        return cpu, card.to(DEV).eval()
+
+    x = torch.rand(1, 4, h, w, generator=gen)
+    noise = torch.randn(1, 4, h // 8, w // 8, generator=gen)
+    img = torch.rand(1, 3, h, w, generator=gen)
+    poses = torch.randn(1, 32, 9, generator=gen)
+    t = torch.tensor([500.0])
+    z = torch.randn(1, 32, 384, generator=gen)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    check = {}
+    try:
+        with torch.no_grad():
+            cpu, card = pair(vae.AutoencoderKL, 42)
+            for side, model, dev in (("cpu", cpu, "cpu"), ("card", card, DEV)):
+                post = model.encode(x.to(dev))
+                rec = model.decode(post.sample(noise.to(dev)))
+                check[side] = (post.mean, post.logvar, rec)
+            check = {"vae_" + k: _rel(g, c) for k, g, c in zip(
+                ("mean", "logvar", "reconstruction"), check["card"],
+                check["cpu"])}
+            cpu, card = pair(vit.MultiScaleImageFeatureExtractor, 43)
+            check["vit_cls"] = _rel(card.net(img.to(DEV)), cpu.net(img))
+            check["vit_multiscale"] = _rel(card(img.to(DEV)), cpu(img))
+            cpu, card = pair(denoiser.get_opt_model, 44)
+            check["denoiser"] = _rel(card(poses.to(DEV), t.to(DEV), z.to(DEV)),
+                                     cpu(poses, t, z))
+            del cpu, card
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+    smoke = testvae.main(["--device", DEV])
+    _assert_finite("testvae", smoke["mean"], smoke["var"])
+    recs = predict_vae.main(["--max_batches", "2", "--device", DEV,
+                             "--out_dir", os.path.join(WORK_DIR,
+                                                       "predict_vae")])
+    for rec in recs:
+        if rec["mean"].shape != (1, h // 8, w // 8, 4):
+            raise AssertionError(f"predict_vae latent {rec['mean'].shape}")
+    launches = _no_hand_written_launches("vae")
+    bench = _train_family_run("vae", smi)
+    emit("vae", hw=[h, w], nvidia_smi=smi, f32_card_vs_cpu=check,
+         tolerance=VAE_TOL,
+         testvae_mean_shape=list(smoke["mean"].shape),
+         predict_vae_ms=[rec["ms"] for rec in recs], benchmark=bench,
+         hand_written_launches=launches)
+    for key, value in check.items():
+        if not value <= VAE_TOL:
+            raise AssertionError(f"VAE stack, card against CPU: {key} "
+                                 f"{value} > {VAE_TOL}")
+    return bench
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "sndepth_tpu_torch")):
         print("chip_smoke: sndepth_tpu_torch is not beside this script",
@@ -2946,6 +3375,11 @@ def main() -> int:
     phase_motion_train(smi)
     phase_nnet_train(smi)
     phase_predict(smi)
+    raft2d_errs, lookup_times = phase_raft2d(smi)
+    errs["warp_gather"] = max(errs["warp_gather"], raft2d_errs["warp_gather"])
+    raft2d_launches = phase_predict_raft2d(smi)["raft2d_large"]
+    phase_demo(smi)
+    phase_vae(smi)
 
     csrc = "sndepth_tpu_torch/kernels/csrc/"
     where = {
@@ -2993,6 +3427,11 @@ def main() -> int:
         if k["name"] in ("gn_build", "warp_gather"):
             k["raft3d_train_launches"] = raft_train_launches[k["name"]]
             k["predict_raft3d_launches"] = predict_launches[k["name"]]
+        if k["name"] == "warp_gather":
+            # RAFT2DLarge's lookup in the fused prediction's two frames,
+            # and its four level calls at both frame sizes, timed.
+            k["raft2d_launches"] = raft2d_launches["warp_gather"]
+            k["raft2d_lookup"] = lookup_times
         if k["name"] == "gn_build":
             k["err_over_tolerance"] = errs["gn_build_err_over_tol"]
         if k["name"] == "gn_build_bwd":

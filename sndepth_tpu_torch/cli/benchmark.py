@@ -12,16 +12,18 @@ Families:
   nnet     normal-net train step (EfficientNet-B5 + decoder), bf16, B = 4 at
            480x640, in img/sec
   motion   MotionFusionNet train step, bf16, B = 16 at 384x768, in img/sec
+  vae      the RGBD AutoencoderKL, B = 8 at 128x416: encode, draw from the
+           posterior, decode, the reconstruction fed back as the next
+           call's input, float32 as in JAX, in img/sec
   raft3d   RAFT3D scene-flow inference: one frame pair a call (B = 1), 16
            refinement iterations, each call's second frame made from the
            call before so that no two calls do the same work; ``--dtype``
            is the type of the encoders and the GRU (f32 or bf16)
-The JAX package's ``vae`` family is not ported yet: asking for it exits with
-an error, and ``all`` runs the ported ones.
 
 Usage:
     python -m sndepth_tpu_torch.cli.benchmark --family flow
     python -m sndepth_tpu_torch.cli.benchmark --family motion
+    python -m sndepth_tpu_torch.cli.benchmark --family vae
     python -m sndepth_tpu_torch.cli.benchmark --family raft3d \
         --img_height 376 --img_width 1248
 """
@@ -34,8 +36,7 @@ import time
 
 import numpy as np
 
-PORTED = ("geonet", "flow", "nnet", "motion", "raft3d")
-NOT_PORTED = ("vae",)
+FAMILIES = ("geonet", "flow", "nnet", "motion", "vae", "raft3d")
 
 
 def _result(family: str, ms: float, value: float, unit: str) -> dict:
@@ -155,6 +156,56 @@ def _train_family(family: str, make, batch: int, h: int, w: int,
     return _result(family, dt * 1e3, batch / dt, "img/sec")
 
 
+def vae_step(batch: int, h: int, w: int, device):
+    """The ``vae`` family's call on ``device``: the autoencoder (random
+    weights from seed 0) encodes a seeded RGBD batch, draws from the
+    posterior (noise from a seeded generator on the device), decodes, and
+    keeps the reconstruction as the next call's input. Returns the call as
+    a function of no arguments, returning (reconstruction, sum of the
+    posterior's mean)."""
+    import torch
+
+    from sndepth_tpu_torch.models.vae import AutoencoderKL
+    from sndepth_tpu_torch.ops.layers import init_weights
+
+    device = torch.device(device)
+    model = AutoencoderKL()
+    init_weights(model, torch.Generator().manual_seed(0))
+    model.to(device).eval()
+    rng = np.random.RandomState(0)
+    state = {"x": torch.from_numpy(
+        rng.rand(batch, 4, h, w).astype(np.float32)).to(device)}
+    gen = torch.Generator(device=device).manual_seed(1)
+
+    @torch.no_grad()
+    def step():
+        posterior = model.encode(state["x"])
+        recon = model.decode(posterior.sample(generator=gen))
+        # The reconstruction is the next input: no two calls do the same
+        # work.
+        state["x"] = recon[:, :4]
+        return recon, posterior.mean.sum()
+
+    return step
+
+
+def _vae(batch: int, h: int, w: int, iters: int, device) -> dict:
+    import torch
+
+    step = vae_step(batch, h, w, device)
+    float(step()[1])
+    last = {}
+
+    def timed():
+        last["out"] = step()
+
+    dt = _timed(timed, iters, torch.device(device))
+    if not bool(torch.isfinite(last["out"][0]).all()):
+        raise FloatingPointError("non-finite reconstruction in the timed "
+                                 "loop")
+    return _result("vae", dt * 1e3, batch / dt, "img/sec")
+
+
 def raft3d_frame(h: int, w: int, device, dtype: str):
     """The ``raft3d`` family's stage (16 iterations, seeded weights) and its
     seeded inputs on ``device``: ``(stage, (img1, img2, depth1, depth2,
@@ -198,8 +249,7 @@ def _raft3d(h: int, w: int, iters: int, device, dtype: str) -> dict:
 def main(argv=None) -> list[dict]:
     """Run the chosen families; returns their result records."""
     p = argparse.ArgumentParser(description="Family benchmarks")
-    p.add_argument("--family", default="all",
-                   choices=["all", *PORTED, *NOT_PORTED])
+    p.add_argument("--family", default="all", choices=["all", *FAMILIES])
     p.add_argument("--iters", default=10, type=int)
     p.add_argument("--batch", default=0, type=int,
                    help="override the family's default batch")
@@ -210,8 +260,6 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--dtype", default="f32", choices=["f32", "bf16"],
                    help="raft3d: encoder/GRU compute dtype")
     args = p.parse_args(argv)
-    if args.family in NOT_PORTED:
-        p.exit(2, f"family {args.family}: not ported yet\n")
     if args.iters < 1:
         p.error("--iters must be at least 1")
 
@@ -235,6 +283,8 @@ def main(argv=None) -> list[dict]:
         results.append(_train_family("motion", motion_step, args.batch or 16,
                                      *dims(384, 768), args.iters,
                                      args.device))
+    if fam in ("all", "vae"):
+        results.append(_vae(args.batch or 8, h, w, args.iters, args.device))
     if fam in ("all", "raft3d"):
         results.append(_raft3d(h, w, args.iters, args.device, args.dtype))
     return results

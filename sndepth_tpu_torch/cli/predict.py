@@ -1,6 +1,5 @@
 """CLI: the fused prediction on one device: GeoNet depth and pose -> NNET
-normals and refined depth -> rigid optical flow -> MotionFusionNet
-segmentation.
+normals and refined depth -> optical flow -> MotionFusionNet segmentation.
 
 The flags and artifacts of ``python -m sndepth_tpu.cli.predict`` (reference
 `predict.py:40-85`), plus ``--device``. Each batch, of the RAFT3D-style
@@ -8,20 +7,26 @@ test tree ``{root}/testing/seq/*.png`` or, with ``--synthetic`` or without
 that tree, of the seeded synthetic stream, goes through
 :class:`~sndepth_tpu_torch.pipelines.GeoNetStage` (float32),
 :class:`~sndepth_tpu_torch.pipelines.NNETStage` (bf16 convolution stacks)
-fed GeoNet's depth as its log2-depth argument, the rigid flow of the first
-source's pose over NNET's refined depth, its HSV colouring, and
-:class:`~sndepth_tpu_torch.pipelines.MotionStage`. The joins are the JAX
-CLI's: the intrinsics are the batch's 3x3 ones where it has them, else
-(the test tree's 4-vectors) a K made from the image size; ``poses.csv``
-holds the last batch's poses. Writes ``depth_{i}.png``, ``norm_{i}.png``,
-``flow_{i}.png`` and ``seg_{i}.png`` under ``--out_dir``.
+fed GeoNet's depth as its log2-depth argument, a dense flow, its HSV
+colouring, and :class:`~sndepth_tpu_torch.pipelines.MotionStage`. The flow
+(``--flow_source``) is the rigid flow of the first source's pose over NNET's
+refined depth (``rigid``, the default), or the optical flow of
+:class:`~sndepth_tpu_torch.pipelines.Raft2DFlowStage` (``raft2d``, the
+native RAFT2D; ``raft2d_large``, torchvision's ``raft_large``, whose
+windowed lookup launches the gather kernel 4 times an iteration on the
+card) from the target frame to the second source frame, both in [0, 1],
+``--raft2d_iters`` iterations. The joins are the JAX CLI's: the intrinsics
+are the batch's 3x3 ones where it has them, else (the test tree's
+4-vectors) a K made from the image size; ``poses.csv`` holds the last
+batch's poses. Writes ``depth_{i}.png``, ``norm_{i}.png``, ``flow_{i}.png``
+and ``seg_{i}.png`` under ``--out_dir``.
 
 Weights: GeoNet from the newest ``train_geonet`` checkpoint in
-``--geonet_ckpt`` and MotionFusionNet from ``--motion_ckpt`` (a
-``train_motion`` directory or a reference state dict), else random from
-fixed seeds (GeoNet from the config's, NNET and MotionFusionNet from 0).
-``--flow_source raft2d`` and ``raft2d_large`` need RAFT2D, which is not
-ported yet: they exit with an error rather than use rigid flow.
+``--geonet_ckpt``, MotionFusionNet from ``--motion_ckpt`` (a
+``train_motion`` directory or a reference state dict) and RAFT2DLarge from
+``--raft2d_ckpt`` (a torchvision ``raft_large`` ``.pth``), else random from
+fixed seeds (GeoNet from the config's, NNET, RAFT2D and MotionFusionNet
+from 0).
 
 Usage:
     python -m sndepth_tpu_torch.cli.predict --synthetic --max_batches 2
@@ -67,14 +72,19 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--flow_source", default="rigid",
                    choices=["rigid", "raft2d", "raft2d_large"],
-                   help="dense flow for motion fusion; only the pose-"
-                        "induced rigid flow is ported so far")
+                   help="dense flow for motion fusion: pose-induced rigid "
+                        "flow, the native RAFT2D, or the torchvision-"
+                        "raft_large-compatible RAFT2DLarge")
+    p.add_argument("--raft2d_iters", default=12, type=int)
+    p.add_argument("--raft2d_ckpt", default=None,
+                   help="torchvision raft_large .pth for --flow_source "
+                        "raft2d_large")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cuda:1, cpu)")
     args = p.parse_args(argv)
-    if args.flow_source != "rigid":
-        p.exit(2, f"--flow_source {args.flow_source}: RAFT2D is not ported "
-                  "yet\n")
+    if args.raft2d_ckpt and args.flow_source != "raft2d_large":
+        p.error("--raft2d_ckpt is a raft_large checkpoint: it needs "
+                "--flow_source raft2d_large")
 
     import time
 
@@ -83,8 +93,9 @@ def main(argv=None) -> list[dict]:
     from sndepth_tpu_torch.core.config import GeoNetConfig
     from sndepth_tpu_torch.ops.camera import compute_rigid_flow
     from sndepth_tpu_torch.pipelines import (GeoNetStage, MotionStage,
-                                             NNETStage)
+                                             NNETStage, Raft2DFlowStage)
     from sndepth_tpu_torch.train import loop
+    from sndepth_tpu_torch.utils.weights import raft2d_large_checkpoint
     from sndepth_tpu_torch.utils.visualize import (flow_to_rgb, pose_to_csv,
                                                    save_image)
 
@@ -103,6 +114,13 @@ def main(argv=None) -> list[dict]:
     nnet = NNETStage(device=device)
     motion = MotionStage(loop.load_motion_weights(args.motion_ckpt)
                          if args.motion_ckpt else None, device=device)
+    raft2d = None
+    if args.flow_source != "rigid":
+        raft2d = Raft2DFlowStage(
+            raft2d_large_checkpoint(args.raft2d_ckpt)
+            if args.raft2d_ckpt else None, iters=args.raft2d_iters,
+            arch="large" if args.flow_source == "raft2d_large" else "native",
+            device=device)
 
     os.makedirs(args.out_dir, exist_ok=True)
     written, poses = [], None
@@ -120,9 +138,13 @@ def main(argv=None) -> list[dict]:
                                       [0, 0, 1]]], np.float32), (b, 1, 1))
         else:
             kmat = np.asarray(k)
-        flow = compute_rigid_flow(g["poses"][:, 0], n["depth"][..., 0],
-                                  torch.as_tensor(kmat).to(device), False)
-        flow = flow.permute(0, 2, 3, 1).cpu().numpy()
+        if raft2d is not None:
+            flow = raft2d(rgb01, (g["src_norm"][:, 3:] + 1.0) * 0.5)
+        else:
+            flow = compute_rigid_flow(g["poses"][:, 0], n["depth"][..., 0],
+                                      torch.as_tensor(kmat).to(device),
+                                      False).permute(0, 2, 3, 1)
+        flow = flow.cpu().numpy()
         flow_rgb = np.stack([flow_to_rgb(f) for f in flow])
         seg = motion(rgb01, torch.from_numpy(flow_rgb).permute(0, 3, 1, 2))
         seg = seg.cpu().numpy()

@@ -2,7 +2,8 @@
 
 Runs the ``geonet`` (stage 1) or ``flow`` (stage 2) train step, the
 ``nnet`` (B = 4 at 480x640) or ``motion`` (B = 16 at 384x768) bf16 train
-step or the ``raft3d`` inference frame (B = 1, 16 iterations) of
+step, the ``vae`` call (B = 8 at 128x416, float32) or the ``raft3d``
+inference frame (B = 1, 16 iterations) of
 ``sndepth_tpu_torch.cli.benchmark``, or the ``raft3d_train`` step (12
 iterations, the train CLI's defaults: 256x832, B = 2, bf16), on inputs that
 lie on the card, warms it up, then traces ``--steps`` steps with
@@ -17,6 +18,7 @@ Usage:
         --img_height 376 --img_width 1248
     python -m sndepth_tpu_torch.cli.profile_step --family raft3d_train
     python -m sndepth_tpu_torch.cli.profile_step --family motion
+    python -m sndepth_tpu_torch.cli.profile_step --family vae
 """
 
 from __future__ import annotations
@@ -72,11 +74,12 @@ def _raft3d_train_step(batch: int, h: int, w: int, dtype: str, device):
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description="Profile one warm step")
     p.add_argument("--family", default="flow",
-                   choices=["geonet", "flow", "nnet", "motion", "raft3d",
-                            "raft3d_train"])
+                   choices=["geonet", "flow", "nnet", "motion", "vae",
+                            "raft3d", "raft3d_train"])
     p.add_argument("--batch", default=0, type=int,
                    help="override the family's default batch (128 / 32; "
-                        "nnet 4, motion 16; raft3d runs one frame pair, "
+                        "nnet 4, motion 16, vae 8; raft3d runs one frame "
+                        "pair, "
                         "raft3d_train 2)")
     p.add_argument("--steps", default=2, type=int, help="steps to trace")
     p.add_argument("--img_height", default=0, type=int,
@@ -111,6 +114,10 @@ def main(argv=None) -> dict:
     elif training:
         batch = args.batch or 2
         step = _raft3d_train_step(batch, h, w, args.dtype, device)
+    elif args.family == "vae":
+        from sndepth_tpu_torch.cli.benchmark import vae_step
+        batch = args.batch or 8
+        step = vae_step(batch, h, w, device)
     elif args.family in ("nnet", "motion"):
         from sndepth_tpu_torch.cli import benchmark
         batch = args.batch or (4 if args.family == "nnet" else 16)

@@ -14,7 +14,9 @@
 // Layout: img (B, C, Hs, Ws), coords (B, 2, Ht, Wt) with channels (x, y) in
 // source pixels, out / g (B, C, Ht, Wt), d coords (B, 2, Ht, Wt); float32,
 // contiguous. The target size is free of the source size, and C is a
-// runtime argument.
+// runtime argument. The gather and its coordinate gradient take any B in
+// one launch (the batch runs over the grid's y and then z); the splat
+// takes B <= 65535.
 //
 // Gather and coordinate gradient: DRAM bytes bound them (8 bytes of
 // coordinates a pixel in, 4 C out; the coordinate gradient reads 4 C of
@@ -72,6 +74,7 @@ constexpr int kBoxFloats = 4096;                    // 16 KB of shared memory
 constexpr long long kWidePixels = 1 << 20;
 constexpr int kPlaneThreads = 1024;                 // the splat's plane path
 constexpr int kPlaneUnroll = 2;     // target pixels in flight a thread
+constexpr int kMaxGridY = 65535;    // the largest gridDim.y (and gridDim.z)
 
 template <int V>
 __device__ __forceinline__ void load_v(const float* __restrict__ p, float (&v)[V]) {
@@ -96,15 +99,22 @@ __device__ __forceinline__ void store_v(float* __restrict__ p, const float (&v)[
     p[0] = v[0];
 }
 
+// The image of a gather or coordinate-gradient block. The batch runs over
+// gridDim.y (at most kMaxGridY) and then gridDim.z, so that any B fits one
+// launch; with B <= kMaxGridY the grid is (x, B, 1) and b is blockIdx.y.
+__device__ __forceinline__ int batch_index() {
+  return blockIdx.z * gridDim.y + blockIdx.y;
+}
+
 // CC > 0: C == CC, known to the compiler; CC == 0: C at run time.
 template <int MODE, int V, int CC>
 __global__ void __launch_bounds__(NT) warp_gather_kernel(
     const float* __restrict__ img, const float* __restrict__ coords,
-    float* __restrict__ out, int C_, int Hs, int Ws, int npix) {
+    float* __restrict__ out, int B, int C_, int Hs, int Ws, int npix) {
   const int C = CC > 0 ? CC : C_;
   const int p = (blockIdx.x * NT + threadIdx.x) * V;
-  if (p >= npix) return;
-  const int b = blockIdx.y;
+  const int b = batch_index();
+  if (p >= npix || b >= B) return;
   const size_t hw = (size_t)Hs * Ws;
   const float* crd = coords + (size_t)b * 2 * npix;
   float x[V], y[V];
@@ -130,12 +140,12 @@ __global__ void __launch_bounds__(NT) warp_gather_kernel(
 template <int MODE, int V, int CC>
 __global__ void __launch_bounds__(NT) warp_coord_grad_kernel(
     const float* __restrict__ img, const float* __restrict__ coords,
-    const float* __restrict__ g, float* __restrict__ dcoords, int C_, int Hs,
-    int Ws, int npix) {
+    const float* __restrict__ g, float* __restrict__ dcoords, int B, int C_,
+    int Hs, int Ws, int npix) {
   const int C = CC > 0 ? CC : C_;
   const int p = (blockIdx.x * NT + threadIdx.x) * V;
-  if (p >= npix) return;
-  const int b = blockIdx.y;
+  const int b = batch_index();
+  if (p >= npix || b >= B) return;
   const size_t hw = (size_t)Hs * Ws;
   const float* crd = coords + (size_t)b * 2 * npix;
   float x[V], y[V];
@@ -375,7 +385,7 @@ __global__ void __launch_bounds__(NT) warp_splat_kernel(
 }
 
 bool bad_shape(int B, int C, int Hs, int Ws, int Ht, int Wt, int mode) {
-  return B < 1 || B > 65535 || C < 1 || Hs < 1 || Ws < 1 || Ht < 1 || Wt < 1 ||
+  return B < 1 || C < 1 || Hs < 1 || Ws < 1 || Ht < 1 || Wt < 1 ||
          (mode != kEdgeZero && mode != kZeroPad) ||
          (long long)Hs * Ws > 0x7fffffffLL || (long long)Ht * Wt > 0x7fffffffLL;
 }
@@ -389,13 +399,15 @@ void launch_cc(bool grad, const float* img, const float* coords,
                const float* g, float* out, int B, int C, int Hs, int Ws,
                int npix, cudaStream_t stream) {
   const int threads = (npix + V - 1) / V;
-  const dim3 grid((threads + NT - 1) / NT, B);
+  // B images over y and z: blocks past B (the last z slice's tail) return.
+  const int gy = B < kMaxGridY ? B : kMaxGridY;
+  const dim3 grid((threads + NT - 1) / NT, gy, (B + gy - 1) / gy);
   if (grad)
     warp_coord_grad_kernel<MODE, V, CC><<<grid, NT, 0, stream>>>(
-        img, coords, g, out, C, Hs, Ws, npix);
+        img, coords, g, out, B, C, Hs, Ws, npix);
   else
     warp_gather_kernel<MODE, V, CC><<<grid, NT, 0, stream>>>(
-        img, coords, out, C, Hs, Ws, npix);
+        img, coords, out, B, C, Hs, Ws, npix);
 }
 
 template <int MODE, int V>
@@ -491,7 +503,8 @@ extern "C" int warp_splat_launch(const float* coords, const float* g,
                                  float* dimg, int B, int C, int Hs, int Ws,
                                  int Ht, int Wt, int mode, int plane_cells,
                                  void* stream) {
-  if (bad_shape(B, C, Hs, Ws, Ht, Wt, mode) || (long long)B * C > INT_MAX)
+  if (bad_shape(B, C, Hs, Ws, Ht, Wt, mode) || B > kMaxGridY ||
+      (long long)B * C > INT_MAX)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const long long cells = (long long)Hs * Ws;
@@ -511,7 +524,7 @@ extern "C" int warp_splat_launch(const float* coords, const float* g,
     }
   }
   const dim3 grid((Wt + kTileW - 1) / kTileW, (Ht + kTileH - 1) / kTileH, B);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  if (grid.y > kMaxGridY) return (int)cudaErrorInvalidValue;
   const cudaError_t zeroed = cudaMemsetAsync(
       dimg, 0, (size_t)B * C * Hs * Ws * sizeof(float), s);
   if (zeroed != cudaSuccess) return (int)zeroed;

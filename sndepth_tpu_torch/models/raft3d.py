@@ -44,6 +44,7 @@ from sndepth_tpu_torch.kernels.gn_build import (EMB, gn_build_hg,
 from sndepth_tpu_torch.models.grid_smoother import GridSmoother
 from sndepth_tpu_torch.ops import projective as pops
 from sndepth_tpu_torch.ops import se3
+from sndepth_tpu_torch.ops.layers import init_weights  # noqa: F401 (API)
 from sndepth_tpu_torch.ops.patches import extract_patches
 from sndepth_tpu_torch.ops.resize import resize_bilinear_align_corners
 from sndepth_tpu_torch.ops.warp import bilinear_sampler_zero_pad
@@ -86,24 +87,6 @@ def _batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     """BatchNorm on its running statistics, computed in float32."""
     return F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight,
                         bn.bias, False, 0.0, bn.eps).to(x.dtype)
-
-
-def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded weights for a run without a checkpoint: conv kernels normal
-    with variance 1 / fan_in (LeCun), biases zero, BatchNorm at identity,
-    drawn from ``generator`` in module order."""
-    with torch.no_grad():
-        for m in module.modules():
-            if isinstance(m, nn.Conv2d):
-                fan_in = m.weight[0].numel()
-                m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-                m.running_mean.zero_()
-                m.running_var.fill_(1.0)
 
 
 # ----------------------------------------------------------------------

@@ -3,8 +3,10 @@
 Counterpart of ``sndepth_tpu/pipelines.py``. Ported so far:
 :class:`GeoNetStage` (disparity, depth and poses from a 3-view batch),
 :class:`NNETStage` (normals and refined depth), :class:`MotionStage` (the
-motion class map from an image and a flow image) and :class:`RAFT3DStage`
-(scene flow from two frames, their depths and the intrinsics). A stage
+motion class map from an image and a flow image), :class:`RAFT3DStage`
+(scene flow from two frames, their depths and the intrinsics),
+:class:`Raft2DFlowStage` (optical flow from two frames) and
+:class:`VAEStage` (the RGBD latent posterior). A stage
 builds its model once, on an explicit device, and runs it without
 gradients; everything between its input and its output stays on that
 device. Images are NCHW, as everywhere in the port; per-pixel outputs keep
@@ -18,7 +20,7 @@ import torch
 from sndepth_tpu_torch.core.config import GeoNetConfig, apply_precision
 from sndepth_tpu_torch.models import motionseg
 from sndepth_tpu_torch.models import nnet as nnet_lib
-from sndepth_tpu_torch.models import raft3d
+from sndepth_tpu_torch.models import raft2d, raft3d
 from sndepth_tpu_torch.ops import se3
 from sndepth_tpu_torch.ops.edges import edge_model_inputs
 from sndepth_tpu_torch.train import geonet as geonet_lib
@@ -154,3 +156,64 @@ class RAFT3DStage:
                           (img1, img2, depth1, depth2, intrinsics)),
                         iters=self.iters)
         return Ts, se3.log(Ts)
+
+
+class Raft2DFlowStage:
+    """``stage(img1, img2)`` -> the optical flow (B, H, W, 2) from ``img1``
+    to ``img2``, the flow input of the motion segmentation
+    (`predict.py:61`'s torchvision RAFT-Large).
+
+    ``arch="large"`` is :class:`~sndepth_tpu_torch.models.raft2d.
+    RAFT2DLarge`, whose ``state_dict`` a torchvision ``raft_large`` file
+    gives (:func:`~sndepth_tpu_torch.utils.weights.raft2d_large_checkpoint`);
+    ``arch="native"`` the lighter :class:`~sndepth_tpu_torch.models.raft2d.
+    RAFT2D`. Images (B, 3, H, W), H and W multiples of 8, as the caller
+    scales them. Float32; without a ``state_dict`` the weights are random,
+    drawn from seed 0."""
+
+    def __init__(self, state_dict: dict | None = None, iters: int = 12,
+                 arch: str = "native", device="cuda"):
+        if arch not in ("native", "large"):
+            raise ValueError(f"unknown RAFT2D arch {arch!r}")
+        self.device = torch.device(device)
+        self.iters = iters
+        self.model = raft2d.RAFT2DLarge() if arch == "large" else raft2d.RAFT2D()
+        if state_dict is None:
+            raft3d.init_weights(self.model, torch.Generator().manual_seed(0))
+        else:
+            self.model.load_state_dict(state_dict)
+        self.model.to(self.device).eval()
+
+    @torch.no_grad()
+    def __call__(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+        return self.model(img1.to(self.device), img2.to(self.device),
+                          iters=self.iters)
+
+
+class VAEStage:
+    """``stage(rgb01, depth)`` -> the posterior's mean and variance, each
+    (B, H/8, W/8, 4), channel-last as the JAX stage returns them: the
+    reference's RGBD autoencoder (:func:`~sndepth_tpu_torch.models.vae.
+    get_autoencoder`, float32) encoding ``rgb01`` (B, 3, H, W) in [0, 1]
+    with ``depth`` (B, H, W) as the fourth channel. Without a
+    ``state_dict`` (the Stable-Diffusion names) the weights are random,
+    drawn from seed 0."""
+
+    def __init__(self, state_dict: dict | None = None, device="cuda"):
+        from sndepth_tpu_torch.models.vae import get_autoencoder
+        from sndepth_tpu_torch.ops.layers import init_weights
+        self.device = torch.device(device)
+        self.model = get_autoencoder()
+        if state_dict is None:
+            init_weights(self.model, torch.Generator().manual_seed(0))
+        else:
+            self.model.load_state_dict(state_dict)
+        self.model.to(self.device).eval()
+
+    @torch.no_grad()
+    def __call__(self, rgb01: torch.Tensor, depth: torch.Tensor):
+        rgbd = torch.cat([rgb01.to(self.device),
+                          depth.to(self.device)[:, None]], 1)
+        posterior = self.model.encode(rgbd)
+        return (posterior.mean.permute(0, 2, 3, 1),
+                posterior.var.permute(0, 2, 3, 1))

@@ -4,7 +4,9 @@ The inverse of ``sndepth_tpu/utils/convert_weights.py``
 (:func:`convert_dispnet`, :func:`convert_flownet`,
 :func:`convert_posenet`, :func:`convert_raft3d`,
 :func:`convert_efficientnet`, :func:`convert_normal_decoder`,
-:func:`convert_motionfusion`). Parameters come in as nested dicts of numpy
+:func:`convert_motionfusion`, :func:`convert_raft2d_large`,
+:func:`convert_vae`, :func:`convert_dino_vit`), and the same for the JAX
+nets with no converter (RAFT2D, the pose denoiser). Parameters come in as nested dicts of numpy
 arrays. Conv kernels (kh, kw, in, out) become (out, in, kh, kw);
 ConvTranspose kernels become (in, out, kh, kw) by a plain transpose, because
 the JAX ``TorchConvTranspose2x`` flips its taps at apply time, except
@@ -14,6 +16,8 @@ MotionFusionNet's head, whose taps flax stores flipped. Flax ``_UpConv_i`` /
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -86,6 +90,21 @@ def _bn(sd: dict, key: str, p: dict, stats: dict) -> None:
 _RESNET50 = ((1, 3), (2, 4), (3, 6), (4, 3))
 
 
+def _basic_encoder(sd: dict, prefix: str, p: dict) -> None:
+    """A JAX ``BasicEncoder``: ``Conv_0`` / ``Conv_1`` are ``conv1`` /
+    ``conv2``, ``_ResBlock_{0..5}`` are ``layer{1,2,3}.{0,1}`` with
+    ``Conv_2`` the ``downsample.0``."""
+    _conv(sd, f"{prefix}.conv1", p["Conv_0"])
+    _conv(sd, f"{prefix}.conv2", p["Conv_1"])
+    for bi in range(6):
+        blk = p[f"_ResBlock_{bi}"]
+        t = f"{prefix}.layer{bi // 2 + 1}.{bi % 2}"
+        _conv(sd, f"{t}.conv1", blk["Conv_0"])
+        _conv(sd, f"{t}.conv2", blk["Conv_1"])
+        if "Conv_2" in blk:
+            _conv(sd, f"{t}.downsample.0", blk["Conv_2"])
+
+
 def raft3d_state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
     """JAX RAFT3D variables -> :class:`RAFT3D` state_dict, for the plain
     and the bilaplacian variant (which has ``ae_enc`` and ``ae_wts``).
@@ -100,16 +119,7 @@ def raft3d_state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
     ``Conv_{3,4}`` are ``flow_enc.{0,2}``, ``ConvGRU_0.conv{g}_{i}`` are
     ``gru.conv{g}{i}``, ``{head}_{0,1}`` are ``{head}.{0,2}``."""
     sd: dict = {}
-    fnet = params["BasicEncoder_0"]
-    _conv(sd, "fnet.conv1", fnet["Conv_0"])
-    _conv(sd, "fnet.conv2", fnet["Conv_1"])
-    for bi in range(6):
-        blk = fnet[f"_ResBlock_{bi}"]
-        t = f"fnet.layer{bi // 2 + 1}.{bi % 2}"
-        _conv(sd, f"{t}.conv1", blk["Conv_0"])
-        _conv(sd, f"{t}.conv2", blk["Conv_1"])
-        if "Conv_2" in blk:
-            _conv(sd, f"{t}.downsample.0", blk["Conv_2"])
+    _basic_encoder(sd, "fnet", params["BasicEncoder_0"])
 
     cnet, stats = params["FPNContext_0"], batch_stats["FPNContext_0"]
     _conv(sd, "cnet.conv1", cnet["Conv_0"])
@@ -297,4 +307,238 @@ def motionfusion_state_dict_from_jax(params: dict, batch_stats: dict
                                (2, 3, 0, 1))
     sd["layer3.0.bias"] = _b(head["bias"])
     _bn(sd, "layer3.1", params["BatchNorm_1"], batch_stats["BatchNorm_1"])
+    return sd
+
+
+def raft2d_state_dict_from_jax(params: dict) -> dict:
+    """JAX ``RAFT2D`` params -> :class:`~sndepth_tpu_torch.models.raft2d.
+    RAFT2D` state_dict: ``BasicEncoder_{0,1}`` are ``fnet`` / ``cnet``,
+    ``Conv_0`` is ``inp_conv``; in ``Scan_FlowIteration_0``, ``Conv_{0..4}``
+    are ``update.{corr1, corr2, flow1, flow2, motion}``,
+    ``ConvGRU_0.conv{g}_{i}`` is ``update.gru.conv{g}{i}`` and
+    ``{head}_{0,1}`` are ``update.{head}.{0,2}``."""
+    sd: dict = {}
+    _basic_encoder(sd, "fnet", params["BasicEncoder_0"])
+    _basic_encoder(sd, "cnet", params["BasicEncoder_1"])
+    _conv(sd, "inp_conv", params["Conv_0"])
+    it = params["Scan_FlowIteration_0"]
+    for i, key in enumerate(("corr1", "corr2", "flow1", "flow2", "motion")):
+        _conv(sd, f"update.{key}", it[f"Conv_{i}"])
+    for gate in "zrq":
+        for i in (1, 2):
+            _conv(sd, f"update.gru.conv{gate}{i}",
+                  it["ConvGRU_0"][f"conv{gate}_{i}"])
+    for head in ("delta", "mask"):
+        _conv(sd, f"update.{head}.0", it[f"{head}_0"])
+        _conv(sd, f"update.{head}.2", it[f"{head}_1"])
+    return sd
+
+
+def raft2d_large_state_dict_from_jax(variables: dict) -> dict:
+    """JAX ``RAFT2DLarge`` variables (``params`` and the context encoder's
+    ``batch_stats``) -> :class:`~sndepth_tpu_torch.models.raft2d.
+    RAFT2DLarge` state_dict, in torchvision's ``raft_large`` names: the
+    inverse of ``convert_raft2d_large``. A flax ``{block}.conv`` /
+    ``{block}.norm`` is ``{block}.0`` / ``{block}.1``, ``layer{l}_{j}`` is
+    ``layer{l}.{j}``; in ``update``, ``convgru{k}`` is
+    ``update_block.recurrent_block.convgru{k}``, ``flow_head_{1,2}`` are
+    ``update_block.flow_head.conv{1,2}`` and ``mask_conv{1,2}`` are
+    ``mask_predictor.convrelu.0`` / ``mask_predictor.conv``."""
+    params, batch_stats = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+
+    def cna(key: str, p: dict, stats: dict | None) -> None:
+        _conv(sd, f"{key}.0", p["conv"])
+        if "norm" in p:
+            _bn(sd, f"{key}.1", p["norm"], stats["norm"])
+
+    for enc in ("feature_encoder", "context_encoder"):
+        p, st = params[enc], batch_stats.get(enc, {})
+        cna(f"{enc}.convnormrelu", p["convnormrelu"], st.get("convnormrelu"))
+        for lvl in (1, 2, 3):
+            for j in (0, 1):
+                blk, bst = p[f"layer{lvl}_{j}"], st.get(f"layer{lvl}_{j}", {})
+                for sub in blk:
+                    cna(f"{enc}.layer{lvl}.{j}.{sub}", blk[sub], bst.get(sub))
+        _conv(sd, f"{enc}.conv", p["conv"])
+    u = params["update"]
+    for name, p in u["motion_encoder"].items():
+        _conv(sd, f"update_block.motion_encoder.{name}.0", p["conv"])
+    for k in (1, 2):
+        for gate, p in u[f"convgru{k}"].items():
+            _conv(sd, f"update_block.recurrent_block.convgru{k}.{gate}", p)
+    _conv(sd, "update_block.flow_head.conv1", u["flow_head_1"]["conv"])
+    _conv(sd, "update_block.flow_head.conv2", u["flow_head_2"])
+    _conv(sd, "mask_predictor.convrelu.0", u["mask_conv1"]["conv"])
+    _conv(sd, "mask_predictor.conv", u["mask_conv2"])
+    return sd
+
+
+# The biases of torchvision's convolutions before a norm, which RAFT2DLarge
+# (like the JAX package's) does not have.
+_NORMED_CONV_BIAS = re.compile(
+    r"^(feature|context)_encoder\.(convnormrelu|layer\d\.\d\."
+    r"(convnormrelu[12]|downsample))\.0\.bias$")
+
+
+def raft2d_large_checkpoint(path: str) -> dict:
+    """A torchvision ``raft_large`` ``.pth`` -> a
+    :class:`~sndepth_tpu_torch.models.raft2d.RAFT2DLarge` state_dict, as
+    ``convert_raft2d_checkpoint`` reads it: the state_dict under ``"model"``
+    or ``"state_dict"`` or at the top, ``module.`` prefixes stripped, and the
+    biases of the convolutions before a norm dropped (an instance norm
+    cancels them exactly; the context encoder's BatchNorm on running
+    statistics would not, and the JAX converter drops them all the same)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("model", ckpt.get("state_dict", ckpt))
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v
+          for k, v in sd.items()}
+    return {k: v for k, v in sd.items() if not _NORMED_CONV_BIAS.match(k)}
+
+
+def _norm(sd: dict, key: str, p: dict) -> None:
+    """A flax GroupNorm or LayerNorm (``scale``, ``bias``)."""
+    sd[f"{key}.weight"] = _b(p["scale"])
+    sd[f"{key}.bias"] = _b(p["bias"])
+
+
+def _dense(sd: dict, key: str, p: dict) -> None:
+    """A flax Dense (in, out) -> a torch Linear (out, in)."""
+    sd[f"{key}.weight"] = _t(p["kernel"], (1, 0))
+    if "bias" in p:
+        sd[f"{key}.bias"] = _b(p["bias"])
+
+
+def _resnet_block(sd: dict, t: str, p: dict) -> None:
+    _norm(sd, f"{t}.norm1", p["GroupNorm_0"])
+    _conv(sd, f"{t}.conv1", p["Conv_0"])
+    _norm(sd, f"{t}.norm2", p["GroupNorm_1"])
+    _conv(sd, f"{t}.conv2", p["Conv_1"])
+    if "Conv_2" in p:
+        _conv(sd, f"{t}.nin_shortcut", p["Conv_2"])
+
+
+def _attn_block(sd: dict, t: str, p: dict) -> None:
+    _norm(sd, f"{t}.norm", p["GroupNorm_0"])
+    for i, name in enumerate(("q", "k", "v", "proj_out")):
+        _conv(sd, f"{t}.{name}", p[f"Conv_{i}"])
+
+
+def vae_state_dict_from_jax(params: dict, config=None) -> dict:
+    """JAX ``AutoencoderKL`` params -> :class:`~sndepth_tpu_torch.models.
+    vae.AutoencoderKL` state_dict in the Stable-Diffusion names: the
+    inverse of ``convert_vae``. The encoder's ``ResnetBlock_i`` count
+    through the levels and then the middle block, its ``Conv_{1..}`` are
+    the downsamples and then ``conv_out``; the decoder's count from the
+    middle block up through the levels from the last."""
+    from sndepth_tpu_torch.models.vae import VAEConfig
+    cfg = config or VAEConfig()
+    nlv = len(cfg.ch_mult)
+    sd: dict = {}
+    enc = params["encoder"]
+    _conv(sd, "encoder.conv_in", enc["Conv_0"])
+    rb = dc = 0
+    for i in range(nlv):
+        for j in range(cfg.num_res_blocks):
+            _resnet_block(sd, f"encoder.down.{i}.block.{j}",
+                          enc[f"ResnetBlock_{rb}"])
+            rb += 1
+        if i != nlv - 1:
+            dc += 1
+            _conv(sd, f"encoder.down.{i}.downsample.conv", enc[f"Conv_{dc}"])
+    _resnet_block(sd, "encoder.mid.block_1", enc[f"ResnetBlock_{rb}"])
+    _attn_block(sd, "encoder.mid.attn_1", enc["AttnBlock_0"])
+    _resnet_block(sd, "encoder.mid.block_2", enc[f"ResnetBlock_{rb + 1}"])
+    _norm(sd, "encoder.norm_out", enc["GroupNorm_0"])
+    _conv(sd, "encoder.conv_out", enc[f"Conv_{dc + 1}"])
+
+    dec = params["decoder"]
+    _conv(sd, "decoder.conv_in", dec["Conv_0"])
+    _resnet_block(sd, "decoder.mid.block_1", dec["ResnetBlock_0"])
+    _attn_block(sd, "decoder.mid.attn_1", dec["AttnBlock_0"])
+    _resnet_block(sd, "decoder.mid.block_2", dec["ResnetBlock_1"])
+    rb, dc = 2, 0
+    for i in reversed(range(nlv)):
+        for j in range(cfg.num_res_blocks + 1):
+            _resnet_block(sd, f"decoder.up.{i}.block.{j}",
+                          dec[f"ResnetBlock_{rb}"])
+            rb += 1
+        if i != 0:
+            dc += 1
+            _conv(sd, f"decoder.up.{i}.upsample.conv", dec[f"Conv_{dc}"])
+    _norm(sd, "decoder.norm_out", dec["GroupNorm_0"])
+    _conv(sd, "decoder.conv_out", dec[f"Conv_{dc + 1}"])
+    _conv(sd, "quant_conv", params["quant_conv"])
+    _conv(sd, "post_quant_conv", params["post_quant_conv"])
+    return sd
+
+
+def _qkv(sd: dict, weight: str, bias: str, p: dict) -> None:
+    """flax MultiHeadDotProductAttention (``query``, ``key``, ``value``
+    kernels (in, heads, head_dim)) -> one packed (3 dim, dim) weight and its
+    bias, under the keys ``weight`` and ``bias``."""
+    names = ("query", "key", "value")
+    w = [np.asarray(p[n]["kernel"]) for n in names]
+    sd[weight] = _t(np.concatenate([x.reshape(x.shape[0], -1) for x in w],
+                                   1), (1, 0))
+    sd[bias] = _b(np.concatenate([np.asarray(p[n]["bias"]).reshape(-1)
+                                  for n in names]))
+
+
+def _attn_out(sd: dict, key: str, p: dict) -> None:
+    """flax MultiHeadDotProductAttention's ``out`` (heads, head_dim, out)
+    -> a torch Linear under ``key``."""
+    k = np.asarray(p["kernel"])
+    sd[f"{key}.weight"] = _t(k.reshape(-1, k.shape[-1]), (1, 0))
+    sd[f"{key}.bias"] = _b(p["bias"])
+
+
+def vit_state_dict_from_jax(params: dict) -> dict:
+    """JAX ``ViT`` params -> :class:`~sndepth_tpu_torch.models.vit.ViT`
+    state_dict in DINO's names: the inverse of ``convert_dino_vit``. A
+    block's attention's ``query`` / ``key`` / ``value`` become the packed
+    ``attn.qkv``, its ``out`` ``attn.proj``."""
+    sd: dict = {"cls_token": _b(params["cls"]),
+                "pos_embed": _b(params["pos_embed"])}
+    _conv(sd, "patch_embed.proj", params["Conv_0"])
+    _norm(sd, "norm", params["LayerNorm_0"])
+    for i in range(len([k for k in params if k.startswith("_Block_")])):
+        p, t = params[f"_Block_{i}"], f"blocks.{i}"
+        _norm(sd, f"{t}.norm1", p["LayerNorm_0"])
+        mha = p["MultiHeadDotProductAttention_0"]
+        _qkv(sd, f"{t}.attn.qkv.weight", f"{t}.attn.qkv.bias", mha)
+        _attn_out(sd, f"{t}.attn.proj", mha["out"])
+        _norm(sd, f"{t}.norm2", p["LayerNorm_1"])
+        _dense(sd, f"{t}.mlp.fc1", p["Dense_0"])
+        _dense(sd, f"{t}.mlp.fc2", p["Dense_1"])
+    return sd
+
+
+def denoiser_state_dict_from_jax(params: dict) -> dict:
+    """JAX ``Denoiser`` params -> :class:`~sndepth_tpu_torch.models.
+    denoiser.Denoiser` state_dict: ``TimeStepEmbedding_0.Dense_{0,1}`` are
+    ``time_embed.linear.{0,2}``, ``Dense_0`` is ``_first``, the encoder's
+    layers ``_trunk.layers.{i}`` (attention packed into
+    ``self_attn.in_proj_weight`` / ``in_proj_bias`` and ``out_proj``,
+    ``LayerNorm_{0,1}`` ``norm{1,2}``, ``Dense_{0,1}`` ``linear{1,2}``), and
+    ``LayerNorm_0``, ``Dense_1``, ``Dense_2`` the head ``_last.{0,1,3}``."""
+    sd: dict = {}
+    te = params["TimeStepEmbedding_0"]
+    _dense(sd, "time_embed.linear.0", te["Dense_0"])
+    _dense(sd, "time_embed.linear.2", te["Dense_1"])
+    _dense(sd, "_first", params["Dense_0"])
+    enc = params["TransformerEncoder_0"]
+    for i in range(len(enc)):
+        p, t = enc[f"TransformerEncoderLayer_{i}"], f"_trunk.layers.{i}"
+        _norm(sd, f"{t}.norm1", p["LayerNorm_0"])
+        mha = p["MultiHeadDotProductAttention_0"]
+        _qkv(sd, f"{t}.self_attn.in_proj_weight",
+             f"{t}.self_attn.in_proj_bias", mha)
+        _attn_out(sd, f"{t}.self_attn.out_proj", mha["out"])
+        _norm(sd, f"{t}.norm2", p["LayerNorm_1"])
+        _dense(sd, f"{t}.linear1", p["Dense_0"])
+        _dense(sd, f"{t}.linear2", p["Dense_1"])
+    _norm(sd, "_last.0", params["LayerNorm_0"])
+    _dense(sd, "_last.1", params["Dense_1"])
+    _dense(sd, "_last.3", params["Dense_2"])
     return sd

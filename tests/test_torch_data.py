@@ -382,6 +382,82 @@ def test_flo_and_pfm_readers_read_the_jax_packages_files(tmp_path):
         tcodecs.read_pfm(str(tmp_path / "bad2.pfm"))
 
 
+def test_flo_and_pfm_writers_write_the_jax_packages_bytes(tmp_path):
+    """The port's ``write_flo`` and ``write_pfm`` write the bytes the JAX
+    writers write, and each package reads the other's file back exactly."""
+    rng = np.random.RandomState(21)
+    flow = rng.randn(5, 7, 2)
+    cases = [("flo", flow, tcodecs.write_flo, jcodecs.write_flo, ())]
+    for name, arr, scale in (("gray", rng.rand(6, 8), 1.0),
+                             ("color", rng.rand(6, 8, 3), 1.0),
+                             ("scaled", rng.rand(5, 4), 2.5)):
+        cases.append((name + ".pfm", arr, tcodecs.write_pfm,
+                      jcodecs.write_pfm, (scale,)))
+    for name, arr, twrite, jwrite, extra in cases:
+        ext = ".flo" if name == "flo" else ""
+        tpath, jpath = (str(tmp_path / f"{side}_{name}{ext}")
+                        for side in ("t", "j"))
+        twrite(tpath, arr, *extra)
+        jwrite(jpath, arr, *extra)
+        assert open(tpath, "rb").read() == open(jpath, "rb").read(), name
+        np.testing.assert_array_equal(tcodecs.read_gen(jpath),
+                                      jcodecs.read_gen(tpath))
+        np.testing.assert_array_equal(tcodecs.read_gen(tpath),
+                                      arr.astype(np.float32))
+
+
+def test_dpt_cam_and_read_gen_match_the_jax_package(tmp_path):
+    """Sintel ``.dpt`` and ``.cam`` files and every extension of
+    ``read_gen``: the same bytes written, the same values read, bit for
+    bit, and the same refusals."""
+    from PIL import Image
+    rng = np.random.RandomState(22)
+    depth = (1 + 10 * rng.rand(9, 11)).astype(np.float32)
+    tcodecs.write_dpt(str(tmp_path / "t.dpt"), depth)
+    jcodecs.write_dpt(str(tmp_path / "j.dpt"), depth)
+    assert (tmp_path / "t.dpt").read_bytes() == (tmp_path / "j.dpt").read_bytes()
+    got = tcodecs.read_dpt(str(tmp_path / "j.dpt"))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, depth)
+    np.testing.assert_array_equal(got, jcodecs.read_dpt(str(tmp_path / "t.dpt")))
+
+    from scipy.spatial.transform import Rotation
+    M = np.array([[700.0, 0, 320.5], [0, 710.0, 240.25], [0, 0, 1]])
+    rot = Rotation.from_rotvec([0.1, -0.2, 0.3]).as_matrix()
+    N = np.concatenate([rot, [[1.5], [-2.0], [0.25]]], 1)
+    tcodecs.write_cam(str(tmp_path / "t.cam"), M, N)
+    jcodecs.write_cam(str(tmp_path / "j.cam"), M, N)
+    assert (tmp_path / "t.cam").read_bytes() == (tmp_path / "j.cam").read_bytes()
+    (tp, tk), (jp, jk) = (tcodecs.read_cam(str(tmp_path / "t.cam")),
+                          jcodecs.read_cam(str(tmp_path / "t.cam")))
+    np.testing.assert_array_equal(tp, jp)
+    np.testing.assert_array_equal(tk, jk)
+    np.testing.assert_array_equal(tk, [700.0, 710.0, 320.5, 240.25])
+    np.testing.assert_array_equal(tp[:3], [1.5, -2.0, 0.25])
+
+    img = rng.randint(0, 256, (6, 10, 3)).astype(np.uint8)
+    Image.fromarray(img).save(tmp_path / "a.png")
+    np.save(tmp_path / "a.bin", depth)
+    os.replace(tmp_path / "a.bin.npy", tmp_path / "a.bin")
+    for name in ("a.png", "a.bin", "t.dpt"):
+        got = tcodecs.read_gen(str(tmp_path / name))
+        want = jcodecs.read_gen(str(tmp_path / name))
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(tcodecs.read_gen(str(tmp_path / "a.png")),
+                                  img)
+    tp2, tk2 = tcodecs.read_gen(str(tmp_path / "j.cam"))
+    np.testing.assert_array_equal(tp2, jp)
+    np.testing.assert_array_equal(tk2, jk)
+
+    (tmp_path / "bad.dpt").write_bytes(np.float32(1.0).tobytes() + bytes(8))
+    for codecs in (tcodecs, jcodecs):
+        with pytest.raises(ValueError, match="tag"):
+            codecs.read_dpt(str(tmp_path / "bad.dpt"))
+        with pytest.raises(ValueError, match="extension"):
+            codecs.read_gen(str(tmp_path / "a.xyz"))
+
+
 def _rgbd_inputs(seed, h=60, w=90):
     rng = np.random.RandomState(seed)
     im1, im2 = (rng.randint(0, 255, (h, w, 3)).astype(np.float32)

@@ -38,9 +38,10 @@ def _modules():
 
 def test_every_module_imports_with_jax_unavailable():
     """Every module imports, and a stage-2 step, a RAFT3D frame, a RAFT3D
-    train step, the GeoNet -> NNET -> RAFT3D prediction and the CLIs run
-    (so the imports inside functions run too), with JAX and the JAX package
-    blocked."""
+    train step, the GeoNet -> NNET -> RAFT3D prediction, the RAFT3D demo,
+    the fused prediction with RAFT2D-Large flow, the VAE smoke test and the
+    CLIs run (so the imports inside functions run too), with JAX and the
+    JAX package blocked."""
     names = _modules()
     for name in ("cli.train_geonet", "cli.benchmark", "cli.kitti_submission",
                  "cli.profile_step", "data.kitti_sequence",
@@ -56,7 +57,10 @@ def test_every_module_imports_with_jax_unavailable():
                  "losses.segmentation", "losses.normal_loss", "train.motion",
                  "train.nnet", "data.kitti_motion", "cli.predict",
                  "cli.predict_motion", "cli.evaluate_motion",
-                 "cli.train_motion", "cli.train_nnet"):
+                 "cli.train_motion", "cli.train_nnet", "models.raft2d",
+                 "cli.demo", "models.vae", "models.attention",
+                 "models.denoiser", "models.vit", "utils.diffusion",
+                 "ops.layers", "cli.predict_vae", "cli.testvae"):
         assert f"sndepth_tpu_torch.{name}" in names, name
     code = ("import sys, tempfile\n"
             "import torch\n"
@@ -110,6 +114,16 @@ def test_every_module_imports_with_jax_unavailable():
             "        ['--synthetic', '--iters', '1', '--img_height', '64',\n"
             "         '--img_width', '64', '--out_dir', d, '--device', 'cpu'])\n"
             "    assert all(os.path.exists(p) for p in out[0]['paths'].values())\n"
+            "from sndepth_tpu_torch.cli import demo, predict, testvae\n"
+            "with tempfile.TemporaryDirectory() as d:\n"
+            "    demo.main(['--iters', '1', '--device', 'cpu',\n"
+            "               '--out', d + '/demo.png'])\n"
+            "    predict.main(['--synthetic', '--flow_source', 'raft2d_large',\n"
+            "                  '--raft2d_iters', '1', '--img_height', '64',\n"
+            "                  '--img_width', '64', '--out_dir', d,\n"
+            "                  '--device', 'cpu'])\n"
+            "testvae.main(['--batch', '1', '--height', '32', '--width', '32',\n"
+            "              '--device', 'cpu'])\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             f"       {BLOCKED!r}\n"
             "       and sys.modules[m] is not None]\n"
@@ -324,13 +338,23 @@ def test_kitti_submission_cli_says_that_data_parallel_waits(capsys):
     assert "not ported yet" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("family", ["vae"])
-def test_benchmark_cli_refuses_families_that_are_not_ported(family, capsys):
+def test_benchmark_cli_accepts_every_family_of_the_jax_cli(capsys):
+    """The port's ``--family`` choices are the JAX CLI's: each one parses
+    (the run then stops at ``--iters 0``, which is refused after parsing)."""
+    from sndepth_tpu.cli import benchmark as jbenchmark
     from sndepth_tpu_torch.cli import benchmark
-    with pytest.raises(SystemExit) as exc:
-        benchmark.main(["--family", family, "--device", "cpu"])
-    assert exc.value.code != 0
-    assert "not ported yet" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        jbenchmark.main(["--family", "no_such_family"])
+    err = capsys.readouterr().err
+    jax_choices = set(re.findall(
+        r"\w+", err.split("choose from")[1].split(")")[0]))
+    assert jax_choices == {"all", *benchmark.FAMILIES}
+    for family in sorted(jax_choices):
+        with pytest.raises(SystemExit) as exc:
+            benchmark.main(["--family", family, "--iters", "0",
+                            "--device", "cpu"])
+        assert exc.value.code == 2
+        assert "--iters must be at least 1" in capsys.readouterr().err
 
 
 def test_benchmark_cli_prints_one_json_line_per_family(capsys):
@@ -343,16 +367,18 @@ def test_benchmark_cli_prints_one_json_line_per_family(capsys):
              if ln.startswith("{")]
     assert lines == results
     assert [r["family"] for r in results] == ["geonet", "flow", "nnet",
-                                              "motion", "raft3d"]
+                                              "motion", "vae", "raft3d"]
     for r in results:
         assert set(r) == {"family", "ms_per_step", "value", "unit"}
         assert r["ms_per_step"] > 0
-        assert r["unit"] == ("img/sec" if r["family"] in ("nnet", "motion")
+        assert r["unit"] == ("img/sec" if r["family"] in ("nnet", "motion",
+                                                          "vae")
                              else "frames/sec")
 
 
 @pytest.mark.parametrize("cli", ["train_motion", "train_nnet", "predict",
-                                 "predict_motion"])
+                                 "predict_motion", "demo", "predict_vae",
+                                 "testvae"])
 def test_motion_and_nnet_clis_default_device_needs_a_card(cli, tmp_path):
     """Without ``--device`` the new CLIs run on the card: without one they
     raise and write nothing."""
@@ -376,6 +402,10 @@ def test_motion_and_nnet_clis_default_device_needs_a_card(cli, tmp_path):
         "predict_motion": [str(tmp_path / "i.png"), str(tmp_path / "i.png"),
                            "--ckpt_dir", str(tmp_path / "none"), "--out",
                            str(out)],
+        "demo": ["--iters", "1", "--out", str(out / "demo.png")],
+        "predict_vae": ["--img_height", "32", "--img_width", "64",
+                        "--out_dir", str(out)],
+        "testvae": ["--batch", "1", "--height", "32", "--width", "32"],
     }[cli]
     Image.fromarray(np.zeros((20, 30, 3), np.uint8)).save(tmp_path / "i.png")
     with pytest.raises((AssertionError, RuntimeError)):

@@ -5,8 +5,10 @@ generated files, both with ``--pred_file`` and on their network paths, each
 side restoring the same weights from its own checkpoint layout;
 ``predict_motion`` against the JAX CLI; the NYU reader and the savers
 against the JAX package's; the code that joins the stages of the GeoNet ->
-NNET -> RAFT3D and of the fused GeoNet -> NNET -> rigid flow -> motion
-prediction CLIs against the JAX CLIs', and both CLIs at a small size;
+NNET -> RAFT3D and of the fused GeoNet -> NNET -> flow -> motion
+prediction CLIs (rigid, RAFT2D and RAFT2D-Large flow) against the JAX
+CLIs', both CLIs at a small size, the fused one also serving a torchvision
+RAFT-Large checkpoint;
 ``train_geonet --profile_at``; ``train_motion`` and ``train_nnet`` for two
 steps, their checkpoints restored.
 
@@ -677,14 +679,186 @@ def test_predict_writes_its_files(tmp_path):
                for x in r.split(","))
 
 
-def test_predict_refuses_raft2d_flow(capsys):
-    """RAFT2D is not ported: the CLI exits rather than fall back to rigid
-    flow."""
-    for source in ("raft2d", "raft2d_large"):
-        with pytest.raises(SystemExit) as exc:
-            predict.main(["--flow_source", source, "--device", "cpu"])
-        assert exc.value.code != 0
-        assert "not ported" in capsys.readouterr().err
+@pytest.mark.parametrize("source", ["raft2d", "raft2d_large"])
+def test_predict_raft2d_flow_joins_as_jax_does(tmp_path, monkeypatch,
+                                               source):
+    """``--flow_source raft2d|raft2d_large`` against the JAX CLI, every
+    stage a stub on each side that records what it is handed and returns
+    the same numpy values: the flow stage is built with the same
+    architecture and iterations and gets the target and the second source
+    frame in [0, 1]; its flow, coloured, reaches the motion stage; the PNGs
+    are equal."""
+    h, w = 16, 24
+    rng = np.random.RandomState(25)
+    argv = ["--img_height", str(h), "--img_width", str(w), "--synthetic",
+            "--max_batches", "2", "--flow_source", source,
+            "--raft2d_iters", "3"]
+    outs = [{"depth": (1 + 9 * rng.rand(1, h, w)).astype(np.float32),
+             "tgt": rng.uniform(-1, 1, (1, h, w, 3)).astype(np.float32),
+             "src": rng.uniform(-1, 1, (1, h, w, 6)).astype(np.float32),
+             "poses": rng.uniform(-.1, .1, (1, 2, 6)).astype(np.float32),
+             "refined": (1 + rng.rand(1, h, w, 1)).astype(np.float32),
+             "normals": rng.uniform(-1, 1, (1, h, w, 3)).astype(np.float32),
+             "flow": (5 * rng.randn(1, h, w, 2)).astype(np.float32),
+             "seg": rng.randint(0, 3, (1, h, w))} for _ in range(2)]
+    seen = {"jax": [], "torch": []}
+    for side, mod, arr, nchw, nhwc in (
+            ("jax", jpipe, jnp.asarray, jnp.asarray, lambda x: x),
+            ("torch", tpipe, torch.from_numpy,
+             lambda a: torch.from_numpy(a).permute(0, 3, 1, 2),
+             lambda x: x.permute(0, 2, 3, 1))):
+        rec = seen[side]
+
+        class Stage:
+            def __init__(self, *args, rec=rec, **kwargs):
+                if "arch" in kwargs:
+                    rec.append({"arch": kwargs["arch"],
+                                "iters": kwargs["iters"]})
+
+        def call(name, fn):
+            return type(name, (Stage,), {"__call__": fn})
+
+        def geonet(self, batch, rec=rec, arr=arr, nchw=nchw):
+            rec.append({})
+            o = outs[len(rec) - 2]
+            return {"depth": arr(o["depth"]), "tgt_norm": nchw(o["tgt"]),
+                    "src_norm": nchw(o["src"]), "poses": arr(o["poses"])}
+
+        def nnet(self, pre_depth, rgb, rec=rec, arr=arr):
+            o = outs[len(rec) - 2]
+            return {"depth": arr(o["refined"]), "normals": arr(o["normals"])}
+
+        def flow(self, img1, img2, rec=rec, arr=arr, nhwc=nhwc):
+            rec[-1].update(img1=np.asarray(nhwc(img1)),
+                           img2=np.asarray(nhwc(img2)))
+            return arr(outs[len(rec) - 2]["flow"])
+
+        def motion(self, image01, flow_rgb, rec=rec, arr=arr, nhwc=nhwc):
+            rec[-1].update(flow_rgb=np.asarray(nhwc(flow_rgb)))
+            return arr(outs[len(rec) - 2]["seg"])
+
+        for name, fn in (("GeoNetStage", geonet), ("NNETStage", nnet),
+                         ("Raft2DFlowStage", flow), ("MotionStage", motion)):
+            monkeypatch.setattr(mod, name, call(name, fn))
+    jpredict.main(argv + ["--out_dir", str(tmp_path / "jax")])
+    predict.main(argv + ["--out_dir", str(tmp_path / "torch"),
+                         "--device", "cpu"])
+    assert seen["torch"][0] == seen["jax"][0] == {
+        "arch": "large" if source == "raft2d_large" else "native",
+        "iters": 3}
+    assert len(seen["torch"]) == len(seen["jax"]) == 3
+    for i, (got, want) in enumerate(zip(seen["torch"][1:], seen["jax"][1:])):
+        assert set(got) == set(want) == {"img1", "img2", "flow_rgb"}
+        np.testing.assert_array_equal(got["img1"],
+                                      (outs[i]["tgt"] + 1.0) * 0.5)
+        np.testing.assert_array_equal(got["img2"],
+                                      (outs[i]["src"][..., 3:] + 1.0) * 0.5)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        for name in ("depth", "norm", "seg", "flow"):
+            a, b = (np.asarray(Image.open(tmp_path / side / f"{name}_{i}.png"))
+                    for side in ("torch", "jax"))
+            np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def test_predict_raft2d_large_serves_a_torchvision_checkpoint(tmp_path):
+    """The whole CLI on the CPU at 64x64 with ``--flow_source raft2d_large``
+    and a ``--raft2d_ckpt`` written from the port's own state_dict in
+    torchvision's layout (under ``"model"``, with ``module.`` prefixes):
+    the flow it colours is the flow of a ``Raft2DFlowStage`` holding those
+    weights; without ``raft2d_large`` the checkpoint is refused."""
+    from sndepth_tpu_torch.models.raft2d import RAFT2DLarge
+    from sndepth_tpu_torch.models.raft3d import init_weights
+    model = RAFT2DLarge()
+    init_weights(model, torch.Generator().manual_seed(3))
+    path = tmp_path / "raft_large.pth"
+    torch.save({"model": {"module." + k: v
+                          for k, v in model.state_dict().items()}}, path)
+    argv = ["--synthetic", "--max_batches", "1", "--img_height", "64",
+            "--img_width", "64", "--device", "cpu", "--raft2d_iters", "2",
+            "--raft2d_ckpt", str(path)]
+    with pytest.raises(SystemExit) as exc:
+        predict.main(argv + ["--flow_source", "raft2d"])
+    assert exc.value.code != 0
+    out = predict.main(argv + ["--flow_source", "raft2d_large",
+                               "--out_dir", str(tmp_path / "out")])
+    assert out[0]["seg"].shape == (1, 64, 64)
+    batch = next(synthetic_batches(1, 64, 64))
+    g = tpipe.GeoNetStage(GeoNetConfig(batch_size=1, img_height=64,
+                                       img_width=64,
+                                       compute_dtype=torch.float32),
+                          device="cpu")(batch)
+    stage = tpipe.Raft2DFlowStage(model.state_dict(), iters=2, arch="large",
+                                  device="cpu")
+    flow = stage((g["tgt_norm"] + 1) * 0.5, (g["src_norm"][:, 3:] + 1) * 0.5)
+    assert flow.shape == (1, 64, 64, 2) and torch.isfinite(flow).all()
+    tvis.save_image(str(tmp_path / "want.png"), flow[0].numpy())
+    np.testing.assert_array_equal(
+        np.asarray(Image.open(tmp_path / "out" / "flow_0.png")),
+        np.asarray(Image.open(tmp_path / "want.png")))
+
+
+@pytest.mark.parametrize("source", ["synthetic", "files"])
+def test_demo_joins_as_jax_does(tmp_path, monkeypatch, source):
+    """The RAFT3D demo against the JAX demo, RAFT3D a stub on each side that
+    records what it is handed and returns the same tau / phi: the synthetic
+    pair, or a png pair with pfm depths (37x50, edge padded to 40x56), the
+    intrinsics, the iterations, and the saved panel, equal bit for bit."""
+    from sndepth_tpu.cli import demo as jdemo
+    from sndepth_tpu.data import frame_codecs as jcodecs
+    from sndepth_tpu_torch.cli import demo
+    rng = np.random.RandomState(26)
+    argv = ["--iters", "3"]
+    if source == "files":
+        for i in (1, 2):
+            Image.fromarray(rng.randint(0, 256, (37, 50, 3), np.uint8)).save(
+                tmp_path / f"im{i}.png")
+            jcodecs.write_pfm(str(tmp_path / f"d{i}.pfm"),
+                              (1 + 5 * rng.rand(37, 50)).astype(np.float32))
+            argv += [f"--image{i}", str(tmp_path / f"im{i}.png"),
+                     f"--depth{i}", str(tmp_path / f"d{i}.pfm")]
+    hw = (40, 56) if source == "files" else (64, 96)
+    tau_phi = rng.randn(1, *hw, 6).astype(np.float32)
+    seen = {}
+    for side, mod, arr, nhwc in (
+            ("jax", jpipe, jnp.asarray, lambda x: x),
+            ("torch", tpipe, torch.from_numpy,
+             lambda x: x.permute(0, 2, 3, 1))):
+        class Stage:
+            def __init__(self, iters, side=side, **kwargs):
+                seen[side] = {"iters": iters}
+
+            def __call__(self, img1, img2, d1, d2, k, side=side, arr=arr,
+                         nhwc=nhwc):
+                seen[side].update(img1=np.asarray(nhwc(img1)),
+                                  img2=np.asarray(nhwc(img2)),
+                                  d1=np.asarray(d1), d2=np.asarray(d2),
+                                  k=np.asarray(k))
+                return None, arr(tau_phi)
+
+        monkeypatch.setattr(mod, "RAFT3DStage", Stage)
+    jdemo.main(argv + ["--out", str(tmp_path / "jax.png")])
+    out = demo.main(argv + ["--out", str(tmp_path / "torch.png"),
+                            "--device", "cpu"])
+    assert set(seen["torch"]) == set(seen["jax"])
+    for k, want in seen["jax"].items():
+        np.testing.assert_array_equal(seen["torch"][k], want, err_msg=k)
+    assert seen["torch"]["img1"].shape == (1, *hw, 3)
+    np.testing.assert_array_equal(out["tau_phi"], tau_phi[0])
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "torch.png")),
+                                  np.asarray(Image.open(tmp_path / "jax.png")))
+
+
+def test_demo_runs_raft3d_on_the_cpu(tmp_path):
+    """The demo's synthetic pair through the port's RAFT3D at full width
+    on the CPU, two iterations: a finite field and the 64x192 panel."""
+    from sndepth_tpu_torch.cli import demo
+    out = demo.main(["--iters", "2", "--device", "cpu",
+                     "--out", str(tmp_path / "panel.png")])
+    assert out["tau_phi"].shape == (64, 96, 6)
+    assert np.isfinite(out["tau_phi"]).all()
+    panel = np.asarray(Image.open(tmp_path / "panel.png"))
+    assert panel.shape == (64, 192, 3) and panel.dtype == np.uint8
 
 
 def _assert_same_optimizer(got, want):
