@@ -11,9 +11,11 @@ fused GeoNet -> NNET -> RAFT3D prediction through the kernels written for
 Hopper, then MotionFusionNet serving and training, NNET training and the
 fused GeoNet -> NNET -> rigid flow -> motion prediction (which launch no
 hand-written kernel), RAFT2D and RAFT2D-Large flow (whose lookup launches
-the gather kernel) in that prediction, the RAFT3D demo, and the VAE /
-diffusion stack (no hand-written kernel), and fails unless every phase
-passes:
+the gather kernel) in that prediction, the RAFT3D demo, the VAE /
+diffusion stack (no hand-written kernel), and UniAD / BEVFormer tracking
+at the reference config and its clip trainer (whose deformable attention,
+DCNv2 and BEV shift sample through the gather kernel), and fails unless
+every phase passes:
 
   env        card name and power limit (nvidia-smi), torch and CUDA versions
   build      one nvcc per CUDA source, all started together
@@ -131,6 +133,25 @@ passes:
              denoiser, float32 card against CPU; ``testvae``,
              ``predict_vae`` and ``benchmark --family vae`` (B = 8,
              profiled); none of the eleven kernels launched
+  uniad      the reference UniAD config (901 queries, 256 dims, 200x200
+             BEV, 6 + 6 layers, caffe R101 with DCN and frozen BN) on a
+             six-camera surround rig: float32 card and CPU against a
+             float64 CPU run for two chained frames at 224x416 with a 50x50
+             BEV (BEV, logits, boxes; the card within 10 times the CPU's
+             distance; the carried dtypes kept), >= 50% of the BEV queries
+             seen, 63
+             K5 launches a chained 928x1600 frame, its time, peak memory and
+             profile
+  uniad_kernels  K5 and K5b against their plain versions on what a
+             reference frame hands the sampler (MSDA levels at C = 32, DCN
+             at C = 256 and 512, the BEV shift), timed beside
+             ``grid_sample`` and the bound; K6 at the train step's shapes
+  predict_vae_uniad  the GeoNet -> NNET -> VAE -> UniAD CLI on two frames
+  uniad_train  the small config's float32 train step card against CPU
+             on a clip whose GTs sit on the model's detections (matcher and
+             QIM decisions, slots kept, loss, gradients, AdamW); the
+             reference config's step with remat at T = 2, 6 x 224x416: ms,
+             peak memory, K5 / K5b / K6 launches, profile; ``train_uniad``
 
 Each phase prints one JSON line; the full report goes to
 ``chiprun_out/chip_smoke_report.json``. The last lines are the kernels
@@ -3335,6 +3356,553 @@ def phase_vae(smi: str) -> dict:
     return bench
 
 
+# --- UniAD / BEVFormer tracking ---------------------------------------------
+
+UNIAD_HW = (928, 1600)          # the reference's nuScenes camera frames
+UNIAD_SMALL_HW = (224, 416)     # card against CPU, and the train step
+UNIAD_SMALL_BEV = 50
+# Card against CPU (TF32 off), from the same seeded weights: the BEV, the
+# logits and the boxes of two chained frames, each float32 run against a
+# float64 run on the CPU by norm; the card's distance within
+# UNIAD_F64_FACTOR times the float32 CPU run's plus UNIAD_F64_FLOOR. The
+# seeded decoder's box refinement moves a reference point by several cells
+# a layer, the next layer samples there, and float32 rounding grows through
+# that loop some 300-700 times from the BEV to frame 2's logits, by an
+# amount that varies from one float32 evaluation to another: on the same
+# inputs the CPU run read 4.0e-4 and 7.0e-4 there in two runs, the card
+# 1.5e-3 and 1.8e-3 (1.6x-3.8x the CPU's; on the BEV 1.7x).
+UNIAD_F64_FACTOR = 10.0
+UNIAD_F64_FLOOR = 1e-5
+UNIAD_SEEN_SHARE = 0.5          # BEV queries a camera of the rig must see
+# K5 launches in a reference frame with an ego shift: spatial
+# cross-attention 4 levels x 6 layers, temporal self-attention 6, the
+# decoder 6, the DCN 3x3 of the 23 + 3 blocks of stages 3 and 4, and the
+# shift of the previous BEV.
+UNIAD_FRAME_LAUNCHES = {"warp_gather": 4 * 6 + 6 + 6 + 23 + 3 + 1}
+UNIAD_TRAIN_T = 2
+# A reference train step (remat, T frames, no shift): each frame samples
+# 62 times forward and again in the recomputed attention sublayers of the
+# backward (4 x 6 + 6 + 6); every call's coordinates and values want a
+# gradient, so each has one K5b and one K6.
+UNIAD_TRAIN_LAUNCHES = {"warp_gather": UNIAD_TRAIN_T * (62 + 36),
+                        "warp_coord_grad": UNIAD_TRAIN_T * 62,
+                        "warp_splat": UNIAD_TRAIN_T * 62}
+# The small config's float32 train step, card against CPU with the same
+# QIM draws: the matcher and QIM decisions equal, the loss within
+# UNIAD_STEP_LOSS_TOL, each gradient tensor within UNIAD_STEP_GRAD_TOL by
+# norm (floored at 1e-5 of the global norm), the weights after AdamW within
+# 2 learning rates and at most UNIAD_STEP_FRAC_OFF of them 0.01 of a rate
+# off (the first Adam update is the rate times a gradient's sign, which
+# noise decides where a gradient is zero).
+UNIAD_STEP_LOSS_TOL = 1e-5
+UNIAD_STEP_GRAD_TOL = 1e-4
+UNIAD_STEP_FRAC_OFF = 1e-3
+
+
+def _uniad_pair(bev: int, seed: int):
+    """The reference config with a ``bev`` x ``bev`` BEV three times from
+    the same seeded weights, its offsets spread on the card over the small
+    frames: float32 on the CPU and on the card, float64 on the CPU."""
+    import torch
+    from sndepth_tpu_torch.models import uniad_track as ut
+    from sndepth_tpu_torch.utils.uniad import surround_lidar2img
+    h, w = UNIAD_SMALL_HW
+    gen = torch.Generator().manual_seed(seed)
+    card = ut.uniad_reference_config(bev_h=bev, bev_w=bev)
+    ut.init_weights(card, gen)
+    card = card.to(DEV).eval()
+    imgs = torch.rand(6, 1, 3, h, w, generator=gen)
+    l2i = surround_lidar2img(h, w)
+    ut.spread_offsets(card, lambda: card(imgs.to(DEV), l2i.to(DEV),
+                                         card.init_state()), gen)
+    cpu = ut.uniad_reference_config(bev_h=bev, bev_w=bev).eval()
+    cpu.load_state_dict(card.state_dict())
+    wide = ut.uniad_reference_config(bev_h=bev, bev_w=bev,
+                                     dtype=torch.float64).double().eval()
+    wide.load_state_dict(card.state_dict())
+    return cpu, card, wide, imgs, l2i
+
+
+def _wide_state(state):
+    """``state`` with its floating tensors in float64."""
+    from sndepth_tpu_torch.models import uniad_track as ut
+    f = lambda v: v.double() if v.is_floating_point() else v
+    return ut.TrackState(
+        prev_bev=f(state.prev_bev),
+        tracks=ut.TrackInstances(**{k: f(v) for k, v in
+                                    state.tracks.tensors().items()}),
+        next_obj_id=state.next_obj_id, timestamp=f(state.timestamp),
+        has_prev=state.has_prev)
+
+
+def _rel64(got, want) -> float:
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / max(float(want.norm()), 1e-300))
+
+
+def _uniad_card_vs_cpu() -> dict:
+    """Two chained frames (the second with an ego shift and rotation) at
+    224x416 with a 50x50 BEV and the reference widths and depth, in float32
+    on the card and on the CPU (TF32 off) and in float64 on the CPU: the
+    BEV, the logits and the boxes of each float32 run against the other and
+    against the float64 run, by norm; the carried state's dtypes unchanged
+    in the float32 runs."""
+    import torch
+    cpu, card, wide, imgs, l2i = _uniad_pair(UNIAD_SMALL_BEV, 52)
+    shift = torch.tensor([[0.04, -0.02]])
+    rot = torch.tensor([5.0])
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out, seconds = {}, {}
+    runs = (("cpu", cpu, "cpu", torch.float32),
+            ("card", card, DEV, torch.float32),
+            ("float64", wide, "cpu", torch.float64))
+    try:
+        with torch.no_grad():
+            for side, model, dev, dt in runs:
+                t0 = time.perf_counter()
+                cast = lambda x: x.to(dev, dt)
+                state0 = model.init_state()
+                if dt == torch.float64:
+                    state0 = _wide_state(state0)
+                s1, _ = model(cast(imgs), cast(l2i), state0, timestamp=0.5)
+                s2, r2 = model(cast(imgs), cast(l2i), s1, timestamp=1.0,
+                               ego_shift=cast(shift),
+                               ego_rotation_deg=cast(rot))
+                dtypes = {k: (v.dtype, s2.tracks.tensors()[k].dtype)
+                          for k, v in state0.tracks.tensors().items()}
+                dtypes["prev_bev"] = (state0.prev_bev.dtype,
+                                      s2.prev_bev.dtype)
+                changed = {k: v for k, v in dtypes.items() if v[0] != v[1]}
+                if changed:
+                    raise AssertionError(f"UniAD {side}: carried dtypes "
+                                         f"changed {changed}")
+                out[side] = (s1, s2, r2)
+                if dev == DEV:
+                    torch.cuda.synchronize()
+                seconds[side] = time.perf_counter() - t0
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+    def distances(got, want):
+        d = {}
+        for i in (0, 1):
+            g, c = got[i], want[i]
+            d[f"bev_{i + 1}"] = _rel64(g.prev_bev, c.prev_bev)
+            d[f"logits_{i + 1}"] = _rel64(g.tracks.pred_logits,
+                                          c.tracks.pred_logits)
+            d[f"boxes_{i + 1}"] = _rel64(g.tracks.pred_boxes,
+                                         c.tracks.pred_boxes)
+        return d
+
+    (c1, c2, cr), (g1, g2, gr) = out["cpu"], out["card"]
+    for i, g in enumerate((g1, g2), 1):
+        _assert_finite(f"UniAD frame {i}", g.prev_bev, g.tracks.pred_logits)
+    scores = torch.cat([c1.tracks.track_scores, c2.tracks.track_scores])
+    margin = float(torch.minimum((scores - 0.4).abs(),
+                                 (scores - 0.35).abs()).min())
+    same_ids = bool(torch.equal(g2.tracks.obj_idxes.cpu(),
+                                c2.tracks.obj_idxes))
+    if margin > 1e-3 and not same_ids:
+        raise AssertionError("UniAD card against CPU: track ids differ "
+                             f"with scores {margin} from a threshold")
+    cpu64 = distances(out["cpu"], out["float64"])
+    card64 = distances(out["card"], out["float64"])
+    return {"rel": distances(out["card"], out["cpu"]),
+            "cpu_vs_float64": cpu64, "card_vs_float64": card64,
+            "tolerance": {k: UNIAD_F64_FACTOR * v + UNIAD_F64_FLOOR
+                          for k, v in cpu64.items()},
+            "seconds": seconds, "score_margin": margin,
+            "same_track_ids": same_ids,
+            "tracks_born": int((c2.tracks.obj_idxes >= 0).sum()),
+            "detections_valid": int(cr["valid"].sum())}
+
+
+def phase_uniad(smi: str) -> dict:
+    """UniAD tracking at the reference config (901 queries, 256 dims, a
+    200x200 BEV, 6 + 6 layers, the caffe R101 with DCN in stages 3-4 and
+    frozen BatchNorm) on six surround cameras at 928x1600, float32: the
+    card and the CPU against a float64 CPU run at reduced spatial size
+    (224x416, a 50x50 BEV),
+    the share of BEV queries the rig's cameras see, one chained frame's
+    launches of K5 against the count derived from the code, the frame time
+    (CUDA events behind a spin, median of 5 warm chained frames), peak
+    memory and one profiled frame."""
+    import torch
+    from sndepth_tpu_torch.cli.profile_step import uniad_frame
+    from sndepth_tpu_torch.models import bevformer
+    from sndepth_tpu_torch.train.loop import profiled_step
+    check = _uniad_card_vs_cpu()
+    h, w = UNIAD_HW
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model, imgs, l2i, frame = uniad_frame(h, w, DEV, seed=53)
+    pillar = bevformer.bev_pillar_points(model.bev_h, model.bev_w, 4,
+                                         model.pc_range, DEV)
+    _, mask = bevformer.project_points_to_cams(pillar, l2i, h, w)
+    seen = float(mask.any(-1).any(0).float().mean())
+    if not seen >= UNIAD_SEEN_SHARE:
+        raise AssertionError(f"UniAD rig: {seen} of the BEV queries seen")
+    frame()                                  # the first frame: no shift
+    reset_launches()
+    state, results = frame()
+    torch.cuda.synchronize()
+    launches = _used(read_launches())
+    if launches != UNIAD_FRAME_LAUNCHES:
+        raise AssertionError(f"UniAD frame: launches {launches}, want "
+                             f"{UNIAD_FRAME_LAUNCHES}")
+    _assert_finite("UniAD reference frame", state.prev_bev,
+                   state.tracks.pred_logits, results["bboxes"])
+    frame_ms = time_ms(frame, 5)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _, prof = profiled_step(frame, os.path.join(WORK_DIR, "trace"),
+                            "uniad_frame", DEV)
+    profile = {"kernel_ms": prof["kernel_ms"], "launches": prof["launches"],
+               "wall_ms": prof["wall_ms"],
+               "idle_share": 1.0 - prof["kernel_ms"] / prof["wall_ms"],
+               "ms_by_group": prof["ms_by_group"],
+               "host_top": _host_top(frame)}
+    del model, imgs, frame, state, results
+    emit("uniad", hw=[h, w], bev=[200, 200], nvidia_smi=smi,
+         f32_card_vs_cpu=check, bev_seen_share=seen,
+         launches_per_frame=launches, frame_ms=frame_ms, peak_gb=peak,
+         profile=profile)
+    for key, value in check["card_vs_float64"].items():
+        if not value <= check["tolerance"][key]:
+            raise AssertionError(f"UniAD card against float64: {key} "
+                                 f"{value} > {check['tolerance'][key]}")
+    return launches
+
+
+def _host_top(step, n: int = 12) -> list:
+    """The host's busiest operators in one ``step()``: torch.profiler's CPU
+    self time by operator, ms, largest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return [{"op": e.key[:60], "self_ms": e.self_cpu_time_total / 1e3,
+             "calls": e.count} for e in rows[:n]]
+
+
+def _record_sampler_calls(run) -> dict:
+    """The first call of each distinct shape that the UniAD modules hand
+    the sampler during ``run()``: {label: (imgs, coords)}."""
+    from sndepth_tpu_torch.models import bevformer, deformable
+    calls = {}
+    real = deformable.bilinear_sampler_zero_pad
+
+    def recorder(site):
+        def record(imgs, coords):
+            b, c, hs, ws = imgs.shape
+            if site == "shift":
+                label = "BEV shift"
+            elif coords.shape[3] == 9:
+                label = f"DCN C={c}"
+            else:
+                label = f"MSDA {b}x{c}x{hs}x{ws}"
+            label += f" <- {tuple(coords.shape)}"
+            calls.setdefault(label, (imgs.detach().contiguous(),
+                                     coords.detach().contiguous()))
+            return real(imgs, coords)
+        return record
+
+    deformable.bilinear_sampler_zero_pad = recorder("deformable")
+    bevformer.bilinear_sampler_zero_pad = recorder("shift")
+    try:
+        run()
+    finally:
+        deformable.bilinear_sampler_zero_pad = real
+        bevformer.bilinear_sampler_zero_pad = real
+    return calls
+
+
+def _splat_case(label: str, imgs, coords, gen) -> dict:
+    """K6 against its plain version on one call (PR 6's calibrated
+    tolerance: 1e-5 plus 4 times the float32 plain version's distance from
+    a float64 evaluation), and K6 timed beside the plain version, one
+    ``index_add_`` of the four taps' weighted cotangents and the bound."""
+    import torch
+    from sndepth_tpu_torch.kernels import warp as K5
+    b, c, hs, ws = imgs.shape
+    g = torch.randn(b, c, *coords.shape[2:], generator=gen).to(DEV)
+    d_k = K5.warp_splat(coords, g, hs, ws, "zero_pad")
+    d_p = K5.warp_splat_reference(coords, g, hs, ws, "zero_pad")
+    d_64 = K5.warp_splat_reference(coords.double(), g.double(), hs, ws,
+                                   "zero_pad")
+    torch.cuda.synchronize()
+    _assert_finite(f"K6 {label}", d_k)
+    err = _max_err(d_k, d_p)
+    tol = 1e-5 + 4.0 * _max_err(d_p.double(), d_64)
+    del d_64
+    if not err <= tol:
+        raise AssertionError(f"K6 {label}: {err} > {tol}")
+    idx, (wx0, wx1, wy0, wy1), _ = K5._taps(coords, hs, ws, "zero_pad")
+    base = (torch.arange(b, device=DEV) * (hs * ws))[:, None]
+    index = torch.cat([(i + base).reshape(-1) for i in idx])
+    values = torch.cat([(wt * g).permute(0, 2, 3, 1).reshape(-1, c)
+                        for wt in (wx0 * wy0, wx0 * wy1, wx1 * wy0,
+                                   wx1 * wy1)])
+    out = torch.zeros(b * hs * ws, c, device=DEV)
+    row = {"case": label, "imgs": list(imgs.shape),
+           "coords": list(coords.shape), "max_abs_err": err, "tol": tol,
+           "path": _splat_path(hs, ws),
+           "ms": time_ms(lambda: K5.warp_splat(coords, g, hs, ws,
+                                               "zero_pad"), 10),
+           "plain_ms": time_ms(lambda: K5.warp_splat_reference(
+               coords, g, hs, ws, "zero_pad"), 3),
+           "library_ms": time_ms(lambda: out.index_add_(0, index, values),
+                                 10),
+           **_bound(_nbytes(coords, g, imgs),
+                    b * g[0, 0].numel() * (20 + 8 * c))}
+    return row
+
+
+def _with_bound(row: dict) -> dict:
+    row["bound_ms"] = max(row["bytes_ms"], row["flops_ms"])
+    row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["flops_ms"]
+                       else "operations")
+    return row
+
+
+def phase_uniad_kernels(smi: str) -> dict:
+    """K5 and K5b against their plain versions on what the UniAD modules
+    hand the sampler in a reference frame (the MSDA levels at C = 32, the
+    DCN 3x3 at C = 256 and 512, the BEV shift at C = 256), each timed
+    beside its plain version, ``F.grid_sample`` (and its backward for K5b)
+    and its bound; K6 against its plain version, and timed, on what a
+    frame of the train step's shapes (6 cameras at 224x416, a 200x200 BEV)
+    hands the sampler."""
+    import torch
+    from sndepth_tpu_torch.cli.profile_step import uniad_frame
+    from sndepth_tpu_torch.kernels import warp as K5
+    gen = torch.Generator().manual_seed(54)
+    sizes = {"reference": UNIAD_HW, "train": UNIAD_SMALL_HW}
+    calls = {}
+    for name, (h, w) in sizes.items():
+        model, _, _, frame = uniad_frame(h, w, DEV, seed=55)
+        frame()
+        calls[name] = _record_sampler_calls(frame)
+        del model, frame
+    checks, gather_rows, coord_rows, splat_rows = [], [], [], []
+    for label, (imgs, coords) in calls["reference"].items():
+        check = _k5_case(label, imgs, coords, gen)
+        g = torch.randn(imgs.shape[0], imgs.shape[1], *coords.shape[2:],
+                        generator=gen).to(DEV)
+        check["coord_grad_bit_equal"] = bool(torch.equal(
+            K5.warp_coord_grad(imgs, coords, g, "zero_pad"),
+            K5.warp_coord_grad_reference(imgs, coords, g, "zero_pad")))
+        del g
+        checks.append(check)
+        gather, coord = _sampler_rows(imgs, coords, gen, mode="zero_pad")
+        gather_rows.append(_with_bound({"case": label, **gather}))
+        coord_rows.append(_with_bound({"case": label, **coord}))
+        torch.cuda.empty_cache()
+    for label, (imgs, coords) in calls["train"].items():
+        if "shift" not in label:
+            splat_rows.append(_with_bound(_splat_case(label, imgs, coords,
+                                                      gen)))
+        torch.cuda.empty_cache()
+    not_bit_equal = [c["case"] for c in checks if not c["bit_equal"]]
+    emit("uniad_kernels", nvidia_smi=smi, k5_checks=checks,
+         gather=gather_rows, coord_grad=coord_rows, splat=splat_rows,
+         k5_not_bit_equal=not_bit_equal)
+    if not_bit_equal:
+        raise AssertionError(f"K5 not bit-equal to its plain version at "
+                             f"{not_bit_equal}")
+    return {"errs": {"warp_gather": max(c["gather_err"] for c in checks),
+                     "warp_coord_grad": max(c["coord_grad_err"]
+                                            for c in checks),
+                     "warp_splat": max(r["max_abs_err"] for r in splat_rows)},
+            "times": {"warp_gather": gather_rows,
+                      "warp_coord_grad": coord_rows,
+                      "warp_splat": splat_rows}}
+
+
+def phase_predict_vae_uniad(smi: str) -> dict:
+    """``cli/predict_vae_uniad.py`` on the card for two frames at the JAX
+    CLI's 64x64: its box files read back, finite, and K5 launched on the
+    track model's path (its DCN, attention and BEV sampling)."""
+    import numpy as np
+    from sndepth_tpu_torch.cli import predict_vae_uniad
+    out_dir = os.path.join(WORK_DIR, "predict_vae_uniad")
+    reset_launches()
+    recs = predict_vae_uniad.main(["--frames", "2", "--out_dir", out_dir,
+                                   "--device", DEV])
+    launches = _used(read_launches())
+    if not launches.get("warp_gather", 0) > 0 or set(launches) != {
+            "warp_gather"}:
+        raise AssertionError(f"predict_vae_uniad: launches {launches}")
+    for rec in recs:
+        boxes = np.load(rec["path"])
+        if boxes.ndim != 2 or boxes.shape[1] != 9 or not np.isfinite(
+                boxes).all():
+            raise AssertionError(f"{rec['path']}: {boxes.shape}")
+    emit("predict_vae_uniad", nvidia_smi=smi, launches=launches,
+         ms_per_frame=[rec["ms"] for rec in recs],
+         active_tracks=[rec["active_tracks"] for rec in recs])
+    return launches
+
+
+def _uniad_step_record(state, metrics: dict) -> dict:
+    named = list(state.model.named_parameters())
+    for n, p in named:
+        _assert_finite(f"gradient {n}", p.grad)
+    return {"loss": float(metrics["loss_total"]), "lr": 2e-4,
+            "grads": {n: p.grad.detach().cpu() for n, p in named},
+            "params": {n: p.detach().cpu() for n, p in named}, "stats": {},
+            "decisions": [{k: v.cpu() for k, v in d.items()}
+                          for d in state.decisions]}
+
+
+def phase_uniad_train(smi: str) -> dict:
+    """UniAD training. The small config's float32 step (the train CLI's
+    ``--small`` clip: T = 3, 4 GTs, 64x64, the GTs on the model's own
+    detections) card against CPU from the same seeded weights and QIM draws
+    (TF32 off): the matcher's ``assigned`` and ``matched`` and the QIM
+    ``keep`` of every frame equal, a slot kept in every frame, the QIM's
+    and memory bank's gradients nonzero, then the loss,
+    the gradients (each tensor by norm, floored at 1e-5 of the global norm,
+    before the clip) and the weights after AdamW. Then the reference config
+    with ``remat`` on a clip of T = 2 frames of 6 cameras at 224x416:
+    ms/step (median of 3 after a warm-up), peak memory, the K5, K5b and K6
+    launches of a step against the count derived from the code, one
+    profiled step; and ``cli/train_uniad.py --small`` for 3 steps."""
+    import torch
+    from sndepth_tpu_torch.cli import train_uniad
+    from sndepth_tpu_torch.cli.profile_step import uniad_train_step
+    from sndepth_tpu_torch.models import uniad_track as ut
+    from sndepth_tpu_torch.train import uniad as tu
+    from sndepth_tpu_torch.train.loop import profiled_step
+    # The small step, card against CPU.
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    try:
+        base = train_uniad.small_model()
+        ut.init_weights(base, torch.Generator().manual_seed(56))
+        gen = torch.Generator().manual_seed(57)
+        draws = [tuple(torch.rand(2, base.num_query, generator=gen))
+                 for _ in range(3)]
+        # The GTs on the model's own detections, so that the QIM keeps
+        # slots and its update and the memory bank reach the loss.
+        clip = tu.clip_with_gts_on_detections(
+            base, tu.synthetic_clip(base, t_frames=3, ng=4, img_hw=(64, 64)),
+            draws)
+        for side, dev in (("cpu", "cpu"), ("card", DEV)):
+            model = train_uniad.small_model()
+            model.load_state_dict(base.state_dict())
+            state = tu.create_train_state(model, dev)
+            metrics = tu.train_step(state, tu.clip_to(clip, dev),
+                                    [tuple(d.to(dev) for d in f)
+                                     for f in draws])
+            # Gradients before the clip: the clip's scale undone.
+            scale = max(float(metrics["grad_norm"]) / tu.CLIP_NORM, 1.0)
+            for p in model.parameters():
+                p.grad.mul_(scale)
+            runs[side] = _uniad_step_record(state, metrics)
+        torch.cuda.synchronize()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    for t, (dc, dg) in enumerate(zip(runs["cpu"]["decisions"],
+                                     runs["card"]["decisions"])):
+        for k in dc:
+            if not torch.equal(dc[k], dg[k]):
+                raise AssertionError(f"UniAD step frame {t}: {k} differs, "
+                                     f"card {dg[k]} CPU {dc[k]}")
+        if not bool(dc["keep"].any()):
+            raise AssertionError(f"UniAD step frame {t}: no slot kept")
+    for side, run in runs.items():
+        idle = [n for n, g in run["grads"].items()
+                if n.startswith(("query_interact.", "memory_bank."))
+                and not float(g.norm()) > 0.0]
+        if idle:
+            raise AssertionError(f"UniAD step ({side}): zero gradients "
+                                 f"{idle}")
+    # The selection also held card against CPU on random slots, that it
+    # keeps and fills with false positives.
+    from sndepth_tpu_torch.models import track_runtime as tr
+    gen = torch.Generator().manual_seed(58)
+    n = 901
+    tracks = tr.empty_tracks(n, 8).replace(
+        obj_idxes=torch.randint(-1, 40, (n,), generator=gen,
+                                dtype=torch.int32),
+        iou=torch.rand(n, generator=gen), scores=torch.rand(n, generator=gen))
+    u = torch.rand(2, n, generator=gen)
+    keep_cpu = tr.qim_select_train(tracks, *u)
+    keep_card = tr.qim_select_train(tracks.to(DEV), *u.to(DEV))
+    if not torch.equal(keep_card.cpu(), keep_cpu):
+        raise AssertionError("QIM selection: card and CPU differ")
+    dist = _step_distances(runs["card"], runs["cpu"])
+    worst = dist["grads_rel_tensor_worst"][0][0]
+    small = {"card_vs_cpu": dist, "loss": runs["cpu"]["loss"],
+             "qim_selection_kept": int(keep_cpu.sum()),
+             "matched": [int(d["matched"].sum())
+                         for d in runs["cpu"]["decisions"]],
+             "kept": [int(d["keep"].sum()) for d in runs["cpu"]["decisions"]]}
+    del runs
+
+    # The reference config with remat at the JAX package's trained shape.
+    h, w = UNIAD_SMALL_HW
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, clip, step = uniad_train_step(h, w, DEV, t_frames=UNIAD_TRAIN_T)
+    step()
+    torch.cuda.synchronize()
+    reset_launches()
+    metrics = step()
+    torch.cuda.synchronize()
+    launches = _used(read_launches())
+    if launches != UNIAD_TRAIN_LAUNCHES:
+        raise AssertionError(f"UniAD train step: launches {launches}, want "
+                             f"{UNIAD_TRAIN_LAUNCHES}")
+    if not all(_finite(float(v)) for v in metrics.values()):
+        raise AssertionError(f"UniAD train step: {metrics}")
+    step_ms = time_ms(step, 3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _, prof = profiled_step(step, os.path.join(WORK_DIR, "trace"),
+                            "uniad_train", DEV)
+    ref = {"hw": [h, w], "bev": [200, 200], "t_frames": UNIAD_TRAIN_T,
+           "remat": True, "ms_per_step": step_ms, "peak_gb": peak,
+           "launches": launches, "steps_applied": state.step,
+           "metrics": {k: float(v) for k, v in metrics.items()},
+           "profile": {"kernel_ms": prof["kernel_ms"],
+                       "launches": prof["launches"],
+                       "wall_ms": prof["wall_ms"],
+                       "idle_share": 1.0 - prof["kernel_ms"] / prof["wall_ms"],
+                       "ms_by_group": prof["ms_by_group"]}}
+    del state, clip, step
+    torch.cuda.empty_cache()
+    cli_state, records = train_uniad.main(
+        ["--small", "--max_steps", "3", "--log_every", "1", "--device", DEV,
+         "--ckpt_dir", os.path.join(WORK_DIR, "uniad_ckpt")])
+    if cli_state.step != 3 or not os.path.exists(
+            os.path.join(WORK_DIR, "uniad_ckpt", "uniad.pth")):
+        raise AssertionError("train_uniad: no checkpoint after 3 steps")
+    emit("uniad_train", nvidia_smi=smi, small_step=small,
+         tolerances={"loss_rel": UNIAD_STEP_LOSS_TOL,
+                     "grad_rel_tensor": UNIAD_STEP_GRAD_TOL,
+                     "params_frac_off": UNIAD_STEP_FRAC_OFF},
+         reference_step=ref, cli_losses=[r["loss_total"] for r in records])
+    if not dist["loss_rel"] <= UNIAD_STEP_LOSS_TOL:
+        raise AssertionError(f"UniAD step loss {dist['loss_rel']}")
+    if not worst <= UNIAD_STEP_GRAD_TOL:
+        raise AssertionError(f"UniAD step gradients: "
+                             f"{dist['grads_rel_tensor_worst']}")
+    if not (dist["params_over_lr"] <= 2.01
+            and dist["params_frac_off"] <= UNIAD_STEP_FRAC_OFF):
+        raise AssertionError(f"UniAD step weights: {dist}")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "sndepth_tpu_torch")):
         print("chip_smoke: sndepth_tpu_torch is not beside this script",
@@ -3380,6 +3948,12 @@ def main() -> int:
     raft2d_launches = phase_predict_raft2d(smi)["raft2d_large"]
     phase_demo(smi)
     phase_vae(smi)
+    uniad_launches = phase_uniad(smi)
+    uniad_k = phase_uniad_kernels(smi)
+    for name, err in uniad_k["errs"].items():
+        errs[name] = max(errs[name], err)
+    uniad_cli_launches = phase_predict_vae_uniad(smi)
+    uniad_train_launches = phase_uniad_train(smi)
 
     csrc = "sndepth_tpu_torch/kernels/csrc/"
     where = {
@@ -3436,6 +4010,16 @@ def main() -> int:
             k["err_over_tolerance"] = errs["gn_build_err_over_tol"]
         if k["name"] == "gn_build_bwd":
             k["err_over_tolerance"] = errs["gn_build_bwd_err_over_tol"]
+    # K5, K5b and K6 on the UniAD paths: K5's launches in a reference frame
+    # and in the pipeline CLI's two frames, each kernel's launches in a
+    # reference train step, and their times at the UniAD instantiations.
+    for k in kernels:
+        if k["name"] in uniad_k["times"]:
+            k["uniad_launches"] = uniad_launches.get(k["name"], 0)
+            k["predict_vae_uniad_launches"] = uniad_cli_launches.get(
+                k["name"], 0)
+            k["uniad_train_launches"] = uniad_train_launches[k["name"]]
+            k["uniad_times"] = uniad_k["times"][k["name"]]
     # K6's max_abs_err is over the cases whose tap weights stay near [0, 1];
     # the far-out edge_zero cases are held to their own tolerance.
     next(k for k in kernels if k["name"] == "warp_splat")[

@@ -4,8 +4,11 @@ Runs the ``geonet`` (stage 1) or ``flow`` (stage 2) train step, the
 ``nnet`` (B = 4 at 480x640) or ``motion`` (B = 16 at 384x768) bf16 train
 step, the ``vae`` call (B = 8 at 128x416, float32) or the ``raft3d``
 inference frame (B = 1, 16 iterations) of
-``sndepth_tpu_torch.cli.benchmark``, or the ``raft3d_train`` step (12
-iterations, the train CLI's defaults: 256x832, B = 2, bf16), on inputs that
+``sndepth_tpu_torch.cli.benchmark``, the ``raft3d_train`` step (12
+iterations, the train CLI's defaults: 256x832, B = 2, bf16), a ``uniad``
+frame of the reference config (6 cameras at 928x1600, float32, chained
+frames with an ego shift) or a ``uniad_train`` step of it (``remat``, a
+clip of 2 frames, 6 cameras at 224x416), on inputs that
 lie on the card, warms it up, then traces ``--steps`` steps with
 ``torch.profiler`` and prints one JSON object: the host's wall time per
 step, the summed device time of the kernels, the device's idle share
@@ -19,6 +22,8 @@ Usage:
     python -m sndepth_tpu_torch.cli.profile_step --family raft3d_train
     python -m sndepth_tpu_torch.cli.profile_step --family motion
     python -m sndepth_tpu_torch.cli.profile_step --family vae
+    python -m sndepth_tpu_torch.cli.profile_step --family uniad
+    python -m sndepth_tpu_torch.cli.profile_step --family uniad_train
 """
 
 from __future__ import annotations
@@ -71,30 +76,88 @@ def _raft3d_train_step(batch: int, h: int, w: int, dtype: str, device):
     return lambda: rt.train_step(state, data)
 
 
+def uniad_frame(h: int, w: int, device, seed: int = 0):
+    """The reference UniAD config with seeded weights, its offsets spread
+    over a few pixels (``spread_offsets``), six
+    seeded camera images at h x w on the surround rig, and a function of no
+    arguments that runs one chained inference frame, after the first with
+    an ego shift and rotation; returns (model, images, lidar2img, frame)."""
+    import torch
+
+    from sndepth_tpu_torch.models import uniad_track as ut
+    from sndepth_tpu_torch.utils.uniad import surround_lidar2img
+
+    model = ut.uniad_reference_config()
+    gen = torch.Generator().manual_seed(seed)
+    ut.init_weights(model, gen)
+    model = model.to(device).eval()
+    imgs = torch.rand(model.num_cams, 1, 3, h, w, generator=gen).to(device)
+    l2i = surround_lidar2img(h, w).to(device)
+    shift = torch.tensor([[0.02, -0.01]], device=device)
+    rot = torch.tensor([3.0], device=device)
+    with torch.no_grad():
+        ut.spread_offsets(model, lambda: model(imgs, l2i, model.init_state()),
+                          gen)
+    carry = {"state": model.init_state()}
+
+    @torch.no_grad()
+    def frame():
+        first = not bool(carry["state"].has_prev)
+        state, results = model(imgs, l2i, carry["state"],
+                               timestamp=carry["state"].timestamp + 0.5,
+                               ego_shift=None if first else shift,
+                               ego_rotation_deg=None if first else rot)
+        carry["state"] = state
+        return state, results
+
+    return model, imgs, l2i, frame
+
+
+def uniad_train_step(h: int, w: int, device, t_frames: int = 2,
+                     seed: int = 0):
+    """A train step of the reference UniAD config with ``remat`` on the JAX
+    CLI's synthetic clip (T frames, 6 cameras at h x w, 4 GTs), as a
+    function of no arguments; returns (state, clip, step)."""
+    import torch
+
+    from sndepth_tpu_torch.models import uniad_track as ut
+    from sndepth_tpu_torch.train import uniad as tu
+
+    model = ut.uniad_reference_config(remat=True)
+    ut.init_weights(model, torch.Generator().manual_seed(seed))
+    clip = tu.clip_to(tu.synthetic_clip(model, t_frames=t_frames,
+                                        img_hw=(h, w)), device)
+    state = tu.create_train_state(model, device, seed=seed)
+    return state, clip, lambda: tu.train_step(state, clip)
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description="Profile one warm step")
     p.add_argument("--family", default="flow",
                    choices=["geonet", "flow", "nnet", "motion", "vae",
-                            "raft3d", "raft3d_train"])
+                            "raft3d", "raft3d_train", "uniad",
+                            "uniad_train"])
     p.add_argument("--batch", default=0, type=int,
                    help="override the family's default batch (128 / 32; "
                         "nnet 4, motion 16, vae 8; raft3d runs one frame "
                         "pair, "
-                        "raft3d_train 2)")
+                        "raft3d_train 2; uniad runs one frame of 6 "
+                        "cameras, uniad_train a clip of 2 frames)")
     p.add_argument("--steps", default=2, type=int, help="steps to trace")
     p.add_argument("--img_height", default=0, type=int,
                    help="default 128 (raft3d_train: 256, nnet: 480, "
-                        "motion: 384)")
+                        "motion: 384, uniad: 928, uniad_train: 224)")
     p.add_argument("--img_width", default=0, type=int,
                    help="default 416 (raft3d_train: 832, nnet: 640, "
-                        "motion: 768)")
+                        "motion: 768, uniad: 1600, uniad_train: 416)")
     p.add_argument("--dtype", default=None, choices=["f32", "bf16"],
                    help="raft3d, raft3d_train: encoder/GRU compute dtype "
                         "(default f32; raft3d_train: bf16)")
     args = p.parse_args(argv)
     training = args.family == "raft3d_train"
     hw = {"raft3d_train": (256, 832), "nnet": (480, 640),
-          "motion": (384, 768)}.get(args.family, (128, 416))
+          "motion": (384, 768), "uniad": (928, 1600),
+          "uniad_train": (224, 416)}.get(args.family, (128, 416))
     args.img_height = args.img_height or hw[0]
     args.img_width = args.img_width or hw[1]
     args.dtype = args.dtype or ("bf16" if training else "f32")
@@ -111,6 +174,12 @@ def main(argv=None) -> dict:
         batch = 1
         stage, frame = raft3d_frame(h, w, device, args.dtype)
         step = lambda: stage(*frame)
+    elif args.family == "uniad":
+        batch = 1
+        step = uniad_frame(h, w, device)[3]
+    elif args.family == "uniad_train":
+        batch = 1
+        step = uniad_train_step(h, w, device)[2]
     elif training:
         batch = args.batch or 2
         step = _raft3d_train_step(batch, h, w, args.dtype, device)

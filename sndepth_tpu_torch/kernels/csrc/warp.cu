@@ -39,6 +39,13 @@
 //    shared-memory atomics, and stores the plane with 16-byte stores. No
 //    global atomic and no zeroing launch: the block writes every cell of
 //    d img once. The coordinates are read once a channel (C = 2 for a flow).
+//    Where a cell takes many taps (a deformable-attention level of 4 x 7
+//    cells takes 45,000), the block keeps up to 32 copies of the plane, one
+//    for each group of warps, no more than target pixels a cell and within
+//    half the card's shared memory (two blocks an SM), and sums them in a
+//    fixed order at the end: shorter chains of adds, with less float32
+//    rounding and less contention. A flow's splat (about a tap a cell) keeps
+//    one.
 //  - Tile path, for larger planes: one block a target tile of 8 x 32
 //    pixels, one pixel a thread. The block reduces the bounding box of the
 //    taps that add. When the box times C fits kBoxFloats floats of shared
@@ -193,16 +200,22 @@ __device__ __forceinline__ void merged_weights(const Taps& t, float (&w)[4]) {
 }
 
 // The plane path: block b * C + c builds plane (b, c) of d img whole in
-// shared memory and stores it.
+// shared memory and stores it: `copies` (a power of two, at most 32) copies
+// of the plane, each `stride` floats (16-byte aligned), warp w adding into
+// copy w % copies.
 template <int MODE>
 __global__ void __launch_bounds__(kPlaneThreads) warp_splat_plane_kernel(
     const float* __restrict__ coords, const float* __restrict__ g,
-    float* __restrict__ dimg, int C, int Hs, int Ws, int npix, bool vec) {
+    float* __restrict__ dimg, int C, int Hs, int Ws, int npix, int copies,
+    bool vec) {
   extern __shared__ float4 smem4[];
-  float* plane = reinterpret_cast<float*>(smem4);
+  float* planes = reinterpret_cast<float*>(smem4);
   const int n = Hs * Ws;
-  for (int i = threadIdx.x; i < n; i += kPlaneThreads) plane[i] = 0.f;
+  const int stride = (n + 3) & ~3;
+  for (int i = threadIdx.x; i < copies * stride; i += kPlaneThreads)
+    planes[i] = 0.f;
   __syncthreads();
+  float* plane = planes + ((threadIdx.x >> 5) & (copies - 1)) * stride;
   const int b = blockIdx.x / C;
   const float* cx = coords + (size_t)b * 2 * npix;
   const float* cy = cx + npix;
@@ -232,12 +245,21 @@ __global__ void __launch_bounds__(kPlaneThreads) warp_splat_plane_kernel(
     }
   }
   __syncthreads();
+  if (copies > 1) {
+    // Copy 0 takes the sum, copies added in their order.
+    for (int i = threadIdx.x; i < n; i += kPlaneThreads) {
+      float sum = planes[i];
+      for (int k = 1; k < copies; ++k) sum += planes[k * stride + i];
+      planes[i] = sum;
+    }
+    __syncthreads();
+  }
   float* out = dimg + (size_t)blockIdx.x * n;
   if (vec) {
     float4* out4 = reinterpret_cast<float4*>(out);
     for (int i = threadIdx.x; i < n / 4; i += kPlaneThreads) out4[i] = smem4[i];
   } else {
-    for (int i = threadIdx.x; i < n; i += kPlaneThreads) out[i] = plane[i];
+    for (int i = threadIdx.x; i < n; i += kPlaneThreads) out[i] = planes[i];
   }
 }
 
@@ -512,14 +534,23 @@ extern "C" int warp_splat_launch(const float* coords, const float* g,
   const bool vec = cells % 4 == 0 && aligned(dimg, 16);
   if (cells <= plane_cells) {
     const int limit = plane_smem_limit();
-    const long long bytes = (cells + 3) / 4 * 16;
-    if (bytes <= limit) {
+    const long long one = (cells + 3) / 4 * 16;    // bytes of one copy
+    if (one <= limit) {
+      // Copies pay only where a cell takes many taps: at most one for each
+      // target pixel a cell, within half the card's shared memory.
+      const long long per_cell = (long long)Ht * Wt / cells;
+      int copies = 1;
+      while (copies < kPlaneThreads / 32 && 2 * copies <= per_cell &&
+             2 * copies * one <= limit / 2)
+        copies *= 2;
+      const long long bytes = copies * one;
+      const int npix = Ht * Wt;
       if (mode == kEdgeZero)
         warp_splat_plane_kernel<kEdgeZero><<<B * C, kPlaneThreads, bytes, s>>>(
-            coords, g, dimg, C, Hs, Ws, Ht * Wt, vec);
+            coords, g, dimg, C, Hs, Ws, npix, copies, vec);
       else
         warp_splat_plane_kernel<kZeroPad><<<B * C, kPlaneThreads, bytes, s>>>(
-            coords, g, dimg, C, Hs, Ws, Ht * Wt, vec);
+            coords, g, dimg, C, Hs, Ws, npix, copies, vec);
       return (int)cudaGetLastError();
     }
   }

@@ -37,7 +37,9 @@ flight) and two on a smaller one (more threads fill the card), with
 vector loads and stores, where the plane size allows it. The splat reads
 8 + 4 C bytes a pixel and writes 4 C a source cell. Where a (b, c) source
 plane fits the card's shared memory (58K cells on an H100), one block
-builds it whole there and stores it; a larger plane takes the tile
+builds it whole there and stores it, in up to 32 copies summed in a fixed
+order where they fit (a small plane's cells then each sum shorter chains
+of taps); a larger plane takes the tile
 path, which accumulates a tile's taps in shared memory where their bounding
 box fits (:func:`splat_shared_share` says which tiles do) and adds into
 zeroed planes in device memory. Its float atomics add in an order that

@@ -55,7 +55,11 @@ def bilinear_sampler(imgs: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
 def bilinear_sampler_zero_pad(imgs: torch.Tensor,
                               coords: torch.Tensor) -> torch.Tensor:
     """As :func:`bilinear_sampler` in ``zero_pad`` mode: sampling at the
-    integer coordinate W-1 returns the border pixel with weight 1."""
+    integer coordinate W-1 returns the border pixel with weight 1. A float64
+    evaluation on the CPU takes the plain version (the kernel takes
+    float32)."""
+    if imgs.dtype == torch.float64 and imgs.device.type == "cpu":
+        return bilinear_sampler_zero_pad_reference(imgs, coords)
     return bilinear_sample(imgs.contiguous(), coords.contiguous(), "zero_pad")
 
 

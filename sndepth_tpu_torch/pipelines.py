@@ -5,8 +5,9 @@ Counterpart of ``sndepth_tpu/pipelines.py``. Ported so far:
 :class:`NNETStage` (normals and refined depth), :class:`MotionStage` (the
 motion class map from an image and a flow image), :class:`RAFT3DStage`
 (scene flow from two frames, their depths and the intrinsics),
-:class:`Raft2DFlowStage` (optical flow from two frames) and
-:class:`VAEStage` (the RGBD latent posterior). A stage
+:class:`Raft2DFlowStage` (optical flow from two frames),
+:class:`VAEStage` (the RGBD latent posterior) and :class:`TrackStage`
+(UniAD tracking, DINO-style features and the pose denoiser). A stage
 builds its model once, on an explicit device, and runs it without
 gradients; everything between its input and its output stays on that
 device. Images are NCHW, as everywhere in the port; per-pixel outputs keep
@@ -217,3 +218,69 @@ class VAEStage:
         posterior = self.model.encode(rgbd)
         return (posterior.mean.permute(0, 2, 3, 1),
                 posterior.var.permute(0, 2, 3, 1))
+
+
+class TrackStage:
+    """``stage(imgs, lidar2img, state, rgb_for_features)`` -> (the next
+    :class:`~sndepth_tpu_torch.models.uniad_track.TrackState`, the frame's
+    decoded detections, the denoised poses (B, 32, 9)): a small UniAD
+    track model (32 queries, 64 dims, an 8x8 BEV, 2 + 2 layers, one
+    bottleneck a stage), the multi-scale ViT extractor at depth
+    ``vit_depth`` over scales 1 and 1/2, and ``get_opt_model()`` fed the
+    extractor's embedding of ``rgb_for_features`` for 32 zero poses at t =
+    0 (`predict_vae_uniad.py:57-68`).
+
+    ``imgs`` (cams, B, 3, H, W); ``rgb_for_features`` (B, 3, H, W) in
+    [0, 1]. Float32; without ``state_dicts`` ({"track", "features",
+    "denoiser"}) the weights are random, drawn from seeds 0, 1 and 2."""
+
+    def __init__(self, num_cams: int = 1, image_hw=(64, 64),
+                 vit_depth: int = 4, state_dicts: dict | None = None,
+                 device="cuda"):
+        from sndepth_tpu_torch.models import uniad_track as ut
+        from sndepth_tpu_torch.models import vit
+        from sndepth_tpu_torch.models.denoiser import get_opt_model
+        self.device = torch.device(device)
+        self.image_hw = tuple(image_hw)
+        self.track_model = ut.UniADTrack(
+            num_query=32, num_classes=10, embed_dims=64, bev_h=8, bev_w=8,
+            num_cams=num_cams, encoder_layers=2, decoder_layers=2,
+            backbone_blocks=(1, 1, 1, 1), mem_len=2)
+        self.feat_model = vit.MultiScaleImageFeatureExtractor((1.0, 0.5))
+        self.feat_model.net = vit.ViT(depth=vit_depth)
+        self.denoiser = get_opt_model()
+        models = {"track": self.track_model, "features": self.feat_model,
+                  "denoiser": self.denoiser}
+        for seed, (name, model) in enumerate(models.items()):
+            if state_dicts is None:
+                init = (ut.init_weights if name == "track"
+                        else vit.init_weights)
+                init(model, torch.Generator().manual_seed(seed))
+            else:
+                model.load_state_dict(state_dicts[name])
+            model.to(self.device).eval()
+
+    def init_state(self):
+        """Free slots with zero queries, as the JAX stage starts."""
+        from sndepth_tpu_torch.models.track_runtime import empty_tracks
+        from sndepth_tpu_torch.models.uniad_track import TrackState
+        m, dev = self.track_model, self.device
+        return TrackState(
+            prev_bev=torch.zeros(1, m.bev_h * m.bev_w, m.embed_dims,
+                                 device=dev),
+            tracks=empty_tracks(m.num_query, m.embed_dims, m.num_classes,
+                                m.mem_len, device=dev),
+            next_obj_id=torch.zeros((), dtype=torch.int32, device=dev),
+            timestamp=torch.zeros((), device=dev),
+            has_prev=torch.zeros((), dtype=torch.bool, device=dev))
+
+    @torch.no_grad()
+    def __call__(self, imgs, lidar2img, state, rgb_for_features):
+        state, results = self.track_model(imgs.to(self.device),
+                                          lidar2img.to(self.device), state)
+        feats = self.feat_model(rgb_for_features.to(self.device))
+        b, n = feats.shape[0], 32
+        z = feats[:, None, :].expand(b, n, feats.shape[-1])
+        x = torch.zeros(b, n, 9, device=self.device)
+        t = torch.zeros(b, device=self.device)
+        return state, results, self.denoiser(x, t, z)

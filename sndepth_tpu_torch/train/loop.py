@@ -3,11 +3,11 @@
 Counterpart of ``sndepth_tpu/train/loop.py`` on one device, without its
 mesh, multi-host and trace branches. A GeoNet checkpoint is one
 ``torch.save`` of the state dicts of the nets (DispNetS, PoseNet and, in
-stage 2, FlowNet) and of the optimizer, and the counters. A RAFT3D, motion
-or NNET checkpoint is two files in its directory: the model's state dict
-(``raft3d.pth``, ``motion.pth``, ``nnet.pth``), as the serving and evaluation
-CLIs' ``--ckpt_dir`` load it, and the optimizer's moments with the counters
-(``*_train_state.pt``).
+stage 2, FlowNet) and of the optimizer, and the counters. A RAFT3D, motion,
+NNET or UniAD checkpoint is two files in its directory: the model's state
+dict (``raft3d.pth``, ``motion.pth``, ``nnet.pth``, ``uniad.pth``), as the
+serving and evaluation CLIs' ``--ckpt_dir`` load it, and the optimizer's
+moments with the counters (``*_train_state.pt``).
 """
 
 from __future__ import annotations
@@ -31,6 +31,8 @@ MOTION_MODEL_FILE = "motion.pth"
 MOTION_STATE_FILE = "motion_train_state.pt"
 NNET_MODEL_FILE = "nnet.pth"
 NNET_STATE_FILE = "nnet_train_state.pt"
+UNIAD_MODEL_FILE = "uniad.pth"
+UNIAD_STATE_FILE = "uniad_train_state.pt"
 
 
 def _save(obj, path: str) -> None:
@@ -238,6 +240,27 @@ def restore_nnet_checkpoint(state, ckpt_dir: str) -> None:
     rest = _restore_split(state.model, state.optimizer, ckpt_dir,
                           NNET_MODEL_FILE, NNET_STATE_FILE)
     state.step = int(rest["step"])
+    state.generator.set_state(rest["generator"])
+
+
+def save_uniad_checkpoint(state, ckpt_dir: str) -> str:
+    """Write a :class:`~sndepth_tpu_torch.train.uniad.UniADTrainState`:
+    ``uniad.pth`` (the model in the reference's key names) and the
+    optimizer, counters and QIM generator; returns the model's path."""
+    return _save_split(state.model, {
+        "step": state.step, "calls": state.calls,
+        "notfinite_count": state.notfinite_count,
+        "optimizer": state.optimizer.state_dict(),
+        "generator": state.generator.get_state()},
+        ckpt_dir, UNIAD_MODEL_FILE, UNIAD_STATE_FILE)
+
+
+def restore_uniad_checkpoint(state, ckpt_dir: str) -> None:
+    """Load what :func:`save_uniad_checkpoint` wrote into ``state``."""
+    rest = _restore_split(state.model, state.optimizer, ckpt_dir,
+                          UNIAD_MODEL_FILE, UNIAD_STATE_FILE)
+    state.step, state.calls = int(rest["step"]), int(rest["calls"])
+    state.notfinite_count = int(rest["notfinite_count"])
     state.generator.set_state(rest["generator"])
 
 

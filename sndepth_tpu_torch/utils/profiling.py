@@ -9,7 +9,8 @@ GROUPS = (
     ("K1/K3/K4 photo_pair", ("photo_pair_kernel",)),
     ("K2 smooth", ("smooth_kernel",)),
     ("K5 warp_gather", ("warp_gather_kernel",)),
-    ("K6 warp_splat", ("warp_splat_kernel",)),
+    ("K5b warp_coord_grad", ("warp_coord_grad_kernel",)),
+    ("K6 warp_splat", ("warp_splat",)),
     ("K7 dssim", ("dssim_fwd_kernel", "dssim_bwd_kernel")),
     ("K8 gn_build", ("gn_build_kernel",)),
     ("K8b gn_build_bwd", ("gn_bwd_kernel",)),

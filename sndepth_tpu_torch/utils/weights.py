@@ -5,9 +5,9 @@ The inverse of ``sndepth_tpu/utils/convert_weights.py``
 :func:`convert_posenet`, :func:`convert_raft3d`,
 :func:`convert_efficientnet`, :func:`convert_normal_decoder`,
 :func:`convert_motionfusion`, :func:`convert_raft2d_large`,
-:func:`convert_vae`, :func:`convert_dino_vit`), and the same for the JAX
-nets with no converter (RAFT2D, the pose denoiser). Parameters come in as nested dicts of numpy
-arrays. Conv kernels (kh, kw, in, out) become (out, in, kh, kw);
+:func:`convert_vae`, :func:`convert_dino_vit`, :func:`convert_uniad`), and
+the same for the JAX nets with no converter (RAFT2D, the pose denoiser).
+Parameters come in as nested dicts of numpy arrays. Conv kernels (kh, kw, in, out) become (out, in, kh, kw);
 ConvTranspose kernels become (in, out, kh, kw) by a plain transpose, because
 the JAX ``TorchConvTranspose2x`` flips its taps at apply time, except
 MotionFusionNet's head, whose taps flax stores flipped. Flax ``_UpConv_i`` /
@@ -541,4 +541,160 @@ def denoiser_state_dict_from_jax(params: dict) -> dict:
     _norm(sd, "_last.0", params["LayerNorm_0"])
     _dense(sd, "_last.1", params["Dense_1"])
     _dense(sd, "_last.3", params["Dense_2"])
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# UniAD track (the inverse of convert_uniad)
+# ---------------------------------------------------------------------------
+
+UNIAD_BN_EPS = 1e-5
+
+
+def _mha(sd: dict, key: str, p: dict) -> None:
+    """flax MultiHeadDotProductAttention -> the ``in_proj_weight``,
+    ``in_proj_bias`` and ``out_proj`` of
+    :class:`~sndepth_tpu_torch.ops.layers.MultiheadAttention`."""
+    _qkv(sd, f"{key}.in_proj_weight", f"{key}.in_proj_bias", p)
+    _attn_out(sd, f"{key}.out_proj", p["out"])
+
+
+def _uniad_norm(sd: dict, key: str, p: dict, affine: bool) -> None:
+    """A ``_ChannelAffine`` (scale, bias) as a frozen BatchNorm whose
+    ``weight / sqrt(running_var + eps)`` is the scale exactly
+    (``running_var = 1 - eps``, ``running_mean = 0``), or a GroupNorm."""
+    _norm(sd, key, p)
+    if affine:
+        c = np.asarray(p["scale"]).shape[0]
+        sd[f"{key}.running_mean"] = torch.zeros(c)
+        sd[f"{key}.running_var"] = torch.full((c,), 1.0 - UNIAD_BN_EPS)
+
+
+def _uniad_backbone(sd: dict, p: dict, blocks, stage_with_dcn) -> None:
+    affine = "_ChannelAffine_0" in p
+    nm = "_ChannelAffine" if affine else "GroupNorm"
+    _conv(sd, "img_backbone.conv1", p["Conv_0"])
+    _uniad_norm(sd, "img_backbone.bn1", p[f"{nm}_0"], affine)
+    n = 0
+    for si, nb in enumerate(blocks):
+        for bi in range(nb):
+            t = f"img_backbone.layer{si + 1}.{bi}"
+            blk = p[f"_Bottleneck_{n}"]
+            n += 1
+            _conv(sd, f"{t}.conv1", blk["Conv_0"])
+            if stage_with_dcn[si]:
+                dcn = blk["DeformConv2d_0"]
+                k = np.asarray(dcn["kernel"])             # (kk, in, out)
+                kh = int(round(k.shape[0] ** 0.5))
+                sd[f"{t}.conv2.weight"] = _t(
+                    k.reshape(kh, kh, *k.shape[1:]), (3, 2, 0, 1))
+                _conv(sd, f"{t}.conv2.conv_offset", dcn["conv_offset"])
+                ci = 1
+            else:
+                _conv(sd, f"{t}.conv2", blk["Conv_1"])
+                ci = 2
+            _conv(sd, f"{t}.conv3", blk[f"Conv_{ci}"])
+            names = ["bn1", "bn2", "bn3"]
+            if f"Conv_{ci + 1}" in blk:
+                _conv(sd, f"{t}.downsample.0", blk[f"Conv_{ci + 1}"])
+                names.append("downsample.1")
+            for j, name in enumerate(names):
+                _uniad_norm(sd, f"{t}.{name}", blk[f"{nm}_{j}"], affine)
+    for i in range(3):
+        _conv(sd, f"img_neck.lateral_convs.{i}.conv", p[f"Conv_{i + 1}"])
+    for i in range(4):
+        _conv(sd, f"img_neck.fpn_convs.{i}.conv", p[f"Conv_{i + 4}"])
+
+
+def _deform_attn(sd: dict, key: str, p: dict) -> None:
+    for name in ("sampling_offsets", "attention_weights", "value_proj",
+                 "output_proj"):
+        if name in p:
+            _dense(sd, f"{key}.{name}", p[name])
+
+
+def _ffn(sd: dict, key: str, p: dict) -> None:
+    _dense(sd, f"{key}.layers.0.0", p["Dense_0"])
+    _dense(sd, f"{key}.layers.1", p["Dense_1"])
+
+
+def _uniad_head(sd: dict, p: dict) -> None:
+    h = "pts_bbox_head"
+    t = f"{h}.transformer"
+    sd[f"{h}.bev_embedding.weight"] = _b(p["bev_embedding"])
+    sd[f"{t}.level_embeds"] = _b(p["level_embeds"])
+    sd[f"{t}.cams_embeds"] = _b(p["cams_embeds"])
+    _dense(sd, f"{t}.can_bus_mlp.0", p["can_bus_mlp1"])
+    _dense(sd, f"{t}.can_bus_mlp.2", p["can_bus_mlp2"])
+    _norm(sd, f"{t}.can_bus_mlp.norm", p["can_bus_norm"])
+    enc, dec = p["encoder"], p["decoder"]
+    n_enc = sum(k.startswith("TemporalSelfAttention_") for k in enc)
+    for i in range(n_enc):
+        q = f"{t}.encoder.layers.{i}"
+        _deform_attn(sd, f"{q}.attentions.0", enc[f"TemporalSelfAttention_{i}"])
+        sca = enc[f"SpatialCrossAttention_{i}"]
+        _deform_attn(sd, f"{q}.attentions.1.deformable_attention",
+                     sca["deformable_attention"])
+        _dense(sd, f"{q}.attentions.1.output_proj", sca["output_proj"])
+        _ffn(sd, f"{q}.ffns.0", enc[f"FFN_{i}"])
+        for j in range(3):
+            _norm(sd, f"{q}.norms.{j}", enc[f"LayerNorm_{3 * i + j}"])
+    n_dec = sum(k.startswith("CustomMSDeformableAttention_") for k in dec)
+    for i in range(n_dec):
+        q = f"{t}.decoder.layers.{i}"
+        _mha(sd, f"{q}.attentions.0.attn",
+             dec[f"MultiHeadDotProductAttention_{i}"])
+        _deform_attn(sd, f"{q}.attentions.1",
+                     dec[f"CustomMSDeformableAttention_{i}"])
+        _ffn(sd, f"{q}.ffns.0", dec[f"FFN_{i}"])
+        for j in range(3):
+            _norm(sd, f"{q}.norms.{j}", dec[f"LayerNorm_{3 * i + j}"])
+        for flax_name, torch_name, ln in (
+                ("cls_branches", "cls_branches", True),
+                ("reg_branches", "reg_branches", False),
+                ("past_traj_branches", "past_traj_reg_branches", False)):
+            br = p[f"{flax_name}_{i}"]
+            idx = (0, 3, 6) if ln else (0, 2, 4)
+            for d, ti in enumerate(idx):
+                _dense(sd, f"{h}.{torch_name}.{i}.{ti}", br[f"Dense_{d}"])
+            if ln:
+                _norm(sd, f"{h}.{torch_name}.{i}.1", br["LayerNorm_0"])
+                _norm(sd, f"{h}.{torch_name}.{i}.4", br["LayerNorm_1"])
+
+
+def uniad_state_dict_from_jax(params: dict, blocks=(3, 4, 23, 3),
+                              stage_with_dcn=(False, False, True, True)
+                              ) -> dict:
+    """JAX ``UniADTrack`` params -> :class:`~sndepth_tpu_torch.models.
+    uniad_track.UniADTrack` state_dict in the reference's names: the
+    inverse of ``convert_uniad``, for either backbone norm (the frozen-BN
+    channel affine, or GroupNorm). The layer counts come from the tree;
+    ``blocks`` and ``stage_with_dcn`` give the backbone's stage plan."""
+    sd: dict = {}
+    _uniad_backbone(sd, params["backbone"], blocks, stage_with_dcn)
+    _uniad_head(sd, params["head"])
+    sd["query_embedding.weight"] = _b(params["query_embedding"])
+    _dense(sd, "reference_points", params["reference_points"])
+    mb = params["memory_bank"]
+    _dense(sd, "memory_bank.save_proj", mb["save_proj"])
+    _mha(sd, "memory_bank.temporal_attn", mb["temporal_attn"])
+    for name in ("temporal_fc1", "temporal_fc2"):
+        _dense(sd, f"memory_bank.{name}", mb[name])
+    for name in ("temporal_norm1", "temporal_norm2"):
+        _norm(sd, f"memory_bank.{name}", mb[name])
+    qim = params["qim"]
+    q = "query_interact"
+    _mha(sd, f"{q}.self_attn", qim["MultiHeadDotProductAttention_0"])
+    for flax_name, torch_name in (("Dense_0", "linear1"),
+                                  ("Dense_1", "linear2"),
+                                  ("pos_ffn1", "linear_pos1"),
+                                  ("pos_ffn2", "linear_pos2"),
+                                  ("feat_ffn1", "linear_feat1"),
+                                  ("feat_ffn2", "linear_feat2")):
+        _dense(sd, f"{q}.{torch_name}", qim[flax_name])
+    for flax_name, torch_name in (("LayerNorm_0", "norm1"),
+                                  ("LayerNorm_1", "norm2"),
+                                  ("pos_norm", "norm_pos"),
+                                  ("feat_norm", "norm_feat")):
+        _norm(sd, f"{q}.{torch_name}", qim[flax_name])
     return sd

@@ -39,7 +39,8 @@ def _modules():
 def test_every_module_imports_with_jax_unavailable():
     """Every module imports, and a stage-2 step, a RAFT3D frame, a RAFT3D
     train step, the GeoNet -> NNET -> RAFT3D prediction, the RAFT3D demo,
-    the fused prediction with RAFT2D-Large flow, the VAE smoke test and the
+    the fused prediction with RAFT2D-Large flow, the VAE smoke test, the
+    GeoNet -> NNET -> VAE -> UniAD pipeline, a UniAD train step and the
     CLIs run (so the imports inside functions run too), with JAX and the
     JAX package blocked."""
     names = _modules()
@@ -60,7 +61,12 @@ def test_every_module_imports_with_jax_unavailable():
                  "cli.train_motion", "cli.train_nnet", "models.raft2d",
                  "cli.demo", "models.vae", "models.attention",
                  "models.denoiser", "models.vit", "utils.diffusion",
-                 "ops.layers", "cli.predict_vae", "cli.testvae"):
+                 "ops.layers", "cli.predict_vae", "cli.testvae",
+                 "utils.uniad", "ops.box_iou", "models.deformable",
+                 "models.bevformer", "models.track_head",
+                 "models.track_runtime", "models.coders",
+                 "models.uniad_track", "losses.lap", "losses.track_loss",
+                 "train.uniad", "cli.predict_vae_uniad", "cli.train_uniad"):
         assert f"sndepth_tpu_torch.{name}" in names, name
     code = ("import sys, tempfile\n"
             "import torch\n"
@@ -124,6 +130,14 @@ def test_every_module_imports_with_jax_unavailable():
             "                  '--device', 'cpu'])\n"
             "testvae.main(['--batch', '1', '--height', '32', '--width', '32',\n"
             "              '--device', 'cpu'])\n"
+            "from sndepth_tpu_torch.cli import predict_vae_uniad, train_uniad\n"
+            "with tempfile.TemporaryDirectory() as d:\n"
+            "    predict_vae_uniad.main(['--frames', '1', '--out_dir', d,\n"
+            "                            '--device', 'cpu'])\n"
+            "    state, _ = train_uniad.main(\n"
+            "        ['--small', '--max_steps', '1', '--t_frames', '2',\n"
+            "         '--ckpt_dir', d + '/u', '--device', 'cpu'])\n"
+            "    assert state.step == 1\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             f"       {BLOCKED!r}\n"
             "       and sys.modules[m] is not None]\n"
@@ -378,7 +392,8 @@ def test_benchmark_cli_prints_one_json_line_per_family(capsys):
 
 @pytest.mark.parametrize("cli", ["train_motion", "train_nnet", "predict",
                                  "predict_motion", "demo", "predict_vae",
-                                 "testvae"])
+                                 "testvae", "predict_vae_uniad",
+                                 "train_uniad"])
 def test_motion_and_nnet_clis_default_device_needs_a_card(cli, tmp_path):
     """Without ``--device`` the new CLIs run on the card: without one they
     raise and write nothing."""
@@ -406,8 +421,76 @@ def test_motion_and_nnet_clis_default_device_needs_a_card(cli, tmp_path):
         "predict_vae": ["--img_height", "32", "--img_width", "64",
                         "--out_dir", str(out)],
         "testvae": ["--batch", "1", "--height", "32", "--width", "32"],
+        "predict_vae_uniad": ["--frames", "1", "--out_dir", str(out)],
+        "train_uniad": ["--small", "--max_steps", "1", "--ckpt_dir",
+                        str(out)],
     }[cli]
     Image.fromarray(np.zeros((20, 30, 3), np.uint8)).save(tmp_path / "i.png")
     with pytest.raises((AssertionError, RuntimeError)):
         main(argv)
     assert not out.exists()
+
+
+def test_profile_step_knows_the_uniad_families_and_the_sampler_kernels(
+        capsys):
+    """``--family uniad|uniad_train`` parse and need the card; the profile
+    groups the gather's coordinate gradient (K5b) and both splat kernels
+    (K6) apart."""
+    from sndepth_tpu_torch.cli import profile_step
+    from sndepth_tpu_torch.utils.profiling import group_of
+    if not torch.cuda.is_available():
+        for family in ("uniad", "uniad_train"):
+            with pytest.raises(SystemExit) as exc:
+                profile_step.main(["--family", family])
+            assert exc.value.code == 2
+            assert "needs a CUDA device" in capsys.readouterr().err
+    assert group_of("void (anonymous namespace)::warp_coord_grad_kernel<1, "
+                    "2, 0>(float const*").startswith("K5b ")
+    assert group_of("warp_splat_plane_kernel<1>").startswith("K6 ")
+    assert group_of("warp_splat_kernel<1>").startswith("K6 ")
+    assert group_of("warp_gather_kernel<1, 4, 0>").startswith("K5 ")
+
+
+def _spy_sampler(monkeypatch) -> dict:
+    """Count the calls of the sampler kernels' wrappers (each launches and
+    counts its kernel on a CUDA tensor; here their plain versions run)."""
+    calls = {"warp_gather": 0, "warp_coord_grad": 0, "warp_splat": 0}
+    for name in calls:
+        real = getattr(K5, name)
+
+        def spy(*args, _real=real, _name=name, **kwargs):
+            calls[_name] += 1
+            return _real(*args, **kwargs)
+        monkeypatch.setattr(K5, name, spy)
+    return calls
+
+
+def test_uniad_paths_go_through_the_sampler_kernels(monkeypatch):
+    """A UniAD frame samples through K5's wrapper once for each deformable
+    attention level and layer, each DCN 3x3 and the BEV shift; a train step
+    once more for each recomputed attention with ``remat``, and through
+    K5b's and K6's once for each forward call (the counts ``chip_smoke.py``
+    holds at the reference config)."""
+    from sndepth_tpu_torch.cli.train_uniad import small_model
+    from sndepth_tpu_torch.models import uniad_track as ut
+    from sndepth_tpu_torch.train import uniad as tu
+    calls = _spy_sampler(monkeypatch)
+    model = small_model()                  # 1 + 2 layers, 2 DCN blocks
+    ut.init_weights(model, torch.Generator().manual_seed(0))
+    imgs = torch.rand(2, 1, 3, 64, 64)
+    l2i = torch.eye(4).expand(1, 2, 4, 4)
+    with torch.no_grad():
+        state, _ = model(imgs, l2i, model.init_state())
+        model(imgs, l2i, state, ego_shift=torch.tensor([[0.1, 0.0]]))
+    per_frame = 4 * 1 + 1 + 2 + 2          # SCA, TSA, decoder, DCN
+    assert calls == {"warp_gather": 2 * per_frame + 1, "warp_coord_grad": 0,
+                     "warp_splat": 0}
+    for remat, recomputed in ((False, 0), (True, 4 + 1 + 2)):
+        calls.update({k: 0 for k in calls})
+        model = small_model(remat=remat)
+        ut.init_weights(model, torch.Generator().manual_seed(0))
+        clip = tu.synthetic_clip(model, t_frames=2, ng=3, img_hw=(64, 64))
+        tu.train_step(tu.create_train_state(model, "cpu"), clip)
+        assert calls == {"warp_gather": 2 * (per_frame + recomputed),
+                         "warp_coord_grad": 2 * per_frame,
+                         "warp_splat": 2 * per_frame}

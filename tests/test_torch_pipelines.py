@@ -915,3 +915,157 @@ def test_train_nnet_writes_a_checkpoint_that_restores_and_serves(tmp_path):
         "--img_width", str(MW), "--ckpt_dir", str(tmp_path / "ckpt"),
         "--device", "cpu", "--log_file", str(tmp_path / "log.txt")])
     assert all(np.isfinite(v) for v in metrics.values())
+
+
+# --- UniAD tracking: TrackStage and predict_vae_uniad ---------------------
+
+def test_track_stage_matches_jax(monkeypatch):
+    """``TrackStage`` against the JAX stage for two chained frames on the
+    CLI's single camera: the JAX stage built with parameters from
+    ``jax.eval_shape`` and numpy (its flax ``init`` replaced while it is
+    built, an eager UniAD init takes a minute), carried across through
+    ``uniad_state_dict_from_jax``, ``vit_state_dict_from_jax`` and
+    ``denoiser_state_dict_from_jax``; the track state, the detections and
+    the denoised poses within 1e-4 by norm, the track ids equal."""
+    from test_torch_uniad import _fill
+    from sndepth_tpu_torch.utils.weights import (denoiser_state_dict_from_jax,
+                                                 uniad_state_dict_from_jax,
+                                                 vit_state_dict_from_jax)
+    real_init = nn.Module.init
+    seeds = iter(range(30, 40))
+
+    def init(self, rngs, *args, **kwargs):
+        shapes = jax.eval_shape(lambda k: real_init(self, k, *args, **kwargs),
+                                rngs)
+        return {"params": _fill(shapes["params"], next(seeds))}
+
+    monkeypatch.setattr(nn.Module, "init", init)
+    jstage = jpipe.TrackStage(num_cams=1, image_hw=(64, 64), vit_depth=1)
+    monkeypatch.undo()
+    to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
+    sds = {"track": uniad_state_dict_from_jax(
+               to_np(jstage.track_vars["params"]), (1, 1, 1, 1)),
+           "features": {f"net.{k}": v for k, v in vit_state_dict_from_jax(
+               to_np(jstage.feat_vars["params"]["net"])).items()},
+           "denoiser": denoiser_state_dict_from_jax(
+               to_np(jstage.denoiser_vars["params"]))}
+    stage = tpipe.TrackStage(num_cams=1, image_hw=(64, 64), vit_depth=1,
+                             state_dicts=sds, device="cpu")
+    rng = np.random.RandomState(31)
+    jst, st = jstage.init_state(), stage.init_state()
+    for _ in range(2):
+        rgb = rng.rand(1, 64, 64, 3).astype(np.float32)
+        jst, jres, jposes = jstage(jnp.asarray(rgb)[None],
+                                   jnp.eye(4)[None, None], jst,
+                                   jnp.asarray(rgb))
+        trgb = torch.from_numpy(rgb).permute(0, 3, 1, 2)
+        st, res, poses = stage(trgb[None], torch.eye(4)[None, None], st,
+                               trgb)
+        assert _rel(st.prev_bev, jst.prev_bev) < 1e-4
+        assert _rel(st.tracks.query, jst.tracks.query) < 1e-4
+        assert _rel(res["scores"], jres["scores"]) < 1e-4
+        assert _rel(res["bboxes"], jres["bboxes"]) < 1e-4
+        np.testing.assert_array_equal(st.tracks.obj_idxes.numpy(),
+                                      np.asarray(jst.tracks.obj_idxes))
+        assert _rel(poses, jposes) < 1e-4
+
+
+def test_predict_vae_uniad_joins_its_stages_as_jax_does(tmp_path,
+                                                        monkeypatch):
+    """``predict_vae_uniad`` against the JAX CLI, every stage a stub that
+    records what it is handed and returns the same numpy values: NNET gets
+    GeoNet's depth and the image in [0, 1], the VAE that image and NNET's
+    refined depth, the track stage the image as one camera, the identity
+    ``lidar2img``, the carried state and the image for its features; the
+    saved boxes are equal."""
+    from sndepth_tpu.cli import predict_vae_uniad as jcli
+    from sndepth_tpu_torch.cli import predict_vae_uniad
+    h, w = 16, 24
+    rng = np.random.RandomState(32)
+    outs = [{"depth": (1 + rng.rand(1, h, w)).astype(np.float32),
+             "tgt": rng.uniform(-1, 1, (1, h, w, 3)).astype(np.float32),
+             "refined": (1 + rng.rand(1, h, w, 1)).astype(np.float32),
+             "mean": rng.randn(1, 2, 3, 4).astype(np.float32),
+             "boxes": rng.randn(7, 9).astype(np.float32),
+             "obj": rng.randint(-1, 3, 7).astype(np.int32)}
+            for _ in range(2)]
+    seen = {"jax": [], "torch": []}
+    for side, mod, arr, nchw, nhwc in (
+            ("jax", jpipe, jnp.asarray, jnp.asarray, lambda x: x),
+            ("torch", tpipe, torch.from_numpy,
+             lambda a: torch.from_numpy(a).permute(0, 3, 1, 2),
+             lambda x: x.permute(0, 2, 3, 1))):
+        rec = seen[side]
+
+        class Stage:
+            def __init__(self, *args, **kwargs):
+                self.kwargs = kwargs
+
+        class GeoNet(Stage):
+            def __call__(self, batch, rec=rec, arr=arr, nchw=nchw):
+                rec.append({})
+                o = outs[len(rec) - 1]
+                return {"depth": arr(o["depth"]), "tgt_norm": nchw(o["tgt"])}
+
+        class NNET(Stage):
+            def __call__(self, pre_depth, rgb, rec=rec, arr=arr, nhwc=nhwc):
+                rec[-1].update(pre_depth=np.asarray(pre_depth),
+                               rgb=np.asarray(nhwc(rgb)))
+                return {"depth": arr(outs[len(rec) - 1]["refined"])}
+
+        class VAE(Stage):
+            def __call__(self, rgb01, depth, rec=rec, arr=arr, nhwc=nhwc):
+                rec[-1].update(vae_rgb=np.asarray(nhwc(rgb01)),
+                               vae_depth=np.asarray(depth))
+                m = arr(outs[len(rec) - 1]["mean"])
+                return m, m
+
+        class State:
+            def __init__(self, obj, t):
+                self.tracks = type("T", (), {"obj_idxes": obj})()
+                self.t = t
+
+        class Track(Stage):
+            def init_state(self, arr=arr):
+                return State(arr(np.full(7, -1, np.int32)), -1)
+
+            def __call__(self, imgs, l2i, state, rgb, rec=rec, arr=arr,
+                         nhwc=nhwc):
+                o = outs[len(rec) - 1]
+                rec[-1].update(track_imgs=np.asarray(nhwc(imgs[0]))[None],
+                               l2i=np.asarray(l2i), state_t=state.t,
+                               track_rgb=np.asarray(nhwc(rgb)),
+                               num_cams=self.kwargs["num_cams"],
+                               image_hw=tuple(self.kwargs["image_hw"]))
+                return (State(arr(o["obj"]), state.t + 1),
+                        {"bboxes": arr(o["boxes"])}, arr(o["boxes"]))
+
+        for name, stub in (("GeoNetStage", GeoNet), ("NNETStage", NNET),
+                           ("VAEStage", VAE), ("TrackStage", Track)):
+            monkeypatch.setattr(mod, name, stub)
+    argv = ["--img_height", str(h), "--img_width", str(w), "--frames", "2"]
+    jcli.main(argv + ["--out_dir", str(tmp_path / "jax")])
+    out = predict_vae_uniad.main(argv + ["--out_dir", str(tmp_path / "torch"),
+                                         "--device", "cpu"])
+    assert len(out) == len(seen["jax"]) == len(seen["torch"]) == 2
+    for i, (got, want) in enumerate(zip(seen["torch"], seen["jax"])):
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        np.testing.assert_array_equal(
+            np.load(tmp_path / "torch" / f"track_boxes_{i}.npy"),
+            np.load(tmp_path / "jax" / f"track_boxes_{i}.npy"))
+        assert out[i]["active_tracks"] == int((outs[i]["obj"] >= 0).sum())
+
+
+def test_predict_vae_uniad_runs_on_the_cpu(tmp_path):
+    """The whole pipeline at the JAX CLI's 64x64 for two frames: finite
+    track boxes (32, 9), the poses (1, 32, 9)."""
+    from sndepth_tpu_torch.cli import predict_vae_uniad
+    out = predict_vae_uniad.main(["--frames", "2", "--out_dir", str(tmp_path),
+                                  "--device", "cpu"])
+    for rec in out:
+        boxes = np.load(rec["path"])
+        assert boxes.shape == (32, 9) and np.isfinite(boxes).all()
+        assert rec["poses_shape"] == (1, 32, 9)
+        assert rec["latent_shape"] == (1, 8, 8, 4)
