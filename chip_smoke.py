@@ -152,6 +152,25 @@ every phase passes:
              QIM decisions, slots kept, loss, gradients, AdamW); the
              reference config's step with remat at T = 2, 6 x 224x416: ms,
              peak memory, K5 / K5b / K6 launches, profile; ``train_uniad``
+  ddp        a world-size-1 NCCL group: the float32 stage-1 and stage-2
+             steps at 128x416, B = 2, through DDP against the plain step
+             (bit-equal expected, else phase_step's gate, said which), each
+             kernel's launches a step; FSDP2 against DDP, its bytes a rank;
+             the three step times
+  ddp_gloo2  two processes on the card over gloo, each on half a global
+             batch of 4 at 128x416 (stage 2: shards whose masks differ),
+             loss parts and parameters after Adam against the one-process
+             step on the whole batch
+  train_ddp  ``torchrun --nproc_per_node 1 -m ...cli.train_geonet``: 7
+             bf16 stage-1 steps, a checkpoint each (5 kept), a resume to 9,
+             descending loss, frames/sec
+  export     ``cli/export_model`` on the card (dispnet, nnet, raft3d at
+             128x416, 16 iterations), each artifact loaded in a fresh
+             process against eager; the RAFT3D program's 16 K8 and K5
+             launches a frame (custom operators)
+  kitti_dp   ``kitti_submission --data_parallel`` under torchrun (one
+             process) and in two processes over gloo: the files the writer
+             writes without the flag
 
 Each phase prints one JSON line; the full report goes to
 ``chiprun_out/chip_smoke_report.json``. The last lines are the kernels
@@ -1389,8 +1408,55 @@ def phase_kernel_times_raft3d() -> dict:
     bwd_rows, bwd_totals = _gn_bwd_times()
     emit("kernel_times_raft3d", gn_build=rows, gn_build_total=total,
          warp_zero_pad_c1=sampler, torch=torch.__version__, **bwd_rows,
-         gn_build_bwd_totals=bwd_totals)
+         gn_build_bwd_totals=bwd_totals,
+         custom_op_host_us=_custom_op_host_costs(gen))
     return {"gn_build": total, **bwd_totals}, sampler
+
+
+def _custom_op_host_costs(gen) -> dict:
+    """The host's microseconds a call of K5 and of K8 as a RAFT3D frame
+    makes them (no gradient wanted), at both frame sizes: through the
+    operators ``torch.ops.sndepth.warp_gather`` / ``gn_build`` (the
+    entry points now), and as the parent commit called them, an autograd
+    Function around the check and the ctypes launch (``_BilinearSample``,
+    ``_GNBuild``) with no operator between."""
+    import torch
+    from sndepth_tpu_torch.kernels import gn_build as K8
+    from sndepth_tpu_torch.kernels import warp as K5
+
+    class ParentSample(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, imgs, coords, mode):
+            ctx.save_for_backward(imgs, coords)
+            K5._check(imgs, coords, mode)
+            return K5._launch_gather(imgs, coords, mode)
+
+    class ParentBuild(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *args):
+            ctx.save_for_backward(*args[:-1])
+            return K8._launch(*args)
+
+    rows = {"warp_gather": [], "gn_build": []}
+    with torch.no_grad():
+        for h, w in RAFT_SIZES:
+            h8, w8 = h // 8, w // 8
+            depth, coords = _sampler_inputs(h8, w8, gen)
+            args = _gn_inputs(1, h8, w8, 60)
+            label = f"1x{h8}x{w8}"
+            rows["warp_gather"].append({
+                "shape": label,
+                "host_us": _host_us(lambda: K5.bilinear_sample(
+                    depth, coords, "zero_pad")),
+                "parent_host_us": _host_us(lambda: ParentSample.apply(
+                    depth, coords, "zero_pad"))})
+            rows["gn_build"].append({
+                "shape": label,
+                "host_us": _host_us(lambda: K8.gn_build_hg(*args,
+                                                           GN_RADIUS)),
+                "parent_host_us": _host_us(lambda: (
+                    K8._check(*args), ParentBuild.apply(*args, GN_RADIUS)))})
+    return rows
 
 
 def _log_distance(a, b) -> dict:
@@ -3903,6 +3969,519 @@ def phase_uniad_train(smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Scale-out and serving (data-parallel and FSDP GeoNet training, the
+# data-parallel submission writer, exported artifacts)
+# ---------------------------------------------------------------------------
+
+DDP_BATCH = 2                   # the float32 steps' batch (phase_step's)
+DDP_GLOBAL_BATCH = 4            # two gloo ranks on the card, 2 each
+STAGE1_STEP_LAUNCHES = {"photo_pair": 4, "smooth": 4}
+# Stage 2 of the two-rank check: PoseNet's pose head scaled up and the
+# second shard's focal lengths doubled, so the flows span pixels and the
+# consistency masks' means differ between the shards (a step normalising
+# by its own shard's mean would take another loss). At 128x416 a scale of
+# 100 leaves the masks mixed (means 0.54-0.92 on the CPU, the shards
+# 0.14-0.29 apart); 1000 emptied them (0.00-0.09 on the H100).
+DDP_POSE_SCALE = 100.0
+DDP_FOCAL_SCALE = 2.0
+
+
+def _dist_store(name: str) -> str:
+    os.makedirs(WORK_DIR, exist_ok=True)
+    path = os.path.join(WORK_DIR, name)
+    if os.path.exists(path):
+        os.remove(path)
+    return path
+
+
+def _geonet_batch(b: int, seed: int, focal_scale: float = 1.0) -> dict:
+    """A numpy GeoNet batch at 128x416 from the synthetic stream; with
+    ``focal_scale`` the second half's focal lengths scaled."""
+    from sndepth_tpu_torch.data.synthetic import synthetic_batches
+    batch = next(synthetic_batches(b, *SCALES[0], seed=seed))
+    k = batch["intrinsics"].copy()
+    k[b // 2:, 0, 0] *= focal_scale
+    k[b // 2:, 1, 1] *= focal_scale
+    batch["intrinsics"] = k
+    return batch
+
+
+def _full(p):
+    return p.full_tensor() if hasattr(p, "full_tensor") else p
+
+
+def _geonet_record(state, metrics: dict) -> dict:
+    return {"parts": {k: float(v) for k, v in metrics.items()},
+            "step": state.step, "notfinite_count": state.notfinite_count,
+            "params": {f"{key}.{n}": _full(p).detach().cpu()
+                       for key, net in state.nets().items()
+                       for n, p in net.named_parameters()}}
+
+
+def _step_gate(name: str, got: dict, want: dict, lr: float) -> dict:
+    """Two GeoNet steps from the same weights on the same global batch:
+    bit-equal, or within phase_step's gate (loss parts 1e-4 relative,
+    parameters within 2 * lr, at most 1% of them more than 0.01 * lr
+    apart). Says which held; raises when neither."""
+    parts_rel = max(abs(v - want["parts"][k]) / max(abs(want["parts"][k]),
+                                                     1e-30)
+                    for k, v in got["parts"].items())
+    n_off = n_all = 0
+    max_param = 0.0
+    bit_equal = parts_rel == 0.0
+    for n, p in got["params"].items():
+        d = (p - want["params"][n]).abs()
+        bit_equal = bit_equal and bool((d == 0).all())
+        max_param = max(max_param, float(d.max()))
+        n_off += int((d > 0.01 * lr).sum())
+        n_all += d.numel()
+    out = {"bit_equal": bit_equal, "parts_rel_max": parts_rel,
+           "param_max_abs": max_param, "param_frac_off": n_off / n_all,
+           "held": "bit-equal" if bit_equal else "phase_step tolerance"}
+    if not (bit_equal or (parts_rel <= 1e-4 and max_param <= 2 * lr
+                          and n_off <= 0.01 * n_all)):
+        raise AssertionError(f"{name}: steps disagree {out}")
+    return out
+
+
+def _step_ms(step, steps: int = 5) -> float:
+    """Median ms of ``step()`` after two warm-up calls, synchronised."""
+    import torch
+    times = []
+    for i in range(2 + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    times = sorted(times[2:])
+    return times[len(times) // 2] * 1e3
+
+
+def phase_ddp(smi: str) -> dict:
+    """A world-size-1 NCCL group in this process: the float32 stage-1 and
+    stage-2 steps at 128x416, B = 2, through DDP against the undistributed
+    step on the card (an all-reduce over one rank is the identity: bit
+    equality expected, with cuDNN's deterministic algorithms for the
+    comparison, since its default weight-gradient algorithms sum in an
+    order that changes from run to run), each kernel's launches a step as
+    ``train`` and ``train_flow`` count them; then FSDP2 on the same group
+    against the DDP step, with its bytes of state a rank; step times of
+    the three at cuDNN's defaults."""
+    import torch
+    import torch.distributed as dist
+    from sndepth_tpu_torch.core.config import GeoNetConfig
+    from sndepth_tpu_torch.data.prefetch import to_device
+    from sndepth_tpu_torch.parallel import fsdp
+    from sndepth_tpu_torch.parallel import mesh as pmesh
+    from sndepth_tpu_torch.train import geonet
+    dist.init_process_group(
+        "nccl" if DEV == "cuda" else "gloo",
+        init_method="file://" + _dist_store("ddp_store"), rank=0,
+        world_size=1)
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        mesh = pmesh.make_mesh(DEV)
+        out, launches = {}, {}
+        for stage, flow in (("stage1", False), ("stage2", True)):
+            cfg = GeoNetConfig(batch_size=DDP_BATCH,
+                               compute_dtype=torch.float32, train_flow=flow)
+            batch = to_device(_geonet_batch(DDP_BATCH, 5), torch.device(DEV))
+            torch.backends.cudnn.deterministic = True
+            plain = geonet.create_train_state(cfg, DEV)
+            want = _geonet_record(plain, geonet.train_step(plain, batch,
+                                                           cfg))
+            state = geonet.create_train_state(cfg, DEV)
+            step = pmesh.make_parallel_train_step(cfg, mesh)
+            shard = pmesh.shard_batch(batch, mesh)
+            reset_launches()
+            got = _geonet_record(state, step(state, shard))
+            used = _used(read_launches())
+            expect = FLOW_STEP_LAUNCHES if flow else STAGE1_STEP_LAUNCHES
+            if used != expect:
+                raise AssertionError(f"DDP {stage} launches {used}, want "
+                                     f"{expect}")
+            for k, v in used.items():
+                launches[k] = launches.get(k, 0) + v
+            fstate = fsdp.shard_state(geonet.create_train_state(cfg, DEV),
+                                      mesh, cfg)
+            fstep = fsdp.make_fsdp_train_step(cfg, mesh)
+            fgot = _geonet_record(fstate, fstep(fstate, shard))
+            torch.backends.cudnn.deterministic = deterministic
+            out[stage] = {
+                "ddp_vs_step": _step_gate(f"DDP {stage}", got, want,
+                                          cfg.learning_rate),
+                "fsdp_vs_ddp": _step_gate(f"FSDP {stage}", fgot, got,
+                                          cfg.learning_rate),
+                "launches": used, "loss_total": got["parts"]["loss_total"],
+                "fsdp_param_bytes_per_device":
+                    fsdp.sharded_param_bytes_per_device(fstate),
+                "ms_step": _step_ms(lambda: geonet.train_step(plain, batch,
+                                                              cfg)),
+                "ms_ddp": _step_ms(lambda: step(state, shard)),
+                "ms_fsdp": _step_ms(lambda: fstep(fstate, shard))}
+            del plain, state, fstate
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dist.destroy_process_group()
+    emit("ddp", nvidia_smi=smi, batch=DDP_BATCH, hw=list(SCALES[0]), **out)
+    return launches
+
+
+def _gloo_step_worker(rank, world, work):
+    """A rank of the two-process check: its shard of the global batch
+    through the DDP step on the card, over gloo, for both stages."""
+    import torch
+    from sndepth_tpu_torch.core.config import GeoNetConfig
+    from sndepth_tpu_torch.data.prefetch import to_device
+    from sndepth_tpu_torch.parallel import mesh as pmesh
+    from sndepth_tpu_torch.train import geonet
+    inputs = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    # The mesh only names the group: the tensors are on the card, and
+    # gloo carries CUDA tensors.
+    mesh = pmesh.make_mesh("cpu")
+    out = {}
+    for stage, flow in (("stage1", False), ("stage2", True)):
+        cfg = GeoNetConfig(batch_size=DDP_GLOBAL_BATCH,
+                           compute_dtype=torch.float32, train_flow=flow)
+        state = geonet.create_train_state(cfg, DEV)
+        for key, net in state.nets().items():
+            net.load_state_dict(inputs[stage]["weights"][key])
+        batch = to_device(inputs[stage]["batch"], torch.device(DEV))
+        step = pmesh.make_parallel_train_step(cfg, mesh)
+        reset_launches()
+        out[stage] = _geonet_record(state, step(
+            state, pmesh.shard_batch(batch, mesh)))
+        out[stage]["launches"] = _used(read_launches())
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+
+
+def _shard_mask_means(state, batch, cfg) -> list:
+    """Each stage-2 consistency mask's mean on each half of ``batch``."""
+    import torch
+    from sndepth_tpu_torch.train import geonet
+    means = []
+
+    def record(mask):
+        means.append(mask.reshape(2, -1).mean(1).tolist())
+        return mask.mean()
+    with torch.no_grad():
+        geonet.geonet_loss(state.disp_net, state.pose_net,
+                           geonet.preprocess_batch(batch), cfg,
+                           state.flow_net, record)
+    return means
+
+
+def phase_ddp_gloo2(smi: str) -> dict:
+    """Two processes on the one card over gloo (NCCL refuses two ranks on
+    one GPU), each stepping on half of a global batch of 4 at 128x416 in
+    float32, held against the one-process step on the whole batch on the
+    card, stage 1 and stage 2 (shards whose masks differ)."""
+    import torch
+    from sndepth_tpu_torch.core.config import GeoNetConfig
+    from sndepth_tpu_torch.data.prefetch import to_device
+    from sndepth_tpu_torch.parallel.multihost import run_local_group
+    from sndepth_tpu_torch.train import geonet
+    work = os.path.join(WORK_DIR, "ddp_gloo2")
+    os.makedirs(work, exist_ok=True)
+    inputs, single, masks = {}, {}, None
+    for stage, flow in (("stage1", False), ("stage2", True)):
+        cfg = GeoNetConfig(batch_size=DDP_GLOBAL_BATCH,
+                           compute_dtype=torch.float32, train_flow=flow)
+        state = geonet.create_train_state(cfg, "cpu")
+        if flow:
+            with torch.no_grad():
+                state.pose_net.pred_poses.weight.mul_(DDP_POSE_SCALE)
+        batch = _geonet_batch(DDP_GLOBAL_BATCH, 6,
+                              DDP_FOCAL_SCALE if flow else 1.0)
+        inputs[stage] = {"batch": batch, "weights": {
+            k: net.state_dict() for k, net in state.nets().items()}}
+        dev_state = geonet.create_train_state(cfg, DEV)
+        for key, net in dev_state.nets().items():
+            net.load_state_dict(inputs[stage]["weights"][key])
+        dev_batch = to_device(batch, torch.device(DEV))
+        if flow:
+            masks = _shard_mask_means(dev_state, dev_batch, cfg)
+        single[stage] = _geonet_record(
+            dev_state, geonet.train_step(dev_state, dev_batch, cfg))
+    torch.save(inputs, os.path.join(work, "inputs.pt"))
+    t0 = time.perf_counter()
+    run_local_group(_gloo_step_worker, 2, os.path.join(work, "store"), work,
+                    timeout_s=600.0, threads=4)
+    group_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                        weights_only=True) for r in range(2)]
+    out = {}
+    for stage in ("stage1", "stage2"):
+        r0, r1 = ranks[0][stage], ranks[1][stage]
+        if r0["parts"] != r1["parts"] or any(
+                not torch.equal(p, r1["params"][n])
+                for n, p in r0["params"].items()):
+            raise AssertionError(f"gloo {stage}: the ranks part")
+        expect = FLOW_STEP_LAUNCHES if stage == "stage2" else \
+            STAGE1_STEP_LAUNCHES
+        if r0["launches"] != expect:
+            raise AssertionError(f"gloo {stage} launches {r0['launches']}")
+        out[stage] = {"vs_one_process": _step_gate(
+            f"gloo {stage}", r0, single[stage], 2e-4),
+            "loss_total": r0["parts"]["loss_total"],
+            "launches_per_rank": r0["launches"]}
+    spread = max(abs(a - b) for a, b in masks)
+    if not spread > 0.05:
+        raise AssertionError(f"stage-2 shards' mask means too close: {masks}")
+    emit("ddp_gloo2", nvidia_smi=smi, global_batch=DDP_GLOBAL_BATCH,
+         hw=list(SCALES[0]), shard_mask_means=masks,
+         shard_mask_mean_spread=spread, group_s=group_s, **out)
+    return out
+
+
+def _torchrun(module: str, args: list, timeout: int = 600) -> str:
+    """``torchrun --standalone --nproc_per_node 1 -m <module> <args>`` from
+    the repo root; returns its output, raises on a failure."""
+    env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", module] + args, cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun {module} failed:\n{proc.stdout[-3000:]}"
+                             f"\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def phase_train_ddp(smi: str) -> dict:
+    """``cli/train_geonet`` under torchrun (one process: the one-process
+    step, through the CLI as a data-parallel run starts it): 7 bf16
+    stage-1 steps with a checkpoint every step, then a resumed run to 9.
+    Finite, descending loss; the last 5 step files kept; frames/sec (of
+    runs that write a 0.4 GB checkpoint every step: not a throughput)."""
+    import json as json_
+    import re
+    import shutil
+    root = os.path.join(WORK_DIR, "train_ddp")
+    shutil.rmtree(root, ignore_errors=True)
+    ck, logs = os.path.join(root, "ck"), os.path.join(root, "logs")
+    args = ["--log_every", "1", "--output_ckpt_iter", "1", "--ckpt_dir", ck,
+            "--graphs_dir", logs, "--device", DEV]
+    first = _torchrun("sndepth_tpu_torch.cli.train_geonet",
+                      args + ["--max_steps", "7"])
+    kept = sorted(os.listdir(ck))
+    if kept != [f"step_{s:08d}.pt" for s in range(3, 8)]:
+        raise AssertionError(f"checkpoints kept: {kept}")
+    second = _torchrun("sndepth_tpu_torch.cli.train_geonet",
+                       args + ["--max_steps", "9", "--resume"])
+    if "resumed from" not in second or "step_00000007.pt" not in second:
+        raise AssertionError("the resumed run did not start from step 7")
+    with open(os.path.join(logs, "metrics.jsonl")) as f:
+        records = [json_.loads(line) for line in f]
+    steps = [r["step"] for r in records]
+    losses = [r["loss_total"] for r in records]
+    if steps != list(range(1, 10)) or not all(map(_finite, losses)):
+        raise AssertionError(f"steps {steps}, losses {losses}")
+    if not sum(losses[-3:]) < sum(losses[:3]):
+        raise AssertionError(f"loss did not descend: {losses}")
+    fps = [float(m) for m in re.findall(r"\(([0-9.]+) frames/sec\)",
+                                        first + second)]
+    if len(fps) != 2:
+        raise AssertionError("frames/sec not printed")
+    emit("train_ddp", nvidia_smi=smi, losses=losses, frames_per_sec=fps,
+         checkpoints_kept_after_7=kept,
+         checkpoints_kept_after_resume=sorted(os.listdir(ck)))
+    return {"losses": losses}
+
+
+EXPORT_HW = SCALES[0]
+# An exported program runs the eager model's operators: bit-equal expected.
+# Otherwise held by norm: 1e-3 relative for the bf16 nets, 1e-5 for RAFT3D
+# in float32.
+EXPORT_TOL = {"dispnet": 1e-3, "nnet": 1e-3, "raft3d": 1e-5}
+
+_EXPORT_CHECK = r"""
+import json, sys, time
+import torch
+torch.backends.cudnn.allow_tf32 = {cudnn_tf32}
+torch.backends.cuda.matmul.allow_tf32 = {matmul_tf32}
+torch.backends.cudnn.benchmark = False
+from sndepth_tpu_torch.kernels import gn_build as K8, warp as K5
+from sndepth_tpu_torch.serving.export import load_artifact
+sync = (torch.cuda.synchronize if torch.cuda.is_available()
+        else (lambda: None))
+out = {{}}
+for model, art in {arts!r}:
+    t0 = time.perf_counter()
+    fn, meta = load_artifact(art)
+    load_s = time.perf_counter() - t0
+    ref = torch.load(art + "/check.pt", weights_only=True)
+    inputs = [x.to({dev!r}) for x in ref["inputs"]]
+    K5.warp_gather.launches = K8.gn_build_hg.launches = 0
+    got = fn(*inputs)
+    sync()
+    launches = {{"warp_gather": K5.warp_gather.launches,
+                 "gn_build": K8.gn_build_hg.launches}}
+    want = ref["eager"].to({dev!r})
+    rel = float((got.float() - want.float()).norm()
+                / want.float().norm().clamp_min(1e-30))
+    times = []
+    for _ in range(5):
+        sync(); t0 = time.perf_counter()
+        fn(*inputs)
+        sync(); times.append(time.perf_counter() - t0)
+    try:
+        fn(*[torch.zeros(2, *x.shape[1:], device={dev!r}) for x in inputs])
+        rejects = False
+    except ValueError:
+        rejects = True
+    out[model] = {{"bit_equal": bool(torch.equal(got, want)), "rel": rel,
+                   "finite": bool(torch.isfinite(got).all()),
+                   "launches": launches, "load_s": load_s,
+                   "ms": sorted(times)[2] * 1e3, "rejects_wrong_shape": rejects,
+                   "device": meta["device"]}}
+print("EXPORT_CHECK " + json.dumps(out))
+"""
+
+
+def phase_export(smi: str) -> dict:
+    """``cli/export_model`` on the card for ``dispnet``, ``nnet`` and
+    ``raft3d`` (128x416, B = 1, RAFT3D with 16 iterations), each artifact
+    loaded and run in a fresh process against the eager model's output on
+    the same inputs; the loaded RAFT3D program launches K8 and K5 16 times
+    a frame (the custom operators' CUDA kernels)."""
+    import torch
+    from sndepth_tpu_torch.cli import export_model
+    h, w = EXPORT_HW
+    arts, record = [], {}
+    for model in ("dispnet", "nnet", "raft3d"):
+        art = os.path.join(WORK_DIR, "export", model)
+        t0 = time.perf_counter()
+        export_model.main(["--model", model, "--device", DEV, "--out_dir",
+                           art, "--img_height", str(h), "--img_width",
+                           str(w), "--iters", str(RAFT_ITERS)])
+        export_s = time.perf_counter() - t0
+        module, inputs = export_model.build(model, 1, h, w, RAFT_ITERS)
+        module = module.to(DEV).eval()
+        inputs = [x.to(DEV) for x in inputs]
+        reset_launches()
+        with torch.no_grad():
+            eager = module(*inputs)
+        eager_launches = _used(read_launches())
+        torch.save({"inputs": [x.cpu() for x in inputs],
+                    "eager": eager.cpu()}, os.path.join(art, "check.pt"))
+        arts.append((model, art))
+        record[model] = {"export_s": export_s,
+                         "eager_launches": eager_launches,
+                         "artifact_mb": os.path.getsize(os.path.join(
+                             art, "model.pt2")) / 2**20}
+        del module, eager
+    code = _EXPORT_CHECK.format(
+        cudnn_tf32=torch.backends.cudnn.allow_tf32,
+        matmul_tf32=torch.backends.cuda.matmul.allow_tf32, arts=arts,
+        dev=DEV)
+    env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("EXPORT_CHECK ")]
+    if proc.returncode != 0 or not line:
+        raise AssertionError(f"artifact check failed:\n{proc.stderr[-3000:]}")
+    loaded = json.loads(line[0][len("EXPORT_CHECK "):])
+    for model, r in loaded.items():
+        record[model].update(r)
+        if not (r["finite"] and r["rejects_wrong_shape"]
+                and (r["bit_equal"] or r["rel"] <= EXPORT_TOL[model])):
+            raise AssertionError(f"{model} artifact: {r}")
+    if _used(record["raft3d"]["launches"]) != RAFT_FRAME_LAUNCHES:
+        raise AssertionError(f"RAFT3D artifact launches "
+                             f"{record['raft3d']['launches']}")
+    emit("export", nvidia_smi=smi, hw=list(EXPORT_HW), **record)
+    return record["raft3d"]["launches"]
+
+
+def _kitti_worker(rank, world, root, args):
+    from sndepth_tpu_torch.cli import kitti_submission
+    kitti_submission.main(args + ["--data_parallel", "--out_dir",
+                                  os.path.join(root, "gloo2")])
+
+
+def _tree_files(d: str) -> list:
+    return sorted(os.path.relpath(os.path.join(r, f), d)
+                  for r, _, fs in os.walk(d) for f in fs)
+
+
+def _same_submission(name: str, got: str, want: str) -> dict:
+    """The same files; each byte for byte, or else (the dumps' numbers)
+    within 1e-5 and (the flow pngs) within one unit."""
+    import numpy as np
+    from PIL import Image
+    files = _tree_files(want)
+    if _tree_files(got) != files:
+        raise AssertionError(f"{name}: files {_tree_files(got)} != {files}")
+    same = 0
+    worst = 0.0
+    for f in files:
+        a, b = os.path.join(got, f), os.path.join(want, f)
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            if fa.read() == fb.read():
+                same += 1
+                continue
+        if f.endswith(".txt"):
+            d = float(np.abs(np.loadtxt(a) - np.loadtxt(b)).max())
+            ok = d <= 1e-5
+        else:
+            d = float(np.abs(np.asarray(Image.open(a), np.int64)
+                             - np.asarray(Image.open(b), np.int64)).max())
+            ok = d <= 1
+        worst = max(worst, d)
+        if not ok:
+            raise AssertionError(f"{name}: {f} differs by {d}")
+    return {"files": len(files), "byte_equal": same, "worst_other": worst}
+
+
+def phase_kitti_dp(smi: str) -> dict:
+    """``cli/kitti_submission --data_parallel`` on 3 frames at 128x416 (16
+    iterations): under torchrun in one process, and in two processes on
+    the card over gloo (frames 0 and 2, and 1), against the writer without
+    the flag. Every process here runs at torch's default TF32 settings, the
+    reference too."""
+    import shutil
+    import torch
+    from sndepth_tpu_torch.cli import kitti_submission
+    from sndepth_tpu_torch.parallel.multihost import run_local_group
+    root = os.path.join(WORK_DIR, "kitti_dp")
+    shutil.rmtree(root, ignore_errors=True)
+    _write_kitti_testing_tree(root, 4, 9)
+    args = ["--root", root, "--iters", str(RAFT_ITERS), "--max_frames", "3",
+            "--device", DEV]
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        kitti_submission.main(args + ["--out_dir", os.path.join(root, "one")])
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+    t0 = time.perf_counter()
+    _torchrun("sndepth_tpu_torch.cli.kitti_submission",
+              args + ["--data_parallel", "--out_dir",
+                      os.path.join(root, "torchrun1")])
+    torchrun_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_local_group(_kitti_worker, 2, os.path.join(root, "store"), root, args,
+                    timeout_s=600.0, threads=4)
+    gloo_s = time.perf_counter() - t0
+    one = os.path.join(root, "one")
+    out = {"torchrun1": _same_submission(
+        "torchrun", os.path.join(root, "torchrun1"), one),
+        "gloo2": _same_submission("gloo2", os.path.join(root, "gloo2"), one),
+        "torchrun_s": torchrun_s, "gloo2_s": gloo_s}
+    emit("kitti_dp", nvidia_smi=smi, **out)
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "sndepth_tpu_torch")):
         print("chip_smoke: sndepth_tpu_torch is not beside this script",
@@ -3954,6 +4533,11 @@ def main() -> int:
         errs[name] = max(errs[name], err)
     uniad_cli_launches = phase_predict_vae_uniad(smi)
     uniad_train_launches = phase_uniad_train(smi)
+    ddp_launches = phase_ddp(smi)
+    phase_ddp_gloo2(smi)
+    phase_train_ddp(smi)
+    export_launches = phase_export(smi)
+    phase_kitti_dp(smi)
 
     csrc = "sndepth_tpu_torch/kernels/csrc/"
     where = {
@@ -4020,6 +4604,13 @@ def main() -> int:
                 k["name"], 0)
             k["uniad_train_launches"] = uniad_train_launches[k["name"]]
             k["uniad_times"] = uniad_k["times"][k["name"]]
+    # The scale-out and serving paths: each kernel's launches in one DDP
+    # step of stage 1 and one of stage 2 (world size 1), and K5's and K8's
+    # in a frame of the exported RAFT3D program.
+    for k in kernels:
+        k["ddp_launches"] = ddp_launches.get(k["name"], 0)
+        if k["name"] in export_launches:
+            k["export_raft3d_launches"] = export_launches[k["name"]]
     # K6's max_abs_err is over the cases whose tap weights stay near [0, 1];
     # the far-out edge_zero cases are held to their own tolerance.
     next(k for k in kernels if k["name"] == "warp_splat")[

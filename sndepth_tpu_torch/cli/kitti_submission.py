@@ -13,6 +13,12 @@ sources there). Without ``--ckpt_dir`` the weights are random from a seed.
 checkpoint loads as it is; its keys that the model does not have are
 ignored, a key the model lacks is an error).
 
+``--data_parallel`` under torchrun (``torchrun --nproc_per_node N -m
+sndepth_tpu_torch.cli.kitti_submission --data_parallel ...``): rank r of W
+takes frames r, r + W, ... and writes their artifacts, so the ranks
+together write the files one process writes. Without a process group it is
+the one-process run, as the JAX CLI is on one device.
+
 Usage:
     python -m sndepth_tpu_torch.cli.kitti_submission --root data/raft_datasets
 """
@@ -40,7 +46,8 @@ def load_raft3d_checkpoint(model, path: str) -> None:
 
 
 def main(argv=None) -> int:
-    """Run the writer; returns the number of frames written."""
+    """Run the writer; returns the number of frames this process
+    wrote."""
     p = argparse.ArgumentParser(description="RAFT3D KITTI submission")
     p.add_argument("--root", default="data/raft_datasets")
     p.add_argument("--out_dir", default="outputs/raft3d")
@@ -53,16 +60,17 @@ def main(argv=None) -> int:
     p.add_argument("--dtype", default="f32", choices=["f32", "bf16"],
                    help="RAFT3D encoder/GRU compute dtype")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard frame batches across all devices (not "
-                        "ported yet)")
+                   help="share the frames among the ranks of a torchrun "
+                        "group (the reference wraps the model in "
+                        "torch.nn.DataParallel here, "
+                        "`kitti_submission.py:196`)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cuda:1, cpu)")
     args = p.parse_args(argv)
-    if args.data_parallel:
-        p.exit(2, "--data_parallel: not ported yet (it comes with the "
-                  "multi-device slice)\n")
 
     import torch
+
+    from sndepth_tpu_torch.parallel import multihost
 
     from sndepth_tpu_torch.data.raft3d_kitti import (KITTIEvalDataset,
                                                      write_prediction)
@@ -74,8 +82,14 @@ def main(argv=None) -> int:
         print(f"no frames under {args.root}/testing/seq — nothing to do")
         return 0
 
+    rank, world = 0, 1
+    if args.data_parallel:
+        multihost.initialize_multihost(device=args.device)
+        rank, world = multihost.rank(), multihost.world_size()
+        if rank == 0:
+            print(f"data-parallel over {world} process(es)")
     stage = RAFT3DStage(
-        iters=args.iters, device=args.device,
+        iters=args.iters, device=multihost.local_device(args.device),
         dtype=torch.bfloat16 if args.dtype == "bf16" else torch.float32)
     if args.ckpt_dir:
         load_raft3d_checkpoint(stage.model,
@@ -84,7 +98,8 @@ def main(argv=None) -> int:
     depth = torch.full((1, h, w), 4.0, device=stage.device)
 
     n = min(len(ds), args.max_frames) if args.max_frames else len(ds)
-    for i in range(n):
+    mine = range(rank, n, world)
+    for i in mine:
         sample = ds[i]
         img1 = torch.from_numpy(sample["tgt"]).permute(2, 0, 1)[None]
         img2 = torch.from_numpy(
@@ -98,7 +113,7 @@ def main(argv=None) -> int:
         write_prediction(args.out_dir, i, flow2d[..., :2], Ts,
                          tau_phi[..., :3], tau_phi[..., 3:])
         print(f"[{i + 1}/{n}] wrote prediction", flush=True)
-    return n
+    return len(mine)
 
 
 if __name__ == "__main__":

@@ -1,12 +1,20 @@
-"""CLI: self-supervised GeoNet stage-1 training on one GPU.
+"""CLI: self-supervised GeoNet stage-1 training on one GPU or many.
 
 The flags and defaults of ``python -m sndepth_tpu.cli.train_geonet``
 (reference `models/baseline.py:43-123`), plus ``--device``. Without
 ``--data_dir`` (or if its index file is missing) it trains on the
 synthetic stream.
 
+Under ``torchrun --nproc_per_node N`` it trains data-parallel with no
+further flag, as the JAX CLI uses every device it sees: one process a
+card, ``--batch_size`` the global batch (divisible by N), each rank
+reading and stepping on its part of it, rank 0 logging and checkpointing;
+frames/sec counts the global batch.
+
 Usage:
     python -m sndepth_tpu_torch.cli.train_geonet --max_steps 20
+    torchrun --nproc_per_node 8 -m sndepth_tpu_torch.cli.train_geonet \
+        --batch_size 32 --max_steps 20
     python -m sndepth_tpu_torch.cli.train_geonet --data_dir /path/to/kitti \
         --ckpt_dir ckpts --graphs_dir logs --epochs 30
 """
@@ -62,7 +70,13 @@ def main(argv=None):
     from sndepth_tpu_torch.core.config import GeoNetConfig
     from sndepth_tpu_torch.data.prefetch import threaded_batches
     from sndepth_tpu_torch.data.synthetic import synthetic_batches
+    from sndepth_tpu_torch.parallel.multihost import (initialize_multihost,
+                                                      make_global_batch,
+                                                      per_host_batch_slice)
     from sndepth_tpu_torch.train.loop import train_geonet
+
+    initialize_multihost(device=args.device)
+    part = per_host_batch_slice(args.batch_size)
 
     config = GeoNetConfig(
         sequence_length=args.sequence_length, batch_size=args.batch_size,
@@ -86,21 +100,23 @@ def main(argv=None):
         steps_per_epoch = max(len(dataset) // args.batch_size, 1)
         max_steps = args.max_steps or steps_per_epoch * args.epochs
 
-        def make_iter(seed=args.seed):
+        def make_iter():
             return batch_iterator(dataset, args.batch_size, shuffle=True,
-                                  seed=seed, loop=True)
+                                  seed=args.seed, loop=True, part=part,
+                                  num_threads=max(args.data_workers, 1))
 
-        batches = threaded_batches(make_iter,
-                                   num_threads=max(args.data_workers, 1))
+        # One ordered stream a rank, decoded on --data_workers threads and
+        # read ahead on one more: each rank reads only its part of the
+        # global batches, which every rank orders alike.
+        batches = threaded_batches(make_iter, num_threads=1)
         print(f"training on {len(dataset)} sequences "
               f"({steps_per_epoch} steps/epoch)")
     else:
         max_steps = args.max_steps or 1000
         print("no --data_dir index found; training on synthetic stream")
-        batches = synthetic_batches(args.batch_size, args.img_height,
-                                    args.img_width,
-                                    num_source=args.sequence_length - 1,
-                                    seed=args.seed)
+        batches = map(make_global_batch, synthetic_batches(
+            args.batch_size, args.img_height, args.img_width,
+            num_source=args.sequence_length - 1, seed=args.seed))
 
     return train_geonet(config, batches, max_steps, device=args.device,
                         ckpt_dir=args.ckpt_dir, log_dir=args.graphs_dir,

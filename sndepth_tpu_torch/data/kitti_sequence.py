@@ -21,7 +21,9 @@ fixed-shape uint8 batches.
 
 from __future__ import annotations
 
+import collections
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
 import numpy as np
@@ -186,18 +188,45 @@ class EvalSequenceDataset:
 
 def batch_iterator(dataset, batch_size: int, *, shuffle: bool = True,
                    seed: int = 0, drop_last: bool = True,
-                   loop: bool = False) -> Iterator[dict]:
-    """Collate dataset samples into dict-of-stacked-arrays batches."""
+                   loop: bool = False, part: tuple[int, int] | None = None,
+                   num_threads: int = 1) -> Iterator[dict]:
+    """Collate dataset samples into dict-of-stacked-arrays batches.
+
+    ``part`` = (size, offset) reads only those samples of each batch: a
+    rank's part of each global batch
+    (``parallel/multihost.per_host_batch_slice``). Every rank shuffles with
+    the same ``seed``, so the ranks' parts make up the global batches.
+    ``num_threads`` > 1 decodes as many batches at once on threads, and
+    yields them in order (a dataset's augmentation then draws in the order
+    the threads ask for samples)."""
     rng = np.random.RandomState(seed)
-    while True:
-        order = np.arange(len(dataset))
-        if shuffle:
-            rng.shuffle(order)
-        for start in range(0, len(order), batch_size):
-            idx = order[start:start + batch_size]
-            if len(idx) < batch_size and drop_last:
-                continue
-            samples = [dataset[int(i)] for i in idx]
-            yield {k: np.stack([s[k] for s in samples]) for k in samples[0]}
-        if not loop:
-            return
+    per, off = part or (batch_size, 0)
+
+    def indices() -> Iterator[np.ndarray]:
+        while True:
+            order = np.arange(len(dataset))
+            if shuffle:
+                rng.shuffle(order)
+            for start in range(0, len(order), batch_size):
+                idx = order[start:start + batch_size]
+                if len(idx) < batch_size and drop_last:
+                    continue
+                yield idx[off:off + per]
+            if not loop:
+                return
+
+    def load(idx: np.ndarray) -> dict:
+        samples = [dataset[int(i)] for i in idx]
+        return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+    if num_threads <= 1:
+        yield from map(load, indices())
+        return
+    with ThreadPoolExecutor(num_threads) as pool:
+        pending: collections.deque = collections.deque()
+        for idx in indices():
+            pending.append(pool.submit(load, idx))
+            if len(pending) >= num_threads:
+                yield pending.popleft().result()
+        while pending:
+            yield pending.popleft().result()

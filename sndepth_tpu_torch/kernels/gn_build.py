@@ -377,6 +377,29 @@ def gn_build_hg_bwd(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4,
     return gn_build_bwd(args, ct_H, ct_g, radius, want)
 
 
+# The build as an operator of its own, ``torch.ops.sndepth.gn_build``: the
+# plain version is its CPU kernel, K8 its CUDA kernel, and its fake version
+# gives the outputs' shapes, so that ``torch.export`` traces RAFT3D through
+# it (the ctypes launch reads pointers a fake tensor does not have) and an
+# exported program launches K8 on the card. Defined through
+# ``torch.library.Library``, as ``warp_gather`` is.
+_OPS = torch.library.Library("sndepth", "FRAGMENT")
+_OPS.define("gn_build(Tensor rot, Tensor trans, Tensor x, Tensor sq, "
+            "Tensor gy, Tensor gx, Tensor X, Tensor tgt, Tensor wgt, "
+            "Tensor intrinsics4, int radius) -> (Tensor, Tensor)")
+_OPS.impl("gn_build", gn_build_hg_reference, "CPU")
+_OPS.impl("gn_build", _launch, "CUDA")
+
+
+@torch.library.register_fake("sndepth::gn_build")
+def _(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4, radius):
+    b, n = sq.shape
+    return sq.new_empty((b, n, 6, 6)), sq.new_empty((b, n, 6))
+
+
+_build_op = torch.ops.sndepth.gn_build.default
+
+
 class _GNBuild(torch.autograd.Function):
     """K8 forward, K8b backward, on CUDA tensors."""
 
@@ -386,8 +409,8 @@ class _GNBuild(torch.autograd.Function):
         ctx.save_for_backward(rot, trans, x, sq, gy, gx, X, tgt, wgt,
                               intrinsics4)
         ctx.radius = radius
-        return _launch(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4,
-                       radius)
+        return _build_op(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4,
+                         radius)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -404,15 +427,19 @@ def gn_build_hg(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4,
     """(H, g) of the build (see the module docstring for shapes),
     differentiable in the eight float inputs. A CUDA tensor launches the
     kernels at every n, forward and backward, and any failure raises; a CPU
-    tensor takes the plain version."""
+    tensor takes the plain version. Where no gradient is wanted the build
+    is ``torch.ops.sndepth.gn_build`` alone, as an exported inference
+    program calls it."""
     _check(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4)
+    args = (rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4, radius)
+    if sq.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no gn_build kernel for device {sq.device}")
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in args[:-1])):
+        return _build_op(*args)
     if sq.device.type == "cuda":
-        return _GNBuild.apply(rot, trans, x, sq, gy, gx, X, tgt, wgt,
-                              intrinsics4, radius)
-    if sq.device.type == "cpu":
-        return gn_build_hg_reference(rot, trans, x, sq, gy, gx, X, tgt, wgt,
-                                     intrinsics4, radius)
-    raise ValueError(f"no gn_build kernel for device {sq.device}")
+        return _GNBuild.apply(*args)
+    return gn_build_hg_reference(*args)
 
 
 gn_build_hg.launches = 0

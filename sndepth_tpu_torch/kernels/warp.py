@@ -292,15 +292,34 @@ def _launch_splat(coords, g, hs: int, ws: int, mode: str,
     return d_imgs
 
 
+# The gather as an operator of its own, ``torch.ops.sndepth.warp_gather``:
+# the plain version is its CPU kernel, the CUDA kernel its CUDA kernel, and
+# its fake version gives the output's shape, so that ``torch.export`` traces
+# a model through it (the ctypes launch reads pointers a fake tensor does
+# not have) and an exported program launches the kernel on the card.
+# Defined through ``torch.library.Library``, whose dispatch costs the host
+# less a call than the ``custom_op`` decorator's Python wrapper.
+_OPS = torch.library.Library("sndepth", "FRAGMENT")
+_OPS.define("warp_gather(Tensor imgs, Tensor coords, str mode) -> Tensor")
+_OPS.impl("warp_gather", warp_gather_reference, "CPU")
+_OPS.impl("warp_gather", _launch_gather, "CUDA")
+
+
+@torch.library.register_fake("sndepth::warp_gather")
+def _(imgs, coords, mode):
+    return imgs.new_empty((*imgs.shape[:2], *coords.shape[2:]))
+
+
+_gather_op = torch.ops.sndepth.warp_gather.default
+
+
 def warp_gather(imgs, coords, mode: str):
-    """The samples (B, C, Ht, Wt) of ``imgs`` at ``coords``. A CUDA tensor
-    launches the kernel, and any failure raises; a CPU tensor takes the
-    plain version."""
+    """The samples (B, C, Ht, Wt) of ``imgs`` at ``coords``, through
+    ``torch.ops.sndepth.warp_gather``. A CUDA tensor launches the kernel,
+    and any failure raises; a CPU tensor takes the plain version."""
     _check(imgs, coords, mode)
-    if imgs.is_cuda:
-        return _launch_gather(imgs, coords, mode)
-    if imgs.device.type == "cpu":
-        return warp_gather_reference(imgs, coords, mode)
+    if imgs.device.type in ("cuda", "cpu"):
+        return _gather_op(imgs, coords, mode)
     raise ValueError(f"no warp kernel for device {imgs.device}")
 
 
@@ -359,5 +378,10 @@ class _BilinearSample(torch.autograd.Function):
 def bilinear_sample(imgs: torch.Tensor, coords: torch.Tensor,
                     mode: str) -> torch.Tensor:
     """Sample ``imgs`` at ``coords`` through the gather kernel (see the
-    module docstring for modes and layouts); differentiable in both."""
-    return _BilinearSample.apply(imgs, coords, mode)
+    module docstring for modes and layouts); differentiable in both. Where
+    no gradient is wanted the gather is called alone, as an exported
+    inference program calls it."""
+    if torch.is_grad_enabled() and (imgs.requires_grad
+                                    or coords.requires_grad):
+        return _BilinearSample.apply(imgs, coords, mode)
+    return warp_gather(imgs, coords, mode)

@@ -101,19 +101,23 @@ class EncoderDecoder(nn.Module):
         layer = getattr(self, f"iconv{t}")[0]
         return F.relu(conv(layer, torch.cat(xs, 1), self.dtype))
 
+    def _encode(self, x: torch.Tensor) -> list:
+        """The seven encoder levels' features, finest first."""
+        feats, h = [], x
+        for i in range(7):
+            block = getattr(self, f"conv{i + 1}")
+            h = F.relu(conv(block[0], h, self.dtype))
+            h = F.relu(conv(block[2], h, self.dtype))
+            feats.append(h)
+        return feats
+
     def _decode(self, x: torch.Tensor, head):
         """Encoder and decoder over ``x``; ``head(t, features)`` gives the
         float32 prediction of level t. Returns the predictions of levels
         1-4, finest first."""
         dt = self.dtype
         x = x.to(dt)
-        feats, h = [], x
-        for i in range(7):
-            block = getattr(self, f"conv{i + 1}")
-            h = F.relu(conv(block[0], h, dt))
-            h = F.relu(conv(block[2], h, dt))
-            feats.append(h)
-        c1, c2, c3, c4, c5, c6, c7 = feats
+        c1, c2, c3, c4, c5, c6, c7 = self._encode(x)
 
         i7 = self._iconv(7, self._up(7, c7, c6), c6)
         i6 = self._iconv(6, self._up(6, i7, c5), c5)

@@ -470,14 +470,24 @@ def cholesky_solve6(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.stack(x, -1)
 
 
-@functools.lru_cache(maxsize=8)
-def _grid_positions(h: int, w: int, device: torch.device):
-    """Row and column of every pixel of an h x w grid, flattened row-major,
-    as the float32 vectors the build takes. The same for every iteration
-    of a frame and every frame of a size, so made once."""
+def _make_grid_positions(h: int, w: int, device: torch.device):
     rows = torch.arange(h, dtype=torch.float32, device=device)
     cols = torch.arange(w, dtype=torch.float32, device=device)
     return rows.repeat_interleave(w), cols.repeat(h)
+
+
+_cached_grid_positions = functools.lru_cache(maxsize=8)(_make_grid_positions)
+
+
+def _grid_positions(h: int, w: int, device: torch.device):
+    """Row and column of every pixel of an h x w grid, flattened row-major,
+    as the float32 vectors the build takes. The same for every iteration
+    of a frame and every frame of a size, so made once; made anew while
+    ``torch.export`` traces (its tensors then are the tracer's, not
+    values)."""
+    if torch.compiler.is_compiling():
+        return _make_grid_positions(h, w, device)
+    return _cached_grid_positions(h, w, device)
 
 
 def gauss_newton_step(Ts: torch.Tensor, ae: torch.Tensor,

@@ -105,19 +105,25 @@ def geonet_forward(disp_net: DispNetS, pose_net: PoseNet, batch: dict,
 
 
 def geonet_loss(disp_net: DispNetS, pose_net: PoseNet, batch: dict,
-                config: GeoNetConfig, flow_net: FlowNet | None = None
-                ) -> tuple[torch.Tensor, dict]:
+                config: GeoNetConfig, flow_net: FlowNet | None = None,
+                mask_mean=torch.mean) -> tuple[torch.Tensor, dict]:
     """Total loss of one preprocessed batch, and its parts."""
     _, depths, poses = geonet_forward(disp_net, pose_net, batch, config)
-    return geonet_loss_tail(depths, poses, batch, config, flow_net)
+    return geonet_loss_tail(depths, poses, batch, config, flow_net,
+                            mask_mean)
 
 
 def geonet_loss_tail(depths: list, poses: torch.Tensor, batch: dict,
-                     config: GeoNetConfig, flow_net: FlowNet | None = None
-                     ) -> tuple[torch.Tensor, dict]:
+                     config: GeoNetConfig, flow_net: FlowNet | None = None,
+                     mask_mean=torch.mean) -> tuple[torch.Tensor, dict]:
     """Rigid-warp photometric + smoothness losses from the nets' outputs,
     and the stage-2 flow losses when ``config.train_flow`` (``flow_net`` is
-    read by that branch only)."""
+    read by that branch only). ``mask_mean`` gives the stage-2 consistency
+    masks' normalisers (see :func:`_full_flow_losses`).
+
+    Every stage-1 term is a mean over the batch, so on equal shards of a
+    global batch the ranks' mean of it is the global batch's: a
+    data-parallel step needs no reduction here."""
     cfg = config
     b = batch["tgt"].shape[0]
     ns = cfg.num_source
@@ -182,7 +188,7 @@ def geonet_loss_tail(depths: list, poses: torch.Tensor, batch: dict,
     if cfg.train_flow:
         flow_losses = _full_flow_losses(
             flow_net, cfg, tgt_tile_pyr, src_pyr, fwd_flows, bwd_flows,
-            fwd_warp0, fwd_err0)
+            fwd_warp0, fwd_err0, mask_mean)
         total = total + sum(flow_losses.values())
         aux.update(flow_losses)
     aux["loss_total"] = total
@@ -208,12 +214,20 @@ def _consistency(flow: torch.Tensor, other: torch.Tensor, s: int,
 
 
 def _full_flow_losses(flow_net: FlowNet, cfg: GeoNetConfig, tgt_tile_pyr,
-                      src_pyr, fwd_rigid, bwd_rigid, fwd_warp0, fwd_err0
-                      ) -> dict:
+                      src_pyr, fwd_rigid, bwd_rigid, fwd_warp0, fwd_err0,
+                      mask_mean=torch.mean) -> dict:
     """Stage-2 GeoNet: residual FlowNet and the full-flow warp, smoothness
     and consistency losses (``sndepth_tpu/train/geonet.py:
     _full_flow_losses``). Pyramids are lists over scales of (B*ns, C, h, w);
-    ``fwd_warp0`` / ``fwd_err0`` are the scale-0 forward warp and error."""
+    ``fwd_warp0`` / ``fwd_err0`` are the scale-0 forward warp and error.
+
+    The masked terms divide by the mean of their mask, ``mask_mean(mask)``.
+    On one process that is the batch's mean. A rank of a data-parallel step
+    holds a shard of the global batch and passes the global batch's mean
+    (:class:`sndepth_tpu_torch.parallel.mesh.DataReduce`): each rank's
+    masked terms are then the world size times its share of the global
+    batch's, so the ranks' mean of the loss, and of its gradient, is the
+    global batch's, as in the JAX step over the whole batch."""
     n = tgt_tile_pyr[0].shape[0]
     ns = cfg.num_source
     tgt0, src0 = tgt_tile_pyr[0], src_pyr[0]
@@ -237,8 +251,8 @@ def _full_flow_losses(flow_net: FlowNet, cfg: GeoNetConfig, tgt_tile_pyr,
         bwd_full = r_s[:, 1] + bwd_rigid[s]
         fwd_diff, fwd_mask = _consistency(fwd_full, bwd_full, s, cfg)
         bwd_diff, bwd_mask = _consistency(bwd_full, fwd_full, s, cfg)
-        fwd_norm = fwd_mask.mean().clamp_min(1e-6)
-        bwd_norm = bwd_mask.mean().clamp_min(1e-6)
+        fwd_norm = mask_mean(fwd_mask).clamp_min(1e-6)
+        bwd_norm = mask_mean(bwd_mask).clamp_min(1e-6)
 
         # The masked, mean-normalised photometric pair is linear in the
         # masks, which carry no gradient: they ride the weighted kernel as
@@ -297,6 +311,23 @@ class TrainState:
     def parameters(self) -> list[torch.nn.Parameter]:
         return [p for net in self.nets().values() for p in net.parameters()]
 
+    def state_dict(self) -> dict:
+        """What a checkpoint holds: the counters, each net's state dict
+        under its key and the optimizer's."""
+        return {"step": self.step, "notfinite_count": self.notfinite_count,
+                **{k: net.state_dict() for k, net in self.nets().items()},
+                "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, saved: dict) -> None:
+        for key, net in self.nets().items():
+            if key not in saved:
+                raise KeyError(f"the checkpoint holds no {key}: it was "
+                               "saved by a run without that net")
+            net.load_state_dict(saved[key])
+        self.optimizer.load_state_dict(saved["optimizer"])
+        self.step = int(saved["step"])
+        self.notfinite_count = int(saved["notfinite_count"])
+
 
 def create_train_state(config: GeoNetConfig, device) -> TrainState:
     apply_precision(config)
@@ -306,20 +337,41 @@ def create_train_state(config: GeoNetConfig, device) -> TrainState:
     return state
 
 
-def train_step(state: TrainState, batch: dict,
-               config: GeoNetConfig) -> dict:
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's part of a sharded DTensor (FSDP's gradients); a plain
+    tensor as it is."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def train_step(state: TrainState, batch: dict, config: GeoNetConfig,
+               nets: tuple | None = None, ranks=None) -> dict:
     """One optimizer step on a raw batch (uint8 NHWC images on the device).
 
     The update is skipped, and the skip counted, when the loss or any
-    gradient is non-finite. Returns the loss parts, detached."""
+    gradient is non-finite. Returns the loss parts, detached.
+
+    A data-parallel step (``parallel/mesh.py``, ``parallel/fsdp.py``)
+    passes the wrapped (DispNetS, PoseNet, FlowNet or None) as ``nets`` and
+    the group's reductions as ``ranks`` (:class:`~sndepth_tpu_torch.
+    parallel.mesh.DataReduce`): the stage-2 mask normalisers are then the
+    global batch's, the finite flag holds only when it holds on every rank
+    (a rank's loss is its own, and FSDP's gradients are shards: each rank
+    sees only its part), and the loss parts are the ranks' mean, the same
+    on every rank."""
     batch = preprocess_batch(batch)
+    disp_net, pose_net, flow_net = nets or (state.disp_net, state.pose_net,
+                                            state.flow_net)
     state.optimizer.zero_grad(set_to_none=True)
-    total, aux = geonet_loss(state.disp_net, state.pose_net, batch, config,
-                             state.flow_net)
+    total, aux = geonet_loss(
+        disp_net, pose_net, batch, config, flow_net,
+        ranks.mean if ranks is not None else torch.mean)
     total.backward()
-    grads = [p.grad for p in state.parameters() if p.grad is not None]
+    grads = [_local(p.grad) for p in state.parameters() if p.grad is not None]
     finite = torch.stack([torch.isfinite(total)]
                          + [torch.isfinite(g).all() for g in grads]).all()
+    if ranks is not None:
+        finite = ranks.all(finite)
+        aux = ranks.average(aux)
     if bool(finite):
         state.optimizer.step()
         state.notfinite_count = 0

@@ -1,9 +1,13 @@
 """Training loop: data -> device -> step -> logging -> checkpoints.
 
-Counterpart of ``sndepth_tpu/train/loop.py`` on one device, without its
-mesh, multi-host and trace branches. A GeoNet checkpoint is one
+Counterpart of ``sndepth_tpu/train/loop.py``. Under torchrun with more
+than one process, :func:`train_geonet` runs the data-parallel step
+(``parallel/mesh.py``): each rank is fed its part of every global batch,
+rank 0 logs and writes the checkpoints. A GeoNet checkpoint
+(``train/checkpoint.py``, ``step_%08d.pt``, the last 5 kept) is one
 ``torch.save`` of the state dicts of the nets (DispNetS, PoseNet and, in
-stage 2, FlowNet) and of the optimizer, and the counters. A RAFT3D, motion,
+stage 2, FlowNet) and of the optimizer, and the counters, written off the
+train loop by a background thread. A RAFT3D, motion,
 NNET or UniAD checkpoint is two files in its directory: the model's state
 dict (``raft3d.pth``, ``motion.pth``, ``nnet.pth``, ``uniad.pth``), as the
 serving and evaluation CLIs' ``--ckpt_dir`` load it, and the optimizer's
@@ -12,9 +16,7 @@ moments with the counters (``*_train_state.pt``).
 
 from __future__ import annotations
 
-import glob
 import os
-import re
 import time
 from typing import Iterator
 
@@ -22,6 +24,8 @@ import torch
 
 from sndepth_tpu_torch.core.config import GeoNetConfig
 from sndepth_tpu_torch.data.prefetch import device_prefetch
+from sndepth_tpu_torch.parallel import multihost
+from sndepth_tpu_torch.train import checkpoint as ckpt_lib
 from sndepth_tpu_torch.train import geonet, raft3d
 from sndepth_tpu_torch.utils.logging import MetricLogger
 
@@ -41,31 +45,21 @@ def _save(obj, path: str) -> None:
 
 
 def save_checkpoint(state: geonet.TrainState, ckpt_dir: str) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
-    path = os.path.join(ckpt_dir, f"step_{state.step:08d}.pt")
-    _save({"step": state.step, "notfinite_count": state.notfinite_count,
-           **{k: net.state_dict() for k, net in state.nets().items()},
-           "optimizer": state.optimizer.state_dict()}, path)
-    return path
+    """Write ``state`` as its step's file of ``ckpt_dir`` and keep the last
+    5; returns the path."""
+    return ckpt_lib.save_checkpoint(ckpt_dir, state, state.step)
 
 
 def latest_checkpoint(ckpt_dir: str) -> str | None:
-    paths = glob.glob(os.path.join(ckpt_dir, "step_*.pt"))
-    if not paths:
-        return None
-    return max(paths, key=lambda p: int(re.findall(r"\d+", p)[-1]))
+    step = ckpt_lib.latest_step(ckpt_dir)
+    return None if step is None else ckpt_lib.checkpoint_path(ckpt_dir, step)
 
 
 def restore_checkpoint(state: geonet.TrainState, path: str) -> None:
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    for key, net in state.nets().items():
-        if key not in ckpt:
-            raise KeyError(f"{path} holds no {key}: it was saved by a run "
-                           "without that net")
-        net.load_state_dict(ckpt[key])
-    state.optimizer.load_state_dict(ckpt["optimizer"])
-    state.step = int(ckpt["step"])
-    state.notfinite_count = int(ckpt["notfinite_count"])
+    """Load the file at ``path``: a full train state, or the nets alone
+    (``cli/convert_weights geonet``), grafted onto ``state``."""
+    step = int(os.path.basename(path)[len("step_"):-len(".pt")])
+    ckpt_lib.restore_params_or_state(os.path.dirname(path), state, step)
 
 
 def profiled_step(step, trace_dir: str, label: str, device):
@@ -108,18 +102,47 @@ def train_geonet(config: GeoNetConfig, batches: Iterator[dict],
     """Run train steps up to ``max_steps`` over numpy ``batches`` on
     ``device``; returns the final state and the logged metric records.
     ``profile_at`` traces that step (:func:`profiled_step`) into
-    ``<log_dir>/trace``."""
-    device = torch.device(device)
+    ``<log_dir>/trace``. The checkpoint directory keeps the last 5 steps.
+
+    In a process group of more than one rank (torchrun, or
+    :func:`~sndepth_tpu_torch.parallel.multihost.initialize_multihost`),
+    ``batches`` yields this rank's part of each global batch
+    (``config.batch_size``; the loader's ``part``, or
+    :func:`~sndepth_tpu_torch.parallel.multihost.make_global_batch` of a
+    global batch), and each rank steps on it
+    (:func:`~sndepth_tpu_torch.parallel.mesh.make_parallel_train_step`):
+    the global batch is the one-process run's. Every rank resumes from the
+    checkpoint and keeps the (identical) records; rank 0 alone prints and
+    writes the logs and the checkpoints. At world size 1 the step is the
+    one-process step."""
+    device = multihost.local_device(device)
+    world = multihost.world_size()
     state = geonet.create_train_state(config, device)
     if resume and ckpt_dir is not None:
-        path = latest_checkpoint(ckpt_dir)
-        if path is not None:
-            restore_checkpoint(state, path)
-            print(f"resumed from {path}")
+        step = ckpt_lib.latest_step(ckpt_dir)
+        if step is not None:
+            ckpt_lib.restore_checkpoint(ckpt_dir, state, step)
+            if multihost.rank() == 0:
+                print("resumed from "
+                      f"{ckpt_lib.checkpoint_path(ckpt_dir, step)}")
     start_step = state.step
 
-    logger = MetricLogger(log_dir)
+    if world > 1:
+        from sndepth_tpu_torch.parallel import mesh as pmesh
+        mesh = pmesh.make_mesh(device)
+        pmesh.replicate_state(state, mesh)
+        parallel_step = pmesh.make_parallel_train_step(config, mesh)
+
+        def step_fn(batch):
+            return parallel_step(state, batch)
+    else:
+        def step_fn(batch):
+            return geonet.train_step(state, batch, config)
     batches = device_prefetch(batches, device)
+    lead = multihost.rank() == 0
+    logger = MetricLogger(log_dir if lead else None, echo=lead)
+    writer = (ckpt_lib.AsyncCheckpointWriter(ckpt_dir)
+              if ckpt_dir is not None and lead else None)
     t0 = time.perf_counter()
     for i in range(start_step, max_steps):
         try:
@@ -130,22 +153,34 @@ def train_geonet(config: GeoNetConfig, batches: Iterator[dict],
         step = i + 1
         if step == profile_at:
             metrics, _ = profiled_step(
-                lambda: geonet.train_step(state, batch, config),
+                lambda: step_fn(batch),
                 os.path.join(log_dir or "logs", "trace"), f"step_{step}",
                 device)
         else:
-            metrics = geonet.train_step(state, batch, config)
+            metrics = step_fn(batch)
         if step % log_every == 0 or step == max_steps:
             logger.log(step, metrics)
         if ckpt_dir is not None and (step % ckpt_every == 0
                                      or step == max_steps):
-            print(f"checkpoint -> {save_checkpoint(state, ckpt_dir)}")
+            # The device-to-host copy here, the disk write on the writer's
+            # thread while the next steps run; the next save (or the close
+            # below) joins it.
+            multihost.sync_hosts("pre-checkpoint")
+            if writer is not None:
+                print(f"checkpoint (async) -> {writer.save(state, step)}")
+            multihost.sync_hosts("post-checkpoint")
+    if writer is not None:
+        writer.close()
+    multihost.sync_hosts("checkpoints-written")
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     done = max(state.step - start_step, 1)
+    # Frames of the global batch: every rank's slices together.
     fps = done * config.batch_size * config.sequence_length / dt
-    print(f"trained {done} steps in {dt:.1f}s ({fps:.0f} frames/sec)")
+    if lead:
+        print(f"trained {done} steps in {dt:.1f}s ({fps:.0f} frames/sec)",
+              flush=True)
     logger.close()
     return state, logger.records
 

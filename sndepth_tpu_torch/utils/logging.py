@@ -10,7 +10,11 @@ from typing import Mapping
 
 
 class MetricLogger:
-    def __init__(self, log_dir: str | None = None):
+    """Records every logged step; writes ``log_dir/metrics.jsonl`` where
+    given, and prints each record when ``echo``."""
+
+    def __init__(self, log_dir: str | None = None, echo: bool = True):
+        self._echo = echo
         self._jsonl = None
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
@@ -32,8 +36,10 @@ class MetricLogger:
         if self._jsonl:
             self._jsonl.write(json.dumps(record) + "\n")
             self._jsonl.flush()
-        print(" ".join(f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}"
-                       for k, v in record.items()), flush=True)
+        if self._echo:
+            print(" ".join(f"{k}={v:.5g}" if isinstance(v, float)
+                           else f"{k}={v}" for k, v in record.items()),
+                  flush=True)
         return record
 
     def close(self) -> None:

@@ -69,6 +69,49 @@ def flownet_state_dict_from_jax(params: dict) -> dict:
     return sd
 
 
+def dispnet_alt_state_dict_from_jax(params: dict) -> dict:
+    """JAX ``dispnet_alt.DispNet`` params -> :class:`~sndepth_tpu_torch.
+    models.dispnet_alt.DispNet` state_dict: ``Conv_0..6`` the encoder, then
+    in the order flax creates them ``TorchConvTranspose2x_i`` (upconv
+    ``7 - i``), the iconvs ``Conv_7..10, 12, 14, 16`` and the heads
+    ``Conv_11, 13, 15, 17`` (predict_disp4..1)."""
+    sd: dict = {}
+    for i in range(7):
+        _conv(sd, f"conv{i + 1}.0", params[f"Conv_{i}"])
+        t = 7 - i
+        up = params[f"TorchConvTranspose2x_{i}"]
+        sd[f"upconv{t}.0.weight"] = _t(up["kernel"], (2, 3, 0, 1))
+        sd[f"upconv{t}.0.bias"] = _b(up["bias"])
+    for t, idx in zip(range(7, 0, -1), (7, 8, 9, 10, 12, 14, 16)):
+        _conv(sd, f"iconv{t}.0", params[f"Conv_{idx}"])
+    for t, idx in zip((4, 3, 2, 1), (11, 13, 15, 17)):
+        _conv(sd, f"predict_disp{t}.0", params[f"Conv_{idx}"])
+    return sd
+
+
+def dispunet_state_dict_from_jax(params: dict) -> dict:
+    """JAX ``dispnet_alt.DispUNet`` params -> :class:`~sndepth_tpu_torch.
+    models.dispnet_alt.DispUNet` state_dict: ``Conv_i`` the downs and
+    ``Conv_n`` the output, ``GroupNorm_0..n-2`` the downs' norms, then
+    ``TorchConvTranspose2x_k`` and ``GroupNorm_{n-1+k}`` the ups from the
+    bottleneck (up ``n-1-k``)."""
+    n = sum(1 for k in params if k.startswith("TorchConvTranspose2x_"))
+    sd: dict = {}
+    for i in range(n):
+        _conv(sd, f"down{i}", params[f"Conv_{i}"])
+        if i != n - 1:
+            _norm(sd, f"down_norm{i}", params[f"GroupNorm_{i}"])
+    for k in range(n):
+        i = n - 1 - k
+        up = params[f"TorchConvTranspose2x_{k}"]
+        sd[f"up{i}.weight"] = _t(up["kernel"], (2, 3, 0, 1))
+        sd[f"up{i}.bias"] = _b(up["bias"])
+        if i > 0:
+            _norm(sd, f"up_norm{i}", params[f"GroupNorm_{n - 1 + k}"])
+    _conv(sd, "out", params[f"Conv_{n}"])
+    return sd
+
+
 def posenet_state_dict_from_jax(params: dict) -> dict:
     """JAX PoseNet params -> :class:`PoseNet` state_dict."""
     sd: dict = {}

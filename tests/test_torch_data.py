@@ -109,6 +109,24 @@ def test_batch_iterator_matches_the_jax_reader(tmp_path, monkeypatch):
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
+def test_batch_iterator_parts_make_up_the_global_batches(tmp_path):
+    """Two ranks' parts (``part``), each decoded on threads, are the halves
+    of the one-thread reader's global batches (the reader the test above
+    holds against JAX's), in the same order. Unaugmented: augmentation
+    draws in the order of the decodes."""
+    root = _write_kitti_tree(str(tmp_path), n=9)
+    _, tds = _datasets(root, augment=False)
+    want = list(treader.batch_iterator(tds, 4, shuffle=True, seed=5))
+    parts = [list(treader.batch_iterator(tds, 4, shuffle=True, seed=5,
+                                         part=(2, 2 * r), num_threads=3))
+             for r in range(2)]
+    assert len(want) == len(parts[0]) == len(parts[1]) == 2
+    for w, a, b in zip(want, *parts):
+        for k in w:
+            np.testing.assert_array_equal(np.concatenate([a[k], b[k]]),
+                                          w[k], err_msg=k)
+
+
 def test_reader_helpers_match_and_reject_bad_widths(tmp_path):
     views = np.arange(4 * 12 * 3, dtype=np.uint8).reshape(4, 12, 3)
     for got, want in zip(treader.split_sequence_image(views, 3, 4),
@@ -673,3 +691,172 @@ def test_train_raft3d_cli_trains_from_a_kitti_root(tmp_path):
         assert all(np.isfinite(r[k]) for k in ("loss", "epe2d", "grad_norm"))
     assert state.model.dtype == torch.bfloat16
     assert sorted(os.listdir(ckpt)) == ["raft3d.pth", "raft3d_train_state.pt"]
+
+
+# --- the image-folder dataset, image_split and convert_weights -------------
+
+def _write_folder(root, n=3, h=30, w=50):
+    from PIL import Image
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(4)
+    for i, ext in zip(range(n), (".png", ".jpg", ".bmp")):
+        Image.fromarray(rng.randint(0, 255, (h, w, 3), np.uint8)).save(
+            os.path.join(root, f"f{i}{ext}"))
+    return root
+
+
+def test_custom_folder_dataset_matches_the_jax_loader(tmp_path,
+                                                      monkeypatch):
+    from sndepth_tpu.data.custom import CustomFolderDataset as JaxFolder
+    from sndepth_tpu_torch.data.custom import CustomFolderDataset
+    monkeypatch.setattr(jax_native, "available", lambda: False)
+    root = _write_folder(str(tmp_path / "imgs"))
+    jds, tds = JaxFolder(root, 48, 32), CustomFolderDataset(root, 48, 32)
+    assert len(tds) == len(jds) == 3 and tds.paths == jds.paths
+    for i in range(3):
+        got, want = tds[i], jds[i]
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    with pytest.raises(FileNotFoundError):
+        CustomFolderDataset(str(tmp_path / "empty"))
+
+
+def test_image_split_writes_the_jax_cli_crops(tmp_path):
+    from PIL import Image
+
+    from sndepth_tpu.cli import image_split as jsplit
+    from sndepth_tpu_torch.cli import image_split
+    src = tmp_path / "frames"
+    src.mkdir()
+    rng = np.random.RandomState(5)
+    for i, w in enumerate((1280, 700)):
+        Image.fromarray(rng.randint(0, 255, (20, w, 3), np.uint8)).save(
+            src / f"{i:06d}.png")
+    jsplit.main(["--in_dir", str(src), "--out_dir", str(tmp_path / "j")])
+    assert image_split.main(["--in_dir", str(src), "--out_dir",
+                             str(tmp_path / "t")]) == 6
+    names = sorted(os.listdir(tmp_path / "j"))
+    assert sorted(os.listdir(tmp_path / "t")) == names
+    for name in names:
+        np.testing.assert_array_equal(
+            np.asarray(Image.open(tmp_path / "t" / name)),
+            np.asarray(Image.open(tmp_path / "j" / name)), err_msg=name)
+    img = rng.randint(0, 255, (4, 1280, 3), np.uint8)
+    for a, b in zip(image_split.split_image(img), jsplit.split_image(img)):
+        np.testing.assert_array_equal(a, b)
+
+
+def _prefixed(sd: dict, prefix: str) -> dict:
+    return {prefix + k: v for k, v in sd.items()}
+
+
+@pytest.fixture
+def big_tmp(tmp_path):
+    """``tmp_path``, emptied when the test ends: these tests write
+    checkpoints of full-width nets (0.1-0.4 GB each)."""
+    yield tmp_path
+    import shutil
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+def test_convert_weights_geonet_writes_a_params_only_step_file(big_tmp):
+    """The reference's pair (DataParallel prefixes, under
+    ``*_net_state_dict``) becomes a step file that loads strictly and that
+    ``restore_params_or_state`` grafts onto a train state."""
+    from sndepth_tpu_torch.cli import convert_weights
+    from sndepth_tpu_torch.train import checkpoint as ckpt_lib
+    from sndepth_tpu_torch.train import geonet as tgeo
+    cfg = GeoNetConfig(batch_size=1, img_height=32, img_width=64,
+                       compute_dtype=torch.float32)
+    src = tgeo.create_train_state(GeoNetConfig(seed=3), "cpu")
+    torch.save({"disp_net_state_dict": _prefixed(
+        src.disp_net.state_dict(), "module.")}, big_tmp / "depth.pth")
+    torch.save(src.pose_net.state_dict(), big_tmp / "pose.pth")
+    path = convert_weights.main([
+        "geonet", "--depth", str(big_tmp / "depth.pth"), "--pose",
+        str(big_tmp / "pose.pth"), "--out", str(big_tmp / "out")])
+    assert path.endswith("step_00000000.pt")
+    state = tgeo.create_train_state(cfg, "cpu")
+    ckpt_lib.restore_params_or_state(str(big_tmp / "out"), state)
+    for name in ("disp_net", "pose_net"):
+        want = getattr(src, name).state_dict()
+        got = getattr(state, name).state_dict()
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+
+
+def test_convert_weights_each_family_loads_strictly(big_tmp):
+    """Each family's reference layout, generated from a port model (small
+    where the family has a small form), converts to a state dict that
+    loads with ``strict=True``; a checkpoint missing a key is refused."""
+    from sndepth_tpu_torch.cli import convert_weights as cw
+    from sndepth_tpu_torch.cli.train_uniad import small_model
+    from sndepth_tpu_torch.models.motionseg import MotionFusionNet
+    from sndepth_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from sndepth_tpu_torch.models.vit import ViT
+
+    def vae():
+        return AutoencoderKL(VAEConfig(base_ch=32, ch_mult=(1, 2),
+                                       num_res_blocks=1))
+    cases = {
+        "raft3d": (lambda: cw.default_model("raft3d"),
+                   lambda sd: {"model": _prefixed(sd, "module.")}),
+        "vae": (vae, lambda sd: {"state_dict": _prefixed(
+            sd, "first_stage_model.")}),
+        "motion": (MotionFusionNet, lambda sd: _prefixed(sd, "module.")),
+        "dino": (lambda: ViT(depth=2), lambda sd: {"teacher": _prefixed(
+            sd, "backbone.")}),
+        "uniad": (small_model, lambda sd: {"state_dict": {
+            **sd, "motion_head.w": torch.zeros(1)}}),
+    }
+    for kind, (make, wrap) in cases.items():
+        torch.manual_seed(0)
+        src = make()
+        want = src.state_dict()
+        path = str(big_tmp / f"{kind}.pth")
+        torch.save(wrap(want), path)
+        fresh = make()
+        got = cw.convert_checkpoint(kind, path, model=fresh)
+        fresh.load_state_dict(got, strict=True)
+        for k, v in want.items():
+            assert torch.equal(fresh.state_dict()[k], v), (kind, k)
+    torch.save({"state_dict": {}}, big_tmp / "empty.pth")
+    with pytest.raises(KeyError):
+        cw.convert_checkpoint("uniad", str(big_tmp / "empty.pth"),
+                              model=small_model())
+
+
+def test_convert_weights_nnet_matches_the_jax_converter(big_tmp):
+    """``nyu.pt`` (``encoder.original_model.*`` and ``decoder.*`` under
+    ``"model"``, DataParallel prefixes) -> ``nnet.pth`` equals the JAX
+    ``convert_nnet_checkpoint`` carried back by the port's
+    ``utils.weights``, and loads strictly into the encoder and decoder."""
+    from sndepth_tpu.utils.convert_weights import convert_nnet_checkpoint
+    from sndepth_tpu_torch.cli import convert_weights
+    from sndepth_tpu_torch.models import nnet as nnet_lib
+    from sndepth_tpu_torch.train.nnet import NormalNet
+    from sndepth_tpu_torch.utils import weights as tw
+    net = NormalNet()
+    nnet_lib.init_weights(net, torch.Generator().manual_seed(1))
+    ref = {("module.encoder.original_model." + k[len("encoder."):]
+            if k.startswith("encoder.") else "module." + k): v
+           for k, v in net.state_dict().items()}
+    torch.save({"model": ref}, big_tmp / "nyu.pt")
+    path = convert_weights.main(["nnet", "--ckpt", str(big_tmp / "nyu.pt"),
+                                 "--out", str(big_tmp / "out")])
+    assert path.endswith("nnet.pth")
+    got = torch.load(path, weights_only=True)
+    jv = convert_nnet_checkpoint(str(big_tmp / "nyu.pt"))
+    want: dict = {}
+    tw._efficientnet(want, "encoder.", jv["encoder"]["params"],
+                     jv["encoder"]["batch_stats"])
+    tw._normal_decoder(want, "decoder.", jv["decoder"]["params"],
+                       jv["decoder"].get("batch_stats"))
+    assert set(got) == set(want)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k].to(got[k].dtype), rtol=0,
+                                   atol=0, msg=k)
+    fresh = NormalNet()
+    fresh.load_state_dict(got, strict=True)

@@ -40,9 +40,9 @@ def test_every_module_imports_with_jax_unavailable():
     """Every module imports, and a stage-2 step, a RAFT3D frame, a RAFT3D
     train step, the GeoNet -> NNET -> RAFT3D prediction, the RAFT3D demo,
     the fused prediction with RAFT2D-Large flow, the VAE smoke test, the
-    GeoNet -> NNET -> VAE -> UniAD pipeline, a UniAD train step and the
-    CLIs run (so the imports inside functions run too), with JAX and the
-    JAX package blocked."""
+    GeoNet -> NNET -> VAE -> UniAD pipeline, a UniAD train step, the
+    parity report and the CLIs run (so the imports inside functions run
+    too), with JAX and the JAX package blocked."""
     names = _modules()
     for name in ("cli.train_geonet", "cli.benchmark", "cli.kitti_submission",
                  "cli.profile_step", "data.kitti_sequence",
@@ -66,7 +66,13 @@ def test_every_module_imports_with_jax_unavailable():
                  "models.bevformer", "models.track_head",
                  "models.track_runtime", "models.coders",
                  "models.uniad_track", "losses.lap", "losses.track_loss",
-                 "train.uniad", "cli.predict_vae_uniad", "cli.train_uniad"):
+                 "train.uniad", "cli.predict_vae_uniad", "cli.train_uniad",
+                 "parallel.multihost", "parallel.mesh", "parallel.fsdp",
+                 "parallel.tensor_parallel", "parallel.sequence_parallel",
+                 "parallel.pipeline", "train.checkpoint", "serving.export",
+                 "cli.export_model", "cli.convert_weights",
+                 "cli.parity_report", "cli.image_split",
+                 "models.dispnet_alt", "data.custom"):
         assert f"sndepth_tpu_torch.{name}" in names, name
     code = ("import sys, tempfile\n"
             "import torch\n"
@@ -138,6 +144,10 @@ def test_every_module_imports_with_jax_unavailable():
             "        ['--small', '--max_steps', '1', '--t_frames', '2',\n"
             "         '--ckpt_dir', d + '/u', '--device', 'cpu'])\n"
             "    assert state.step == 1\n"
+            "from sndepth_tpu_torch.cli import parity_report\n"
+            "with tempfile.TemporaryDirectory() as d:\n"
+            "    parity_report.main(['--checkpoints_dir', d, '--data_dir', d,\n"
+            "                        '--out_dir', d + '/report'])\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             f"       {BLOCKED!r}\n"
             "       and sys.modules[m] is not None]\n"
@@ -344,12 +354,15 @@ def test_profile_step_cli_needs_a_card_and_knows_the_train_family(capsys):
     assert group_of("gn_build_kernel(float").startswith("K8 ")
 
 
-def test_kitti_submission_cli_says_that_data_parallel_waits(capsys):
+def test_kitti_submission_cli_says_that_data_parallel_waits(capsys,
+                                                           tmp_path):
+    """``--data_parallel`` no longer waits: without a process group it is
+    the one-process run (here on an empty tree: nothing to do)."""
     from sndepth_tpu_torch.cli import kitti_submission
-    with pytest.raises(SystemExit) as exc:
-        kitti_submission.main(["--data_parallel", "--device", "cpu"])
-    assert exc.value.code != 0
-    assert "not ported yet" in capsys.readouterr().err
+    assert kitti_submission.main(["--data_parallel", "--device", "cpu",
+                                  "--root", str(tmp_path)]) == 0
+    out = capsys.readouterr()
+    assert "nothing to do" in out.out and "not ported yet" not in out.err
 
 
 def test_benchmark_cli_accepts_every_family_of_the_jax_cli(capsys):

@@ -1069,3 +1069,86 @@ def test_predict_vae_uniad_runs_on_the_cpu(tmp_path):
         assert boxes.shape == (32, 9) and np.isfinite(boxes).all()
         assert rec["poses_shape"] == (1, 32, 9)
         assert rec["latent_shape"] == (1, 8, 8, 4)
+
+
+# --- the alternate disparity nets and the parity report --------------------
+
+def _alt_params(shapes, seed):
+    rng = np.random.RandomState(seed)
+
+    def fill(path, leaf):
+        name = path[-1].key
+        if name == "kernel":
+            lim = np.sqrt(6.0 / (np.prod(leaf.shape[:-1])
+                                 + np.prod(leaf.shape[:-2]) * leaf.shape[-1]))
+            return rng.uniform(-lim, lim, leaf.shape).astype(np.float32)
+        if name == "scale":
+            return (1.0 + 0.1 * rng.randn(*leaf.shape)).astype(np.float32)
+        return (0.1 * rng.randn(*leaf.shape)).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def test_dispnet_and_dispunet_match_jax():
+    """``models/dispnet_alt`` against the JAX nets from the same numpy
+    weights, float32; DispUNet with the bottleneck noise drawn on the JAX
+    side (``jax.random.normal`` of the rng it is given) handed across."""
+    from sndepth_tpu.models import dispnet_alt as jalt
+    from sndepth_tpu_torch.models import dispnet_alt as talt
+    from sndepth_tpu_torch.utils.weights import (
+        dispnet_alt_state_dict_from_jax, dispunet_state_dict_from_jax)
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+    jnet = jalt.DispNet()
+    params = _alt_params(jax.eval_shape(
+        lambda: jnet.init(jax.random.PRNGKey(0), x))["params"], 1)
+    want = jax.jit(jnet.apply)({"params": params}, x)
+    tnet = talt.DispNet()
+    tnet.load_state_dict(dispnet_alt_state_dict_from_jax(params))
+    with torch.no_grad():
+        got = tnet(torch.from_numpy(x).permute(0, 3, 1, 2))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.permute(0, 2, 3, 1).numpy(),
+                                   np.asarray(w), rtol=1e-5, atol=1e-5)
+
+    junet = jalt.DispUNet(base=8, num_downs=4)
+    key = jax.random.PRNGKey(3)
+    xs = x[:, :32, :32]
+    params = _alt_params(jax.eval_shape(
+        lambda: junet.init(jax.random.PRNGKey(0), xs))["params"], 2)
+    apply = jax.jit(junet.apply)
+    want = np.asarray(apply({"params": params}, xs, key))
+    noise = np.array(jax.random.normal(key, (2, 2, 2, 64), jnp.float32))
+    tunet = talt.DispUNet(base=8, num_downs=4)
+    tunet.load_state_dict(dispunet_state_dict_from_jax(params))
+    with torch.no_grad():
+        got = tunet(torch.from_numpy(xs).permute(0, 3, 1, 2),
+                    torch.from_numpy(noise).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want,
+                               rtol=1e-5, atol=2e-5)
+    no_noise = np.asarray(apply({"params": params}, xs))
+    with torch.no_grad():
+        got = tunet(torch.from_numpy(xs).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), no_noise,
+                               rtol=1e-5, atol=2e-5)
+
+
+def test_parity_report_skips_every_family_as_the_jax_cli(tmp_path):
+    from sndepth_tpu.cli import parity_report as jreport
+    from sndepth_tpu_torch.cli import parity_report
+    (tmp_path / "ck").mkdir()
+    (tmp_path / "data").mkdir()
+    common = ["--checkpoints_dir", str(tmp_path / "ck"), "--data_dir",
+              str(tmp_path / "data")]
+    jreport.main(common + ["--out_dir", str(tmp_path / "j")])
+    got = parity_report.main(common + ["--out_dir", str(tmp_path / "t"),
+                                       "--device", "cpu"])
+    with open(tmp_path / "j" / "report.json") as f:
+        want = json.load(f)
+    with open(tmp_path / "t" / "report.json") as f:
+        assert json.load(f) == got
+    assert got["metrics"] == want["metrics"] == {}
+    assert set(got["skipped"]) == set(want["skipped"]) == {
+        "kitti_eigen_depth", "nyu_normals", "kitti_motion_miou"}
+    for k, v in want["skipped"].items():
+        assert [os.path.basename(p) for p in got["skipped"][k]] == [
+            os.path.basename(p) for p in v], k
