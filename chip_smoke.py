@@ -144,8 +144,9 @@ every phase passes:
              profile
   uniad_kernels  K5 and K5b against their plain versions on what a
              reference frame hands the sampler (MSDA levels at C = 32, DCN
-             at C = 256 and 512, the BEV shift), timed beside
-             ``grid_sample`` and the bound; K6 at the train step's shapes
+             at C = 256 and 512, the BEV shift), K5b also against itself
+             (two calls bit-equal), timed beside ``grid_sample`` and the
+             bound with the launch each took; K6 at the train step's shapes
   predict_vae_uniad  the GeoNet -> NNET -> VAE -> UniAD CLI on two frames
   uniad_train  the small config's float32 train step card against CPU
              on a clip whose GTs sit on the model's detections (matcher and
@@ -2003,17 +2004,19 @@ def _sampler_rows(imgs, coords, gen, mode: str = "edge_zero",
 
     x, y = coords[:, 0], coords[:, 1]
     gather = {
-        # Samples wholly outside the image: zero_pad reads their clamped
-        # taps and multiplies them by 0, as the plain version does;
-        # grid_sample skips those loads.
+        # Samples wholly outside the image: where C > 3 and a whole
+        # warp's lie outside, zero_pad reads none of their taps;
+        # grid_sample reads no tap outside.
         "outside_share": float(((x < -1) | (x > ws) | (y < -1) | (y > hs))
                                .float().mean()),
+        "launch": K5.sampler_launch_config(imgs, coords),
         "ms": time_ms(lambda: fwd(mode), 10),
         "plain_ms": time_ms(
             lambda: K5.warp_gather_reference(imgs, coords, mode), 5),
         **_bound(_nbytes(imgs, coords, out), b * npix * (20 + 7 * c)),
         "library_ms": time_ms(grid_sample, 10)}
     coord = {
+        "launch": K5.sampler_launch_config(imgs, coords, g),
         "ms": time_ms(lambda: coord_grad(mode), 10),
         "plain_ms": time_ms(lambda: K5.warp_coord_grad_reference(
             imgs, coords, g, mode), 5),
@@ -3100,6 +3103,7 @@ def _lookup_rows(calls, gen) -> list:
         rows.append({
             "level": level, "imgs": list(imgs.shape),
             "coords": list(coords.shape),
+            "launch": K5.sampler_launch_config(imgs, coords),
             "ms": time_ms(lambda: K5.warp_gather(imgs, coords, "zero_pad"),
                           10),
             "plain_ms": time_ms(lambda: K5.warp_gather_reference(
@@ -3760,10 +3764,15 @@ def phase_uniad_kernels(smi: str) -> dict:
         check = _k5_case(label, imgs, coords, gen)
         g = torch.randn(imgs.shape[0], imgs.shape[1], *coords.shape[2:],
                         generator=gen).to(DEV)
+        d1, d2 = (K5.warp_coord_grad(imgs, coords, g, "zero_pad")
+                  for _ in range(2))
         check["coord_grad_bit_equal"] = bool(torch.equal(
-            K5.warp_coord_grad(imgs, coords, g, "zero_pad"),
-            K5.warp_coord_grad_reference(imgs, coords, g, "zero_pad")))
-        del g
+            d1, K5.warp_coord_grad_reference(imgs, coords, g, "zero_pad")))
+        # K5b sums its channel groups in a fixed order: the same bits from
+        # call to call.
+        check["coord_grad_rerun_bit_equal"] = bool(torch.equal(
+            d1.view(torch.int32), d2.view(torch.int32)))
+        del g, d1, d2
         checks.append(check)
         gather, coord = _sampler_rows(imgs, coords, gen, mode="zero_pad")
         gather_rows.append(_with_bound({"case": label, **gather}))
@@ -3775,12 +3784,18 @@ def phase_uniad_kernels(smi: str) -> dict:
                                                       gen)))
         torch.cuda.empty_cache()
     not_bit_equal = [c["case"] for c in checks if not c["bit_equal"]]
+    not_rerun_equal = [c["case"] for c in checks
+                       if not c["coord_grad_rerun_bit_equal"]]
     emit("uniad_kernels", nvidia_smi=smi, k5_checks=checks,
          gather=gather_rows, coord_grad=coord_rows, splat=splat_rows,
-         k5_not_bit_equal=not_bit_equal)
+         k5_not_bit_equal=not_bit_equal,
+         k5b_not_rerun_bit_equal=not_rerun_equal)
     if not_bit_equal:
         raise AssertionError(f"K5 not bit-equal to its plain version at "
                              f"{not_bit_equal}")
+    if not_rerun_equal:
+        raise AssertionError(f"K5b differs between two calls at "
+                             f"{not_rerun_equal}")
     return {"errs": {"warp_gather": max(c["gather_err"] for c in checks),
                      "warp_coord_grad": max(c["coord_grad_err"]
                                             for c in checks),

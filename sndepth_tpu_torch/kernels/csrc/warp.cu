@@ -14,22 +14,61 @@
 // Layout: img (B, C, Hs, Ws), coords (B, 2, Ht, Wt) with channels (x, y) in
 // source pixels, out / g (B, C, Ht, Wt), d coords (B, 2, Ht, Wt); float32,
 // contiguous. The target size is free of the source size, and C is a
-// runtime argument. The gather and its coordinate gradient take any B in
-// one launch (the batch runs over the grid's y and then z); the splat
-// takes B <= 65535.
+// runtime argument. The gather and its coordinate gradient take any B, in
+// one launch for each batch of planes of fewer than 2^31 target pixels
+// (one for every call of this repository: kernels/warp.py counts them);
+// the splat takes B <= 65535.
 //
 // Gather and coordinate gradient: DRAM bytes bound them (8 bytes of
 // coordinates a pixel in, 4 C out; the coordinate gradient reads 4 C of
 // cotangent and writes 8). The source plane comes through L1 and L2,
-// because neighbouring pixels hit neighbouring taps. A thread takes V
-// consecutive target pixels, with one V * 4-byte load each of x and y and
-// one V * 4-byte store a channel, so that all 4 C V tap loads are in
-// flight at once: V = 4 where B * Ht * Wt reaches kWidePixels, which
-// still leaves a thread for every slot of the card (scattered taps then
-// want the most loads in flight a thread), else V = 2, where more threads
-// fill the card. V needs Ht * Wt a multiple of V and aligned planes; other
-// shapes take the same code with one pixel a thread. C = 1, 2 and 3
-// (RAFT3D's depth, a flow, an image) are compiled apart.
+// because neighbouring pixels hit neighbouring taps. The shapes run from
+// a few planes of many pixels at small C (GeoNet's images and flows,
+// RAFT3D's depth) over many planes of many pixels at C = 32 (UniAD's
+// attention levels) to thousands of 81-pixel planes at C = 1 (RAFT2D's
+// correlation lookup) and few pixels at C = 256 or 512 (UniAD's
+// deformable convolutions and BEV shift). So:
+//  - A thread takes V consecutive target pixels, with one V * 4-byte load
+//    each of x and y and one V * 4-byte store (or cotangent load) a
+//    channel: V = 4 where B * Ht * Wt reaches kWidePixels (scattered taps
+//    then want many loads in flight a thread). Else, where C <= 3, V = 2,
+//    and where C > 3, V = 1, so that a warp's lanes read neighbouring taps
+//    of one channel plane. V needs Ht * Wt a multiple of V and aligned
+//    planes; other shapes take the same code with one pixel a thread.
+//    C = 1, 2 and 3 (RAFT3D's depth, a flow, an image) are compiled apart.
+//  - Threads are numbered over all B * Ht * Wt / V pixel groups and find
+//    their plane by a multiply and a shift (PlaneDiv), so that a block
+//    spans several planes where they are small: a lookup plane of 81
+//    targets no longer leaves 175 of a block's 256 threads idle.
+//  - Where C > 3 a thread loads the taps of K channels (all V pixels)
+//    before it uses any: K = kChunkValues / V (8 at V = 1, 2 at V = 4),
+//    and 1 for the coordinate gradient at V = 4, where that divides C. A
+//    loop over a run-time C had the taps of 4 V samples in flight.
+//  - The coordinate gradient sums each chunk's K products pairwise, and the
+//    chunks' sums in ascending order: independent adds, shorter chains of
+//    float32 rounding than one sum over C, and the same bits from run to
+//    run.
+//  - Where C > 3 and the pixels leave the card idle, the gather splits the
+//    channels into `groups` (a power of two, at most kMaxGroups, each of
+//    at least kMinGroupChannels): a thread takes V pixels and one group,
+//    and the groups grow towards two waves of the card's thread slots. A
+//    block holds 256 / groups pixel threads of each group. Channel groups
+//    made the coordinate gradient no faster at the repository's shapes
+//    but the BEV shift, which is faster than grid_sample's either way.
+//  - zero_pad, C > 3: where the samples of a whole warp lie wholly outside
+//    the image (each a finite coordinate more than a pixel off it in x or
+//    in y), their weights are 0 at all four taps and their tangents 0, and
+//    their taps are not read: the gather stores zeros, and the coordinate
+//    gradient adds g times 0. UniAD's camera attention has 83% of its
+//    samples outside their camera. That is the only difference from the
+//    plain version, which multiplies the clamped taps by 0: a non-finite
+//    value in a cell that only such taps reach no longer turns the sample,
+//    or the coordinate gradient, into NaN, and such a sample is +0 where
+//    the plain version may give -0 (the two compare equal). A non-finite
+//    coordinate or cotangent gives NaN as before. edge_zero's far-out
+//    weights are not 0: it reads every tap.
+// Each sample rounds as tap_channel (sampler.cuh) does, so the gather
+// equals its plain version.
 //
 // Splat: two paths, chosen by the size of the source plane.
 //  - Plane path, where one (b, c) source plane fits the card's shared memory
@@ -74,14 +113,24 @@
 namespace {
 
 constexpr int NT = 256;
+constexpr int kLgNT = 8;                            // log2(NT)
 constexpr int kTileW = 32, kTileH = NT / kTileW;   // the splat's target tile
 constexpr int kBoxFloats = 4096;                    // 16 KB of shared memory
 // B * Ht * Wt from which the gather and K5b take 4 pixels a thread: 2^20 / 4
 // threads fill an H100's 132 SMs x 2048 thread slots.
 constexpr long long kWidePixels = 1 << 20;
+// Where C > 3: the (channel, pixel) samples whose taps a gather or
+// coordinate-gradient thread loads at once, and the least channels a
+// gather group keeps (its threads each set up their pixels' taps for so
+// many channels).
+constexpr int kChunkValues = 8;
+constexpr int kMinGroupChannels = 32;
+// The gather's most channel groups: two measured faster than four at
+// UniAD's deformable convolutions.
+constexpr int kMaxGroups = 2;
 constexpr int kPlaneThreads = 1024;                 // the splat's plane path
 constexpr int kPlaneUnroll = 2;     // target pixels in flight a thread
-constexpr int kMaxGridY = 65535;    // the largest gridDim.y (and gridDim.z)
+constexpr int kMaxGridY = 65535;    // the largest gridDim.y
 
 template <int V>
 __device__ __forceinline__ void load_v(const float* __restrict__ p, float (&v)[V]) {
@@ -106,78 +155,211 @@ __device__ __forceinline__ void store_v(float* __restrict__ p, const float (&v)[
     p[0] = v[0];
 }
 
-// The image of a gather or coordinate-gradient block. The batch runs over
-// gridDim.y (at most kMaxGridY) and then gridDim.z, so that any B fits one
-// launch; with B <= kMaxGridY the grid is (x, B, 1) and b is blockIdx.y.
-__device__ __forceinline__ int batch_index() {
-  return blockIdx.z * gridDim.y + blockIdx.y;
+// f / npix for f < 2^31 by a multiply and a shift: (f * m) >> (32 + s)
+// where m != 0, else f >> s (npix a power of two). The launcher sets it.
+struct PlaneDiv {
+  unsigned m;
+  int s;
+};
+
+__device__ __forceinline__ unsigned plane_of(unsigned f, PlaneDiv d) {
+  return d.m ? __umulhi(f, d.m) >> d.s : f >> d.s;
 }
 
-// CC > 0: C == CC, known to the compiler; CC == 0: C at run time.
-template <int MODE, int V, int CC>
-__global__ void __launch_bounds__(NT) warp_gather_kernel(
-    const float* __restrict__ img, const float* __restrict__ coords,
-    float* __restrict__ out, int B, int C_, int Hs, int Ws, int npix) {
-  const int C = CC > 0 ? CC : C_;
-  const int p = (blockIdx.x * NT + threadIdx.x) * V;
-  const int b = batch_index();
-  if (p >= npix || b >= B) return;
-  const size_t hw = (size_t)Hs * Ws;
+// Thread (blockIdx.x, threadIdx.x) of a gather or coordinate-gradient
+// launch with 2^lgp pixel threads a block: its channel group `grp` (0 for
+// the coordinate gradient), and, unless it lies past the last of the nq
+// groups of V pixels, its plane b and the offset p of its first pixel in
+// that plane.
+template <int V>
+__device__ __forceinline__ bool locate(unsigned nq, int npix, PlaneDiv div,
+                                       int lgp, int& b, int& p, int& grp) {
+  const unsigned q = (blockIdx.x << lgp) + (threadIdx.x & ((1u << lgp) - 1));
+  grp = threadIdx.x >> lgp;
+  if (q >= nq) return false;
+  const unsigned f = q * V;
+  b = (int)plane_of(f, div);
+  p = (int)(f - (unsigned)b * npix);
+  return true;
+}
+
+// The taps of the V pixels from offset p of plane b. Returns, with SKIP,
+// whether all V samples lie wholly outside the image in zero_pad (a finite
+// coordinate more than a pixel off it in x or in y): their weights and
+// tangents are exactly 0 for finite taps.
+template <int MODE, int V, bool SKIP>
+__device__ __forceinline__ bool pixel_taps(const float* __restrict__ coords,
+                                           int b, int p, int npix, int Hs,
+                                           int Ws, Taps (&t)[V]) {
   const float* crd = coords + (size_t)b * 2 * npix;
   float x[V], y[V];
   load_v<V>(crd + p, x);
   load_v<V>(crd + npix + p, y);
-  Taps t[V];
-#pragma unroll
-  for (int v = 0; v < V; ++v) t[v] = tap_setup<MODE>(x[v], y[v], Hs, Ws);
-  const float* im = img + (size_t)b * C * hw;
-  float* o = out + (size_t)b * C * npix + p;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    float r[V];
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      float a, d;
-      tap_channel(t[v], im + c * hw, r[v], a, d);
-    }
-    store_v<V>(o + (size_t)c * npix, r);
-  }
-}
-
-template <int MODE, int V, int CC>
-__global__ void __launch_bounds__(NT) warp_coord_grad_kernel(
-    const float* __restrict__ img, const float* __restrict__ coords,
-    const float* __restrict__ g, float* __restrict__ dcoords, int B, int C_,
-    int Hs, int Ws, int npix) {
-  const int C = CC > 0 ? CC : C_;
-  const int p = (blockIdx.x * NT + threadIdx.x) * V;
-  const int b = batch_index();
-  if (p >= npix || b >= B) return;
-  const size_t hw = (size_t)Hs * Ws;
-  const float* crd = coords + (size_t)b * 2 * npix;
-  float x[V], y[V];
-  load_v<V>(crd + p, x);
-  load_v<V>(crd + npix + p, y);
-  Taps t[V];
-  float gx[V], gy[V];
+  bool outside = SKIP && MODE == kZeroPad;
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     t[v] = tap_setup<MODE>(x[v], y[v], Hs, Ws);
-    gx[v] = gy[v] = 0.f;
+    outside = outside &&
+              ((t[v].dx0 == 0.f && t[v].dx1 == 0.f) ||
+               (t[v].dy0 == 0.f && t[v].dy1 == 0.f)) &&
+              isfinite(x[v]) && isfinite(y[v]);
   }
+  return outside;
+}
+
+// The four taps i00, i01, i10, i11 of channel plane `plane`.
+__device__ __forceinline__ void read_taps(const Taps& t,
+                                          const float* __restrict__ plane,
+                                          float (&i)[4]) {
+  i[0] = __ldg(plane + t.p00);
+  i[1] = __ldg(plane + t.p01);
+  i[2] = __ldg(plane + t.p10);
+  i[3] = __ldg(plane + t.p11);
+}
+
+// tap_channel's sample and tangents (sampler.cuh, whose loads photo_pair.cu
+// shares and which stays as it is) from taps read ahead, rounded alike.
+__device__ __forceinline__ float blend(const Taps& t, const float (&i)[4]) {
+  const float w00 = __fmul_rn(t.wx0, t.wy0), w01 = __fmul_rn(t.wx0, t.wy1);
+  const float w10 = __fmul_rn(t.wx1, t.wy0), w11 = __fmul_rn(t.wx1, t.wy1);
+  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(w00, i[0]),
+                                       __fmul_rn(w01, i[1])),
+                             __fmul_rn(w10, i[2])),
+                   __fmul_rn(w11, i[3]));
+}
+
+__device__ __forceinline__ void tangents(const Taps& t, const float (&i)[4],
+                                         float& tx, float& ty) {
+  tx = __fadd_rn(
+      __fmul_rn(t.wy0, __fsub_rn(__fmul_rn(t.dx1, i[2]), __fmul_rn(t.dx0, i[0]))),
+      __fmul_rn(t.wy1, __fsub_rn(__fmul_rn(t.dx1, i[3]), __fmul_rn(t.dx0, i[1]))));
+  ty = __fadd_rn(
+      __fmul_rn(t.wx0, __fsub_rn(__fmul_rn(t.dy1, i[1]), __fmul_rn(t.dy0, i[0]))),
+      __fmul_rn(t.wx1, __fsub_rn(__fmul_rn(t.dy1, i[3]), __fmul_rn(t.dy0, i[2]))));
+}
+
+// The taps of a live thread's pixels, and whether the zero_pad samples of
+// its whole warp lie wholly outside the image, so that their taps need not
+// be read (threads past the end count as outside). Only where C > 3: where
+// C <= 3 a sample's few taps cost less than the test, and a test a thread
+// would split the warps where only some samples lie outside.
+template <int MODE, int V, int CC>
+__device__ __forceinline__ bool thread_taps(const float* __restrict__ coords,
+                                          bool live, int b, int p, int npix,
+                                          int Hs, int Ws, Taps (&t)[V]) {
+  constexpr bool kSkip = CC == 0 && MODE == kZeroPad;
+  const bool outside =
+      live ? pixel_taps<MODE, V, kSkip>(coords, b, p, npix, Hs, Ws, t) : true;
+  return kSkip && __all_sync(0xffffffffu, outside);
+}
+
+// CC > 0: C == CC, known to the compiler, and one group; CC == 0: C at run
+// time, and a thread takes the C >> (kLgNT - lgp) channels of its group. K
+// channels at a time.
+template <int MODE, int V, int CC, int K>
+__global__ void __launch_bounds__(NT) warp_gather_kernel(
+    const float* __restrict__ img, const float* __restrict__ coords,
+    float* __restrict__ out, int C_, int Hs, int Ws, int npix, unsigned nq,
+    PlaneDiv div, int lgp_) {
+  const int C = CC > 0 ? CC : C_;
+  const int lgp = CC > 0 ? kLgNT : lgp_;
+  int b = 0, p = 0, grp;
+  const bool live = locate<V>(nq, npix, div, lgp, b, p, grp);
+  Taps t[V];
+  const bool outside =
+      thread_taps<MODE, V, CC>(coords, live, b, p, npix, Hs, Ws, t);
+  if (!live) return;
+  const size_t hw = (size_t)Hs * Ws;
+  const int cg = CC > 0 ? CC : C >> (kLgNT - lgp);
+  const float* im = img + ((size_t)b * C + grp * cg) * hw;
+  float* o = out + ((size_t)b * C + grp * cg) * npix + p;
+  if (outside) {
+    const float zero[V] = {};
+    for (int c = 0; c < cg; ++c) store_v<V>(o + (size_t)c * npix, zero);
+    return;
+  }
+  for (int c = 0; c < cg; c += K) {
+    float i[K][V][4];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int v = 0; v < V; ++v) read_taps(t[v], im + (c + k) * hw, i[k][v]);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float r[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) r[v] = blend(t[v], i[k][v]);
+      store_v<V>(o + (size_t)(c + k) * npix, r);
+    }
+  }
+}
+
+// A thread takes all C channels of its V pixels, K at a time.
+template <int MODE, int V, int CC, int K>
+__global__ void __launch_bounds__(NT) warp_coord_grad_kernel(
+    const float* __restrict__ img, const float* __restrict__ coords,
+    const float* __restrict__ g, float* __restrict__ dcoords, int C_, int Hs,
+    int Ws, int npix, unsigned nq, PlaneDiv div) {
+  const int C = CC > 0 ? CC : C_;
+  int b = 0, p = 0, grp;
+  const bool live = locate<V>(nq, npix, div, kLgNT, b, p, grp);
+  Taps t[V];
+  const bool outside =
+      thread_taps<MODE, V, CC>(coords, live, b, p, npix, Hs, Ws, t);
+  if (!live) return;
+  const size_t hw = (size_t)Hs * Ws;
   const float* im = img + (size_t)b * C * hw;
   const float* gp = g + (size_t)b * C * npix + p;
-  // Channels in ascending order, as the plain version sums them.
+  float gx[V], gy[V];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    float gv[V];
-    load_v<V>(gp + (size_t)c * npix, gv);
+  for (int v = 0; v < V; ++v) gx[v] = gy[v] = 0.f;
+  if (outside) {
+    // Zero tangents: the sums take g times 0, NaN where g is not finite, as
+    // in the plain version.
+    for (int c = 0; c < C; ++c) {
+      float gv[V];
+      load_v<V>(gp + (size_t)c * npix, gv);
 #pragma unroll
-    for (int v = 0; v < V; ++v) {
-      float o, a, d;
-      tap_channel(t[v], im + c * hw, o, a, d);
-      gx[v] += gv[v] * a;
-      gy[v] += gv[v] * d;
+      for (int v = 0; v < V; ++v) {
+        gx[v] = __fadd_rn(gx[v], __fmul_rn(gv[v], 0.f));
+        gy[v] = __fadd_rn(gy[v], __fmul_rn(gv[v], 0.f));
+      }
+    }
+  } else {
+    for (int c = 0; c < C; c += K) {
+      float gv[K][V], i[K][V][4];
+#pragma unroll
+      for (int k = 0; k < K; ++k) load_v<V>(gp + (size_t)(c + k) * npix, gv[k]);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+#pragma unroll
+        for (int v = 0; v < V; ++v) read_taps(t[v], im + (c + k) * hw, i[k][v]);
+      float px[K][V], py[K][V];
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          float tx, ty;
+          tangents(t[v], i[k][v], tx, ty);
+          px[k][v] = __fmul_rn(gv[k][v], tx);
+          py[k][v] = __fmul_rn(gv[k][v], ty);
+        }
+      // Pairwise within the chunk: independent adds, and short chains of
+      // float32 rounding.
+#pragma unroll
+      for (int s = 1; s < K; s *= 2)
+#pragma unroll
+        for (int k = 0; k + s < K; k += 2 * s)
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            px[k][v] = __fadd_rn(px[k][v], px[k + s][v]);
+            py[k][v] = __fadd_rn(py[k][v], py[k + s][v]);
+          }
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        gx[v] = __fadd_rn(gx[v], px[0][v]);
+        gy[v] = __fadd_rn(gy[v], py[0][v]);
+      }
     }
   }
   float* dc = dcoords + (size_t)b * 2 * npix + p;
@@ -414,43 +596,134 @@ bool bad_shape(int B, int C, int Hs, int Ws, int Ht, int Wt, int mode) {
 
 bool aligned(const void* p, int bytes) { return ((size_t)p % bytes) == 0; }
 
-// One launch of the gather (grad == false) or of the coordinate gradient,
-// with C compiled in where it is 1, 2 or 3.
-template <int MODE, int V, int CC>
-void launch_cc(bool grad, const float* img, const float* coords,
-               const float* g, float* out, int B, int C, int Hs, int Ws,
-               int npix, cudaStream_t stream) {
-  const int threads = (npix + V - 1) / V;
-  // B images over y and z: blocks past B (the last z slice's tail) return.
-  const int gy = B < kMaxGridY ? B : kMaxGridY;
-  const dim3 grid((threads + NT - 1) / NT, gy, (B + gy - 1) / gy);
-  if (grad)
-    warp_coord_grad_kernel<MODE, V, CC><<<grid, NT, 0, stream>>>(
-        img, coords, g, out, B, C, Hs, Ws, npix);
-  else
-    warp_gather_kernel<MODE, V, CC><<<grid, NT, 0, stream>>>(
-        img, coords, out, B, C, Hs, Ws, npix);
+// The thread slots of the current card (SMs x threads an SM), 0 where
+// they cannot be read; read once a card.
+long long card_thread_slots() {
+  constexpr int kCards = 64;
+  static long long slots[kCards];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kCards) return 0;
+  if (slots[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor,
+                               dev) != cudaSuccess)
+      sms = per_sm = 0;
+    slots[dev] = (long long)sms * per_sm;
+  }
+  return slots[dev];
 }
 
-template <int MODE, int V>
-void launch_v(bool grad, const float* img, const float* coords,
-              const float* g, float* out, int B, int C, int Hs, int Ws,
-              int npix, cudaStream_t s) {
-  switch (C) {
-    case 1: launch_cc<MODE, V, 1>(grad, img, coords, g, out, B, C, Hs, Ws, npix, s); break;
-    case 2: launch_cc<MODE, V, 2>(grad, img, coords, g, out, B, C, Hs, Ws, npix, s); break;
-    case 3: launch_cc<MODE, V, 3>(grad, img, coords, g, out, B, C, Hs, Ws, npix, s); break;
-    default: launch_cc<MODE, V, 0>(grad, img, coords, g, out, B, C, Hs, Ws, npix, s);
+// K where C > 3: kChunkValues / V, but one channel for the coordinate
+// gradient at V = 4, whose four pixels' taps and products fill the
+// registers (two measured 1.5x slower at UniAD's camera attention).
+constexpr int large_c_chunk(int V, bool grad) {
+  return grad && V == 4 ? 1 : kChunkValues / V;
+}
+
+// How a gather or coordinate-gradient call is launched: V pixels a thread,
+// K channels a chunk, `groups` channel groups.
+struct SamplerLaunch {
+  int V, K, groups;
+};
+
+SamplerLaunch sampler_launch(bool grad, const float* coords, const float* g,
+                             const float* out, int B, int C, int npix) {
+  const auto fits = [&](int v) {
+    return npix % v == 0 && aligned(coords, 4 * v) && aligned(out, 4 * v) &&
+           (!grad || aligned(g, 4 * v));
+  };
+  SamplerLaunch l;
+  const long long pixels = (long long)B * npix;
+  const bool wide = pixels >= kWidePixels && fits(4);
+  l.groups = 1;
+  if (C <= 3) {
+    // An image's gather loads a channel's taps at a time (all three at once
+    // measured 3-4% slower at GeoNet's image warp), its coordinate gradient
+    // all three (a channel at a time measured 7-10% slower).
+    l.V = wide ? 4 : fits(2) ? 2 : 1;
+    l.K = C == 3 && !grad ? 1 : C;
+    return l;
+  }
+  // Large C: one pixel a thread where the pixels do not fill the card, so
+  // that a warp's lanes read neighbouring taps of one channel plane; and,
+  // for the gather, channel groups towards two waves of the card's thread
+  // slots. The coordinate gradient measured no faster with groups at any
+  // of UniAD's shapes but the BEV shift, and slower at the deformable
+  // convolutions: it takes one.
+  l.V = wide ? 4 : 1;
+  l.K = C % large_c_chunk(l.V, grad) == 0 ? large_c_chunk(l.V, grad) : 1;
+  const long long threads = pixels / l.V, want = 2 * card_thread_slots();
+  while (!grad && 2 * l.groups <= kMaxGroups &&
+         C % (2 * l.groups * l.K) == 0 &&
+         C / (2 * l.groups) >= kMinGroupChannels && threads * l.groups < want)
+    l.groups *= 2;
+  return l;
+}
+
+PlaneDiv plane_div(unsigned d) {
+  int s = 0;
+  while ((1ull << s) < d) ++s;   // 2^(s-1) < d <= 2^s
+  if ((1ull << s) == d) return {0u, s};
+  // m = ceil(2^(31 + s) / d) < 2^32; f m / 2^(31 + s) floors to f / d for
+  // f < 2^31, since (m d - 2^(31 + s)) f < d 2^31 <= 2^(31 + s).
+  const unsigned long long m = ((1ull << (31 + s)) + d - 1) / d;
+  return {(unsigned)m, s - 1};
+}
+
+template <int MODE, int V, int CC, int K, bool GRAD>
+void launch_k(const float* img, const float* coords, const float* g,
+              float* out, int B, int C, int Hs, int Ws, int npix,
+              const SamplerLaunch& l, cudaStream_t stream) {
+  int lgg = 0;
+  while ((1 << lgg) < l.groups) ++lgg;
+  const int lgp = kLgNT - lgg;
+  const PlaneDiv div = plane_div((unsigned)npix);
+  // Batches of planes of fewer than 2^31 pixels, one launch each (one for
+  // any call this repository makes; kernels/warp.py's sampler_launches
+  // counts them alike).
+  const int planes = (int)(0x7fffffffLL / npix < B ? 0x7fffffffLL / npix : B);
+  for (int b0 = 0; b0 < B; b0 += planes) {
+    const int nb = B - b0 < planes ? B - b0 : planes;
+    const unsigned nq = (unsigned)((long long)nb * npix / V);
+    const unsigned blocks = (nq + (1u << lgp) - 1) >> lgp;
+    const size_t ib = (size_t)b0 * C * Hs * Ws, cb = (size_t)b0 * 2 * npix;
+    if constexpr (GRAD)
+      warp_coord_grad_kernel<MODE, V, CC, K><<<blocks, NT, 0, stream>>>(
+          img + ib, coords + cb, g + (size_t)b0 * C * npix, out + cb, C, Hs,
+          Ws, npix, nq, div);
+    else
+      warp_gather_kernel<MODE, V, CC, K><<<blocks, NT, 0, stream>>>(
+          img + ib, coords + cb, out + (size_t)b0 * C * npix, C, Hs, Ws, npix,
+          nq, div, lgp);
   }
 }
 
-template <int MODE>
-void launch_mode(int V, bool grad, const float* img, const float* coords,
-                 const float* g, float* out, int B, int C, int Hs, int Ws,
-                 int npix, cudaStream_t s) {
-  if (V == 4) launch_v<MODE, 4>(grad, img, coords, g, out, B, C, Hs, Ws, npix, s);
-  else if (V == 2) launch_v<MODE, 2>(grad, img, coords, g, out, B, C, Hs, Ws, npix, s);
-  else launch_v<MODE, 1>(grad, img, coords, g, out, B, C, Hs, Ws, npix, s);
+template <int MODE, int V, bool GRAD>
+void launch_v(const float* img, const float* coords, const float* g,
+              float* out, int B, int C, int Hs, int Ws, int npix,
+              const SamplerLaunch& l, cudaStream_t s) {
+  constexpr int kChunk = large_c_chunk(V, GRAD);
+  if (C == 1)
+    launch_k<MODE, V, 1, 1, GRAD>(img, coords, g, out, B, C, Hs, Ws, npix, l, s);
+  else if (C == 2)
+    launch_k<MODE, V, 2, 2, GRAD>(img, coords, g, out, B, C, Hs, Ws, npix, l, s);
+  else if (C == 3)
+    launch_k<MODE, V, 3, GRAD ? 3 : 1, GRAD>(img, coords, g, out, B, C, Hs, Ws, npix, l, s);
+  else if (l.K == kChunk)
+    launch_k<MODE, V, 0, kChunk, GRAD>(img, coords, g, out, B, C, Hs, Ws, npix, l, s);
+  else
+    launch_k<MODE, V, 0, 1, GRAD>(img, coords, g, out, B, C, Hs, Ws, npix, l, s);
+}
+
+template <int MODE, bool GRAD>
+void launch_mode(const float* img, const float* coords, const float* g,
+                 float* out, int B, int C, int Hs, int Ws, int npix,
+                 const SamplerLaunch& l, cudaStream_t s) {
+  if (l.V == 4) launch_v<MODE, 4, GRAD>(img, coords, g, out, B, C, Hs, Ws, npix, l, s);
+  else if (l.V == 2) launch_v<MODE, 2, GRAD>(img, coords, g, out, B, C, Hs, Ws, npix, l, s);
+  else launch_v<MODE, 1, GRAD>(img, coords, g, out, B, C, Hs, Ws, npix, l, s);
 }
 
 // `out` is the gather's samples, or with `grad` the coordinate gradient.
@@ -459,17 +732,16 @@ int launch_sampler(bool grad, const float* img, const float* coords,
                    int Ht, int Wt, int mode, void* stream) {
   if (bad_shape(B, C, Hs, Ws, Ht, Wt, mode)) return (int)cudaErrorInvalidValue;
   const int npix = Ht * Wt;
-  const auto fits = [&](int v) {
-    return npix % v == 0 && aligned(coords, 4 * v) && aligned(out, 4 * v) &&
-           (!grad || aligned(g, 4 * v));
-  };
-  const int V = (long long)B * npix >= kWidePixels && fits(4) ? 4
-                : fits(2) ? 2 : 1;
+  const SamplerLaunch l = sampler_launch(grad, coords, g, out, B, C, npix);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (mode == kEdgeZero)
-    launch_mode<kEdgeZero>(V, grad, img, coords, g, out, B, C, Hs, Ws, npix, s);
+  if (mode == kEdgeZero && grad)
+    launch_mode<kEdgeZero, true>(img, coords, g, out, B, C, Hs, Ws, npix, l, s);
+  else if (mode == kEdgeZero)
+    launch_mode<kEdgeZero, false>(img, coords, g, out, B, C, Hs, Ws, npix, l, s);
+  else if (grad)
+    launch_mode<kZeroPad, true>(img, coords, g, out, B, C, Hs, Ws, npix, l, s);
   else
-    launch_mode<kZeroPad>(V, grad, img, coords, g, out, B, C, Hs, Ws, npix, s);
+    launch_mode<kZeroPad, false>(img, coords, g, out, B, C, Hs, Ws, npix, l, s);
   return (int)cudaGetLastError();
 }
 
@@ -515,6 +787,22 @@ extern "C" int warp_coord_grad_launch(const float* img, const float* coords,
                                       int mode, void* stream) {
   return launch_sampler(true, img, coords, g, dcoords, B, C, Hs, Ws, Ht, Wt,
                         mode, stream);
+}
+
+// The launch that warp_gather_launch (grad = 0) or warp_coord_grad_launch
+// (grad = 1) makes for these pointers and shape, into cfg[4]: V pixels a
+// thread, K channels a chunk, the channel groups and the target pixels a
+// block. Returns the CUDA error code (0 = read).
+extern "C" int warp_sampler_config(int grad, const float* coords,
+                                   const float* g, const float* out, int B,
+                                   int C, int Ht, int Wt, int* cfg) {
+  if (bad_shape(B, C, 1, 1, Ht, Wt, kEdgeZero)) return (int)cudaErrorInvalidValue;
+  const SamplerLaunch l = sampler_launch(grad != 0, coords, g, out, B, C, Ht * Wt);
+  cfg[0] = l.V;
+  cfg[1] = l.K;
+  cfg[2] = l.groups;
+  cfg[3] = NT / l.groups * l.V;
+  return 0;
 }
 
 // Launches the splat into dimg (B, C, Hs, Ws) on `stream`: the plane path

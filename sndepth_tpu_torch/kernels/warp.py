@@ -34,7 +34,13 @@ and writes 8; the source plane comes through L2 because neighbouring pixels
 hit neighbouring taps. Both take four consecutive pixels a thread on a
 large problem (B Ht Wt from 2^20, where scattered taps want many loads in
 flight) and two on a smaller one (more threads fill the card), with
-vector loads and stores, where the plane size allows it. The splat reads
+vector loads and stores, where the plane size allows it. Threads run over
+all planes at once, so small planes share a block; where C is large, a
+thread loads the taps of 8 (channel, pixel) samples at once, and where the
+pixels are few the gather splits the channels into groups, one a thread;
+zero_pad reads no tap of a warp whose samples all lie wholly outside the
+image (``csrc/warp.cu`` has the whole design;
+:func:`sampler_launch_config` says what a call launches). The splat reads
 8 + 4 C bytes a pixel and writes 4 C a source cell. Where a (b, c) source
 plane fits the card's shared memory (58K cells on an H100), one block
 builds it whole there and stores it, in up to 32 copies summed in a fixed
@@ -235,6 +241,10 @@ def _library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
                            + [ctypes.c_void_p])
+        lib.warp_sampler_config.restype = ctypes.c_int
+        lib.warp_sampler_config.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+            + [ctypes.c_void_p])
         _lib = lib
     return _lib
 
@@ -252,6 +262,33 @@ def _run(launch, what: str, device: int, *args) -> None:
         raise RuntimeError(f"warp {what} launch failed: CUDA error {rc}")
 
 
+def sampler_launch_config(imgs, coords, g=None) -> dict:
+    """What the gather (``g`` None) or the coordinate gradient launches for
+    these CUDA tensors, as ``csrc/warp.cu`` chooses it: ``v`` target pixels
+    a thread, ``chunk`` channels whose taps a thread loads at once,
+    ``groups`` channel groups, and ``planes_per_block``, the target planes
+    a block's pixels span (more than 1 where the planes are small). The
+    output is taken as aligned, as torch allocates it."""
+    b, c = imgs.shape[:2]
+    ht, wt = coords.shape[2:]
+    cfg = (ctypes.c_int * 4)()
+    rc = _library().warp_sampler_config(
+        int(g is not None), coords.data_ptr(),
+        None if g is None else g.data_ptr(), None, b, c, ht, wt, cfg)
+    if rc != 0:
+        raise RuntimeError(f"warp sampler config failed: CUDA error {rc}")
+    return {"v": cfg[0], "chunk": cfg[1], "groups": cfg[2],
+            "planes_per_block": cfg[3] / (ht * wt)}
+
+
+def sampler_launches(b: int, npix: int) -> int:
+    """The kernel launches of one gather or coordinate-gradient call on
+    ``b`` planes of ``npix`` target pixels: one for each batch of planes of
+    fewer than 2^31 pixels, as ``csrc/warp.cu``'s ``launch_k`` makes them
+    (one for every call of this repository)."""
+    return -(-b // ((2**31 - 1) // npix))
+
+
 def _launch_gather(imgs, coords, mode: str):
     b, c, hs, ws = imgs.shape
     ht, wt = coords.shape[2:]
@@ -259,7 +296,7 @@ def _launch_gather(imgs, coords, mode: str):
     out = imgs.new_empty((b, c, ht, wt))
     _run(lib.warp_gather_launch, "gather", imgs.get_device(), imgs.data_ptr(),
          coords.data_ptr(), out.data_ptr(), b, c, hs, ws, ht, wt, MODES[mode])
-    warp_gather.launches += 1
+    warp_gather.launches += sampler_launches(b, ht * wt)
     return out
 
 
@@ -271,7 +308,7 @@ def _launch_coord_grad(imgs, coords, g, mode: str):
     _run(lib.warp_coord_grad_launch, "coordinate gradient", imgs.get_device(),
          imgs.data_ptr(), coords.data_ptr(), g.data_ptr(), d_coords.data_ptr(),
          b, c, hs, ws, ht, wt, MODES[mode])
-    warp_coord_grad.launches += 1
+    warp_coord_grad.launches += sampler_launches(b, ht * wt)
     return d_coords
 
 

@@ -53,13 +53,27 @@ PORT_REF = {"edge_zero": twarp.bilinear_sampler_reference,
 
 def _case(kind, c):
     """(imgs NHWC, coords NHWC, cotangent NHWC, image-gradient atol)."""
-    rng = np.random.RandomState({"random": 0, "smooth": 1, "far": 2}[kind] + c)
+    rng = np.random.RandomState({"random": 0, "smooth": 1, "far": 2,
+                                 "outside": 3, "lookup": 4}[kind] + c)
     if kind == "smooth":
         b, h, w = 2, 16, 48
         ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
         coords = np.stack([xs, ys], -1)[None].repeat(b, 0) + rng.uniform(
             -2, 2, (b, h, w, 2))
         ht, wt, atol = h, w, 1e-5
+    elif kind == "outside":
+        # Many channels and most samples wholly outside the image, as at
+        # UniAD's spatial cross-attention levels.
+        b, h, w, ht, wt, atol = 2, 7, 9, 5, 6, 1e-5
+        coords = rng.uniform(-2 * w, 3 * w, (b, ht, wt, 2))
+    elif kind == "lookup":
+        # RAFT2D's correlation lookup: a 9x9 window of taps around a point
+        # of each of many small planes, some windows partly outside.
+        b, h, w, ht, wt, atol = 24, 4, 6, 9, 9, 1e-5
+        d = np.arange(-4.0, 5.0)
+        window = np.stack(np.meshgrid(d, d), -1)
+        coords = (rng.uniform(-3, max(h, w) + 2, (b, 1, 1, 2))
+                  + window[None])
     else:
         # The target plane has another size than the source plane.
         b, h, w, ht, wt = 2, 13, 37, 11, 29
@@ -122,16 +136,27 @@ def test_sampler_matches_jax_pallas_kernel(mode, kind, c, monkeypatch):
     _compare(_port_all(PORT[mode], imgs, coords, cot), want, atol)
 
 
-@pytest.mark.parametrize("c", [2, 3])
-@pytest.mark.parametrize("kind", ["random", "smooth", "far"])
-@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("mode,kind,c", [
+    (mode, kind, c) for mode in MODES
+    for kind in ("random", "smooth", "far") for c in (2, 3)] + [
+    # The shapes the gather and its coordinate gradient were redesigned
+    # for: C = 32 with most samples wholly outside the image (whose taps
+    # the zero_pad kernels do not read), C = 1 over many 9x9 targets.
+    ("zero_pad", "outside", 32), ("zero_pad", "lookup", 1)])
 def test_sampler_matches_jax_split_ops(mode, kind, c):
     imgs, coords, cot, atol = _case(kind, c)
     want = _jax_all(JAX_SPLIT[mode], imgs, coords, cot)
-    _compare(_port_all(PORT[mode], imgs, coords, cot), want, atol)
+    got = _port_all(PORT[mode], imgs, coords, cot)
+    _compare(got, want, atol)
     # The autograd-differentiated plain sampler agrees with the function
     # built on the kernel's plain versions (explicit tangents, index_add_).
     _compare(_port_all(PORT_REF[mode], imgs, coords, cot), want, atol)
+    if kind == "outside":
+        h, w = imgs.shape[1:3]
+        x, y = coords[..., 0], coords[..., 1]
+        out = (x < -1) | (x > w) | (y < -1) | (y > h)
+        assert out.mean() > 0.5
+        assert (got[0][out] == 0).all() and (got[2][out] == 0).all()
 
 
 def _border_coords(h, w):
@@ -335,3 +360,19 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         coords = torch.zeros(1, 2, 6, 8)
     with pytest.raises((TypeError, ValueError)):
         K5.warp_gather(imgs, coords, mode)
+
+
+@pytest.mark.parametrize("b,npix,want", [
+    (1, 1, 1),                        # the smallest call
+    (7332, 81, 1),                    # RAFT2D-Large's lookup at 376x1248
+    (70000, 81, 1),                   # its folded batch
+    (64, 128 * 416, 1),               # GeoNet stage 2
+    (2, 2**30 - 1, 1),                # 2^31 - 2 pixels: still one
+    (3, 2**30 - 1, 2),                # past 2^31: a launch a batch of two
+    (2, 2**30, 2),                    # 2^31 pixels: two
+    (5, 2**31 - 1, 5),                # a plane a launch
+])
+def test_sampler_launches_count_batches_below_2_31_pixels(b, npix, want):
+    """The counter adds what ``warp.cu``'s launcher makes: one launch for
+    each batch of planes of fewer than 2^31 target pixels."""
+    assert K5.sampler_launches(b, npix) == want
