@@ -287,30 +287,27 @@ def phase_build() -> None:
     emit("build", nvcc_s=round(t_nvcc, 2), ptxas=ptxas)
 
 
-def _counters() -> dict:
-    """The launch counter of every kernel wrapper, by kernel name."""
-    from sndepth_tpu_torch.kernels import dssim as K7
-    from sndepth_tpu_torch.kernels import gn_build as K8
-    from sndepth_tpu_torch.kernels import photo_loss as K1
-    from sndepth_tpu_torch.kernels import smooth_loss as K2
-    from sndepth_tpu_torch.kernels import warp as K5
-    return {"photo_pair": K1.photo_pair_sums, "smooth": K2.smooth_sums,
-            "photo_single": K1.photo_sums,
-            "photo_pair_weighted": K1.photo_pair_weighted_sums,
-            "warp_gather": K5.warp_gather,
-            "warp_coord_grad": K5.warp_coord_grad,
-            "warp_splat": K5.warp_splat,
-            "dssim_fwd": K7.dssim_forward, "dssim_bwd": K7.dssim_backward,
-            "gn_build": K8.gn_build_hg, "gn_build_bwd": K8.gn_build_bwd}
+# chip_smoke's name of each kernel's launch counter in
+# ``sndepth_tpu_torch.utils.tracing``.
+COUNTER_NAMES = {"photo_pair": "K1", "smooth": "K2", "photo_single": "K3",
+                 "photo_pair_weighted": "K4", "warp_gather": "K5",
+                 "warp_coord_grad": "K5b", "warp_splat": "K6",
+                 "dssim_fwd": "K7", "dssim_bwd": "K7b", "gn_build": "K8",
+                 "gn_build_bwd": "K8b"}
+_launch_base: dict = {}
 
 
 def reset_launches() -> None:
-    for fn in _counters().values():
-        fn.launches = 0
+    from sndepth_tpu_torch.utils import tracing
+    _launch_base.update(tracing.counts())
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _counters().items()}
+    """Each kernel's launches since the last :func:`reset_launches`."""
+    from sndepth_tpu_torch.utils import tracing
+    now = tracing.counts()
+    return {name: now[k] - _launch_base.get(k, 0)
+            for name, k in COUNTER_NAMES.items()}
 
 
 def _pyramid_inputs(b: int, seed: int):
@@ -1149,6 +1146,7 @@ def phase_gn_build_bwd() -> dict:
     the card: all eight gradients, and the subset a train step asks for."""
     import torch
     from sndepth_tpu_torch.kernels import gn_build as K8
+    from sndepth_tpu_torch.utils import tracing
     gen = torch.Generator().manual_seed(8)
     checks, worst = [], {"abs": 0.0, "scaled": 0.0}
 
@@ -1229,7 +1227,7 @@ def phase_gn_build_bwd() -> dict:
     args = list(_gn_inputs(1, 16, 52, 91))
     for k in (2, 3, 7, 8):
         args[k] = args[k].clone().requires_grad_(True)
-    before = K8.gn_build_bwd.launches
+    before = tracing.counts()["K8b"]
     H, g = K8.gn_build_hg(*args, GN_RADIUS)
     ct_H, ct_g = cotangents(1, 832)
     grads = torch.autograd.grad([H, g], [args[k] for k in (2, 3, 7, 8)],
@@ -1237,7 +1235,7 @@ def phase_gn_build_bwd() -> dict:
     ref = K8.gn_build_hg_bwd_reference(*args, GN_RADIUS, ct_H, ct_g)
     _gn_bwd_compare("autograd", [None, None, grads[0], grads[1], None,
                                  grads[2], grads[3], None], ref)
-    after = K8.gn_build_bwd.launches
+    after = tracing.counts()["K8b"]
     if after != before + 1 or any(
             g.dtype != torch.float32 for g in grads):
         raise AssertionError(f"autograd through K8: launches {before} -> "
@@ -1500,8 +1498,7 @@ def phase_raft3d_step() -> None:
     grid smoother and the 16-wide plain build on the card and so launches
     K5 but never K8."""
     import torch
-    from sndepth_tpu_torch.kernels.gn_build import gn_build_hg
-    from sndepth_tpu_torch.kernels.warp import warp_gather
+    from sndepth_tpu_torch.utils import tracing
     h, w = RAFT_SIZES[0]
     frame = _raft_frame(h, w, seed=42)
     cpu, gpu = _raft_pair(bilaplacian=False)
@@ -1535,16 +1532,16 @@ def phase_raft3d_step() -> None:
                                    _check_field(f"gpu {iters}", got.cpu()))}
             del cpu, gpu
             cpu, gpu = _raft_pair(bilaplacian=True)
-            built, sampled = gn_build_hg.launches, warp_gather.launches
+            before = tracing.counts()
             want = cpu(*frame, iters=2)
             got = gpu(*map(to_dev, frame), iters=2)
             torch.cuda.synchronize()
-            if (gn_build_hg.launches != built
-                    or warp_gather.launches != sampled + 2):
+            after = tracing.counts()
+            built, sampled = (after[k] - before[k] for k in ("K8", "K5"))
+            if built != 0 or sampled != 2:
                 raise AssertionError(
-                    "bilaplacian forward: K8 launched "
-                    f"{gn_build_hg.launches - built} times (want 0), K5 "
-                    f"{warp_gather.launches - sampled} (want 2)")
+                    f"bilaplacian forward: K8 launched {built} times (want "
+                    f"0), K5 {sampled} (want 2)")
             runs["bilaplacian"] = {
                 **_log_distance(got, want),
                 "quat_norm_off": max(_check_field("cpu bilaplacian", want),
@@ -4320,8 +4317,8 @@ import torch
 torch.backends.cudnn.allow_tf32 = {cudnn_tf32}
 torch.backends.cuda.matmul.allow_tf32 = {matmul_tf32}
 torch.backends.cudnn.benchmark = False
-from sndepth_tpu_torch.kernels import gn_build as K8, warp as K5
 from sndepth_tpu_torch.serving.export import load_artifact
+from sndepth_tpu_torch.utils import tracing
 sync = (torch.cuda.synchronize if torch.cuda.is_available()
         else (lambda: None))
 out = {{}}
@@ -4331,11 +4328,12 @@ for model, art in {arts!r}:
     load_s = time.perf_counter() - t0
     ref = torch.load(art + "/check.pt", weights_only=True)
     inputs = [x.to({dev!r}) for x in ref["inputs"]]
-    K5.warp_gather.launches = K8.gn_build_hg.launches = 0
+    before = tracing.counts()
     got = fn(*inputs)
     sync()
-    launches = {{"warp_gather": K5.warp_gather.launches,
-                 "gn_build": K8.gn_build_hg.launches}}
+    after = tracing.counts()
+    launches = {{"warp_gather": after["K5"] - before["K5"],
+                 "gn_build": after["K8"] - before["K8"]}}
     want = ref["eager"].to({dev!r})
     rel = float((got.float() - want.float()).norm()
                 / want.float().norm().clamp_min(1e-30))

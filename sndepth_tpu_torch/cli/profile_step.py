@@ -9,11 +9,17 @@ iterations, the train CLI's defaults: 256x832, B = 2, bf16), a ``uniad``
 frame of the reference config (6 cameras at 928x1600, float32, chained
 frames with an ego shift) or a ``uniad_train`` step of it (``remat``, a
 clip of 2 frames, 6 cameras at 224x416), on inputs that
-lie on the card, warms it up, then traces ``--steps`` steps with
-``torch.profiler`` and prints one JSON object: the host's wall time per
-step, the summed device time of the kernels, the device's idle share
-(1 - kernel time / wall time), the number of kernel launches, the kernel
-time by group and the largest kernels by name. The hand-written kernels are groups of their own.
+lie on the card, warms it up, times ``--steps`` untraced steps, then
+traces as many with ``torch.profiler`` and prints one JSON object: the
+host's wall time per step untraced and traced, the summed device time of
+the kernels, the device's busy time (the union of its operations'
+intervals) and idle share (1 - busy time / the untraced step), the number
+of kernel launches, the kernel time by group and the largest kernels by
+name (the hand-written kernels are groups of their own), and by the
+program's spans (``utils/tracing.SPANS``): each span's host ms and calls a
+step, the device ms and launches of the kernels each launched, and the
+idle ms a step by the innermost span and host operation open in the gap
+(``"geonet#backward / host idle"``).
 
 Usage:
     python -m sndepth_tpu_torch.cli.profile_step --family flow --batch 32
@@ -34,7 +40,7 @@ import time
 
 import numpy as np
 
-from sndepth_tpu_torch.utils.profiling import device_kernels
+from sndepth_tpu_torch.utils import profiling, tracing
 
 
 def _train_step(family: str, batch: int, h: int, w: int, device):
@@ -131,6 +137,18 @@ def uniad_train_step(h: int, w: int, device, t_frames: int = 2,
     return state, clip, lambda: tu.train_step(state, clip)
 
 
+def _timed_ms(step, n: int) -> float:
+    """Host ms a call of ``step`` over ``n`` calls, the card synchronised
+    at both ends."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description="Profile one warm step")
     p.add_argument("--family", default="flow",
@@ -196,34 +214,40 @@ def main(argv=None) -> dict:
     else:
         batch = args.batch or (32 if args.family == "flow" else 128)
         step = _train_step(args.family, batch, h, w, device)
+    n = args.steps
     for _ in range(3):
         step()
-    torch.cuda.synchronize()
+    untraced_ms = _timed_ms(step, n)
 
+    tracing.reset()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+        wall_ms = _timed_ms(step, n)
+    spans = tracing.snapshot()
 
-    by_group, by_name, launches = device_kernels(prof, args.steps)
+    by_group, by_name, launches = profiling.device_kernels(prof, n)
     kernel_ms = sum(by_group.values())
     if not kernel_ms > 0:
         p.exit(3, "the profiler recorded no device time\n")
+    events = prof.events()
+    busy_ms = profiling.busy_ms(events) / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     result = {
         "family": args.family, "batch": batch, "hw": [h, w],
         "device": torch.cuda.get_device_name(0),
-        "steps_traced": args.steps, "wall_ms_per_step": wall_ms,
-        "kernel_ms_per_step": kernel_ms,
-        "idle_share": 1.0 - kernel_ms / wall_ms,
-        "launches_per_step": launches / args.steps,
+        "steps_traced": n, "untraced_ms_per_step": untraced_ms,
+        "wall_ms_per_step": wall_ms, "kernel_ms_per_step": kernel_ms,
+        "busy_ms_per_step": busy_ms,
+        "idle_share": 1.0 - busy_ms / untraced_ms,
+        "launches_per_step": launches / n,
         "ms_by_group": dict(sorted(by_group.items(), key=lambda kv: -kv[1])),
-        "top_kernels": [{"name": n[:100], "ms": v[0],
-                         "launches_per_step": v[1] / args.steps}
-                        for n, v in top],
+        "top_kernels": [{"name": name[:100], "ms": v[0],
+                         "launches_per_step": v[1] / n}
+                        for name, v in top],
+        "spans": {name: {"host_ms": s * 1e3 / n, "calls": calls / n}
+                  for name, (calls, s) in sorted(spans.items())},
+        "device_by_span": profiling.by_span(events, n),
+        "idle_ms_by_span": profiling.idle_by_span(events, n),
     }
     print(json.dumps(result), flush=True)
     return result

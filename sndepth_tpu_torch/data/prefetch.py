@@ -14,6 +14,8 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from sndepth_tpu_torch.utils import tracing
+
 
 def threaded_batches(make_iter: Callable[[], Iterator[dict]],
                      num_threads: int = 4, buffer_size: int = 8
@@ -47,6 +49,7 @@ def threaded_batches(make_iter: Callable[[], Iterator[dict]],
         stop.set()
 
 
+@tracing.span("input#to_device")
 def to_device(batch: dict, device: torch.device) -> dict:
     """numpy batch -> tensors on ``device``; CUDA copies go from pinned
     memory and do not block the host."""

@@ -37,6 +37,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from sndepth_tpu_torch.utils import tracing
+
 _C1 = 0.01 ** 2
 _C2 = 0.03 ** 2
 _SOURCE = "dssim.cu"
@@ -118,7 +120,7 @@ def _launch_forward(x, y):
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dssim forward launch failed: CUDA error {rc}")
-    dssim_forward.launches += 1
+    tracing.count("K7")
     return out
 
 
@@ -135,10 +137,11 @@ def _launch_backward(x, y, g, need_dx: bool, need_dy: bool):
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dssim backward launch failed: CUDA error {rc}")
-    dssim_backward.launches += 1
+    tracing.count("K7b")
     return dx, dy
 
 
+@tracing.span("kernel#K7")
 def dssim_forward(x, y):
     """The DSSIM map. A CUDA tensor launches the kernel, and any failure
     raises; a CPU tensor takes the plain version."""
@@ -151,6 +154,7 @@ def dssim_forward(x, y):
     raise ValueError(f"no dssim kernel for device {x.device}")
 
 
+@tracing.span("kernel#K7b")
 def dssim_backward(x, y, g, need_dx: bool = True, need_dy: bool = True):
     """(dX, dY) for the cotangent ``g``; a side that is not needed is
     ``None``. Dispatches by device as :func:`dssim_forward`."""
@@ -162,10 +166,6 @@ def dssim_backward(x, y, g, need_dx: bool = True, need_dy: bool = True):
     if x.device.type == "cpu":
         return dssim_backward_reference(x, y, g, need_dx, need_dy)
     raise ValueError(f"no dssim kernel for device {x.device}")
-
-
-dssim_forward.launches = 0
-dssim_backward.launches = 0
 
 
 class _Dssim(torch.autograd.Function):

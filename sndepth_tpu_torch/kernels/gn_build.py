@@ -50,6 +50,8 @@ import functools
 
 import torch
 
+from sndepth_tpu_torch.utils import tracing
+
 EMB = 32
 # Beyond this many pixels the plain version accumulates the j axis in blocks
 # of _BLOCK (the JAX package's rule): a single shot holds O(n^2) Jacobians.
@@ -234,7 +236,7 @@ def _launch(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4,
                     torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gn_build launch failed: CUDA error {rc}")
-    gn_build_hg.launches += 1
+    tracing.count("K8")
     return H, g
 
 
@@ -346,7 +348,7 @@ def gn_build_bwd(args, ct_H, ct_g, radius: int, want=(True,) * 8):
                     torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gn_build_bwd launch failed: CUDA error {rc}")
-    gn_build_bwd.launches += 1
+    tracing.count("K8b")
     if out[7] is not None:
         # The kernel writes each pixel's share; the sum over the pixels is
         # taken in one order from run to run.
@@ -354,6 +356,7 @@ def gn_build_bwd(args, ct_H, ct_g, radius: int, want=(True,) * 8):
     return tuple(out)
 
 
+@tracing.span("kernel#K8b")
 def gn_build_hg_bwd(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4,
                     radius: int, ct_H, ct_g, want=(True,) * 8):
     """Backward of :func:`gn_build_hg`: (d rot, d trans, d x, d sq, d X,
@@ -440,7 +443,3 @@ def gn_build_hg(rot, trans, x, sq, gy, gx, X, tgt, wgt, intrinsics4,
     if sq.device.type == "cuda":
         return _GNBuild.apply(*args)
     return gn_build_hg_reference(*args)
-
-
-gn_build_hg.launches = 0
-gn_build_bwd.launches = 0

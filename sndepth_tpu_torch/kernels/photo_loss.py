@@ -46,6 +46,7 @@ import torch
 
 from sndepth_tpu_torch.ops.ssim import image_similarity_reference
 from sndepth_tpu_torch.ops.warp import bilinear_sampler_reference
+from sndepth_tpu_torch.utils import tracing
 
 _SOURCE = "photo_pair.cu"
 _lib = None
@@ -156,32 +157,34 @@ def _launch(tgt, srcs, cf, cb, alpha: float, wf=None, wb=None):
     return loss_part.sum(), d_cf, d_cb
 
 
-def _dispatch(counter, tgt, srcs, cf, cb, alpha, wf=None, wb=None):
-    """A CUDA tensor launches the kernel, adding one to ``counter``'s
-    launches, and any failure raises; a CPU tensor takes the plain
+def _dispatch(kernel: str, tgt, srcs, cf, cb, alpha, wf=None, wb=None):
+    """A CUDA tensor launches the kernel, counting one launch of
+    ``kernel``, and any failure raises; a CPU tensor takes the plain
     version."""
     if tgt.device.type == "cuda":
         out = _launch(tgt, srcs, cf, cb, alpha, wf, wb)
-        counter.launches += 1
+        tracing.count(kernel)
         return out
     if tgt.device.type == "cpu":
         return photo_pair_sums_reference(tgt, srcs, cf, cb, alpha, wf, wb)
     raise ValueError(f"no photo_pair kernel for device {tgt.device}")
 
 
+@tracing.span("kernel#K1")
 def photo_pair_sums(tgt, srcs, cf, cb, alpha: float):
     """K1: (loss sum, d loss/d cf, d loss/d cb)."""
     _check(tgt, srcs, cf, cb)
-    return _dispatch(photo_pair_sums, tgt, srcs, cf, cb, alpha)
+    return _dispatch("K1", tgt, srcs, cf, cb, alpha)
 
 
+@tracing.span("kernel#K4")
 def photo_pair_weighted_sums(tgt, srcs, cf, cb, wf, wb, alpha: float):
     """K4: (weighted loss sum, d loss/d cf, d loss/d cb)."""
     _check(tgt, srcs, cf, cb, wf, wb)
-    return _dispatch(photo_pair_weighted_sums, tgt, srcs, cf, cb, alpha,
-                     wf, wb)
+    return _dispatch("K4", tgt, srcs, cf, cb, alpha, wf, wb)
 
 
+@tracing.span("kernel#K3")
 def photo_sums(tgt, src, coords, alpha: float):
     """K3: (loss sum, d loss/d coords) of one direction for one source;
     tgt, src (B, 3, H, W), coords (B, 2, H, W)."""
@@ -189,13 +192,8 @@ def photo_sums(tgt, src, coords, alpha: float):
         raise ValueError("expected src (B, C, H, W) and coords (B, 2, H, W)")
     srcs, cf = src[:, None], coords[:, None]
     _check(tgt, srcs, cf)
-    loss, d_cf, _ = _dispatch(photo_sums, tgt, srcs, cf, None, alpha)
+    loss, d_cf, _ = _dispatch("K3", tgt, srcs, cf, None, alpha)
     return loss, d_cf[:, 0]
-
-
-photo_pair_sums.launches = 0
-photo_pair_weighted_sums.launches = 0
-photo_sums.launches = 0
 
 
 class _PairLoss(torch.autograd.Function):

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from sndepth_tpu_torch.ops.pyramid import gradient_x, gradient_y
+from sndepth_tpu_torch.utils import tracing
 
 _SOURCE = "smooth_loss.cu"
 _lib = None
@@ -123,10 +124,11 @@ def _launch(depth, image):
             c, h, w, stream)
     if rc != 0:
         raise RuntimeError(f"smoothness launch failed: CUDA error {rc}")
-    smooth_sums.launches += 1
+    tracing.count("K2")
     return out[0], out[1], ddx, ddy
 
 
+@tracing.span("kernel#K2")
 def smooth_sums(depth, image):
     """(sx, sy, d sx/d depth, d sy/d depth). A CUDA tensor launches the
     kernel, and any failure raises; a CPU tensor takes the plain version."""
@@ -136,9 +138,6 @@ def smooth_sums(depth, image):
     if depth.device.type == "cpu":
         return smooth_sums_reference(depth, image)
     raise ValueError(f"no smoothness kernel for device {depth.device}")
-
-
-smooth_sums.launches = 0
 
 
 class _SmoothSums(torch.autograd.Function):

@@ -62,6 +62,8 @@ import ctypes
 
 import torch
 
+from sndepth_tpu_torch.utils import tracing
+
 MODES = {"edge_zero": 0, "zero_pad": 1}
 _SOURCE = "warp.cu"
 _lib = None
@@ -296,7 +298,7 @@ def _launch_gather(imgs, coords, mode: str):
     out = imgs.new_empty((b, c, ht, wt))
     _run(lib.warp_gather_launch, "gather", imgs.get_device(), imgs.data_ptr(),
          coords.data_ptr(), out.data_ptr(), b, c, hs, ws, ht, wt, MODES[mode])
-    warp_gather.launches += sampler_launches(b, ht * wt)
+    tracing.count("K5", sampler_launches(b, ht * wt))
     return out
 
 
@@ -308,7 +310,7 @@ def _launch_coord_grad(imgs, coords, g, mode: str):
     _run(lib.warp_coord_grad_launch, "coordinate gradient", imgs.get_device(),
          imgs.data_ptr(), coords.data_ptr(), g.data_ptr(), d_coords.data_ptr(),
          b, c, hs, ws, ht, wt, MODES[mode])
-    warp_coord_grad.launches += sampler_launches(b, ht * wt)
+    tracing.count("K5b", sampler_launches(b, ht * wt))
     return d_coords
 
 
@@ -325,7 +327,7 @@ def _launch_splat(coords, g, hs: int, ws: int, mode: str,
     _run(lib.warp_splat_launch, "splat", g.get_device(), coords.data_ptr(),
          g.data_ptr(), d_imgs.data_ptr(), b, c, hs, ws, ht, wt, MODES[mode],
          plane_cells)
-    warp_splat.launches += 1
+    tracing.count("K6")
     return d_imgs
 
 
@@ -360,6 +362,7 @@ def warp_gather(imgs, coords, mode: str):
     raise ValueError(f"no warp kernel for device {imgs.device}")
 
 
+@tracing.span("kernel#K5b")
 def warp_coord_grad(imgs, coords, g, mode: str):
     """The coordinate gradient (B, 2, Ht, Wt) of the gather for the
     cotangent ``g``. Dispatches by device as :func:`warp_gather`."""
@@ -373,6 +376,7 @@ def warp_coord_grad(imgs, coords, g, mode: str):
     raise ValueError(f"no warp kernel for device {imgs.device}")
 
 
+@tracing.span("kernel#K6")
 def warp_splat(coords, g, hs: int, ws: int, mode: str):
     """The image gradient (B, C, hs, ws) of the gather for the cotangent
     ``g``. Dispatches by device as :func:`warp_gather`."""
@@ -382,11 +386,6 @@ def warp_splat(coords, g, hs: int, ws: int, mode: str):
     if g.device.type == "cpu":
         return warp_splat_reference(coords, g, hs, ws, mode)
     raise ValueError(f"no warp kernel for device {g.device}")
-
-
-warp_gather.launches = 0
-warp_coord_grad.launches = 0
-warp_splat.launches = 0
 
 
 class _BilinearSample(torch.autograd.Function):

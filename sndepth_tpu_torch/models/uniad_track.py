@@ -44,6 +44,7 @@ from sndepth_tpu_torch.models.track_runtime import (
 from sndepth_tpu_torch.ops import layers
 from sndepth_tpu_torch.ops.layers import Conv2d
 from sndepth_tpu_torch.ops.norm import GroupNorm
+from sndepth_tpu_torch.utils import tracing
 
 
 def uniad_reference_config(**overrides) -> "UniADTrack":
@@ -278,11 +279,13 @@ class UniADTrack(nn.Module):
 
     def get_bevs(self, imgs, lidar2img, prev_bev=None, ego_shift=None,
                  ego_rotation_deg=None, can_bus=None) -> torch.Tensor:
-        feats = self.extract_img_feat(imgs)
-        return self.pts_bbox_head.get_bev_features(
-            feats, lidar2img, tuple(imgs.shape[3:5]), prev_bev=prev_bev,
-            ego_shift=ego_shift, ego_rotation_deg=ego_rotation_deg,
-            can_bus=can_bus)
+        with tracing.span("uniad#backbone"):
+            feats = self.extract_img_feat(imgs)
+        with tracing.span("uniad#bev_encoder"):
+            return self.pts_bbox_head.get_bev_features(
+                feats, lidar2img, tuple(imgs.shape[3:5]), prev_bev=prev_bev,
+                ego_shift=ego_shift, ego_rotation_deg=ego_rotation_deg,
+                can_bus=can_bus)
 
     def init_state(self) -> TrackState:
         dev = self.query_embedding.weight.device
@@ -294,6 +297,7 @@ class UniADTrack(nn.Module):
             timestamp=torch.zeros((), device=dev),
             has_prev=torch.zeros((), dtype=torch.bool, device=dev))
 
+    @tracing.span("uniad#frame")
     def forward(self, imgs, lidar2img, state: TrackState, timestamp=None,
                 ego_shift=None, ego_rotation_deg=None, max_dets: int = 100):
         """One inference frame: (new state, the decoded detections)."""
@@ -317,8 +321,9 @@ class UniADTrack(nn.Module):
         live = (tracks.obj_idxes >= 0)[:, None]
         query = torch.where(live, tracks.query, fresh.query)
         ref_pts = torch.where(live, tracks.ref_pts, fresh.ref_pts)
-        det = self.pts_bbox_head.get_detections(bev, query[None],
-                                                ref_pts[None])
+        with tracing.span("uniad#decoder"):
+            det = self.pts_bbox_head.get_detections(bev, query[None],
+                                                    ref_pts[None])
         logits = det["all_cls_scores"][-1, 0]
         boxes = det["all_bbox_preds"][-1, 0]
         out_emb = det["query_feats"][0]
@@ -328,14 +333,15 @@ class UniADTrack(nn.Module):
             ref_pts=det["ref_pts"][0], output_embedding=out_emb,
             scores=track_scores, track_scores=track_scores,
             pred_logits=logits, pred_boxes=boxes)
-        tracks, next_obj_id = tracker_update(
-            tracks, self.score_thresh, self.filter_score_thresh,
-            self.miss_tolerance, state.next_obj_id)
-        tracks = self.memory_bank(tracks)
-        tracks = self.query_interact(tracks)
-        results = nms_free_decode(logits, boxes, max_num=max_dets,
-                                  obj_idxes=tracks.obj_idxes,
-                                  track_scores=track_scores)
+        with tracing.span("uniad#tracker"):
+            tracks, next_obj_id = tracker_update(
+                tracks, self.score_thresh, self.filter_score_thresh,
+                self.miss_tolerance, state.next_obj_id)
+            tracks = self.memory_bank(tracks)
+            tracks = self.query_interact(tracks)
+            results = nms_free_decode(logits, boxes, max_num=max_dets,
+                                      obj_idxes=tracks.obj_idxes,
+                                      track_scores=track_scores)
         # The carried state keeps its dtypes whatever the model computes in.
         old = state.tracks.tensors()
         tracks = TrackInstances(**{k: v.to(old[k].dtype)

@@ -38,6 +38,7 @@ from sndepth_tpu_torch.ops.camera import (compute_multi_scale_intrinsics,
 from sndepth_tpu_torch.ops.pyramid import scale_pyramid
 from sndepth_tpu_torch.ops.ssim import image_similarity
 from sndepth_tpu_torch.ops.warp import flow_warp, pixel_grid
+from sndepth_tpu_torch.utils import tracing
 
 # As optax.apply_if_finite(max_consecutive_errors=100) in the JAX step: a
 # non-finite step is skipped; the 101st consecutive one raises here, where
@@ -108,9 +109,11 @@ def geonet_loss(disp_net: DispNetS, pose_net: PoseNet, batch: dict,
                 config: GeoNetConfig, flow_net: FlowNet | None = None,
                 mask_mean=torch.mean) -> tuple[torch.Tensor, dict]:
     """Total loss of one preprocessed batch, and its parts."""
-    _, depths, poses = geonet_forward(disp_net, pose_net, batch, config)
-    return geonet_loss_tail(depths, poses, batch, config, flow_net,
-                            mask_mean)
+    with tracing.span("geonet#nets"):
+        _, depths, poses = geonet_forward(disp_net, pose_net, batch, config)
+    with tracing.span("geonet#loss_tail"):
+        return geonet_loss_tail(depths, poses, batch, config, flow_net,
+                                mask_mean)
 
 
 def geonet_loss_tail(depths: list, poses: torch.Tensor, batch: dict,
@@ -343,6 +346,7 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if hasattr(t, "to_local") else t
 
 
+@tracing.span("geonet#step")
 def train_step(state: TrainState, batch: dict, config: GeoNetConfig,
                nets: tuple | None = None, ranks=None) -> dict:
     """One optimizer step on a raw batch (uint8 NHWC images on the device).
@@ -365,15 +369,19 @@ def train_step(state: TrainState, batch: dict, config: GeoNetConfig,
     total, aux = geonet_loss(
         disp_net, pose_net, batch, config, flow_net,
         ranks.mean if ranks is not None else torch.mean)
-    total.backward()
+    with tracing.span("geonet#backward"):
+        total.backward()
     grads = [_local(p.grad) for p in state.parameters() if p.grad is not None]
     finite = torch.stack([torch.isfinite(total)]
                          + [torch.isfinite(g).all() for g in grads]).all()
     if ranks is not None:
         finite = ranks.all(finite)
         aux = ranks.average(aux)
-    if bool(finite):
-        state.optimizer.step()
+    with tracing.span("geonet#finite_sync"):
+        finite = bool(finite)
+    if finite:
+        with tracing.span("geonet#adam"):
+            state.optimizer.step()
         state.notfinite_count = 0
     else:
         state.notfinite_count += 1

@@ -34,6 +34,7 @@ from sndepth_tpu.models import raft3d as jraft
 from sndepth_tpu.ops import se3 as jse3
 from sndepth_tpu_torch.kernels import gn_build as K8
 from sndepth_tpu_torch.models import raft3d as traft
+from sndepth_tpu_torch.utils import tracing
 from sndepth_tpu_torch.utils.threads import torch_threads
 
 
@@ -283,12 +284,12 @@ def test_the_16_wide_embedding_takes_the_plain_build(monkeypatch):
 def test_a_launch_without_a_card_raises_and_counts_nothing():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
-    before = K8.gn_build_hg.launches
+    before = tracing.counts()["K8"]
     with pytest.raises((RuntimeError, OSError)):
         K8._launch(*_torch(_inputs()), 3)
     H, _ = K8.gn_build_hg(*_torch(_inputs()), 3)      # CPU: plain version
     assert H.shape == (1, 54, 6, 6)
-    assert K8.gn_build_hg.launches == before
+    assert tracing.counts()["K8"] == before
     meta = tuple(a.to("meta") for a in _torch(_inputs()))
     with pytest.raises(ValueError, match="no gn_build kernel"):
         K8.gn_build_hg(*meta, 3)
@@ -407,11 +408,11 @@ def test_a_backward_launch_without_a_card_raises_and_counts_nothing():
         pytest.skip("a card is present")
     args = _torch(_inputs())
     ct_H, ct_g = map(torch.from_numpy, _cotangents(0, 1, 54))
-    before = K8.gn_build_bwd.launches
+    before = tracing.counts()["K8b"]
     for want in ((True,) * 8, WANT_SUBSETS[0]):
         with pytest.raises((RuntimeError, OSError), match="nvcc|cannot"):
             K8.gn_build_bwd(K8._kernel_inputs(*args), ct_H, ct_g, 3, want)
-    assert K8.gn_build_bwd.launches == before
+    assert tracing.counts()["K8b"] == before
     meta = tuple(a.to("meta") for a in args)
     with pytest.raises(ValueError, match="no gn_build kernel"):
         K8.gn_build_hg_bwd(*meta, 3, torch.zeros(1, 54, 6, 6, device="meta"),

@@ -17,6 +17,7 @@ from sndepth_tpu_torch.kernels import gn_build as K8
 from sndepth_tpu_torch.kernels import photo_loss as K1
 from sndepth_tpu_torch.kernels import smooth_loss as K2
 from sndepth_tpu_torch.kernels import warp as K5
+from sndepth_tpu_torch.utils import tracing
 from sndepth_tpu_torch.utils.threads import torch_threads
 
 
@@ -203,11 +204,9 @@ def _gn_inputs(device="cpu"):
 
 
 def _counts():
-    return [f.launches for f in (
-        K1.photo_pair_sums, K1.photo_sums, K1.photo_pair_weighted_sums,
-        K2.smooth_sums, K5.warp_gather, K5.warp_coord_grad, K5.warp_splat,
-        K7.dssim_forward,
-        K7.dssim_backward, K8.gn_build_hg, K8.gn_build_bwd)]
+    counts = tracing.counts()
+    assert sorted(counts) == sorted(tracing.COUNTERS) and len(counts) == 11
+    return counts
 
 
 def test_kernel_launch_without_a_card_raises():
