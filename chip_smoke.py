@@ -2309,6 +2309,9 @@ def phase_train() -> dict:
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
     if not last < first:
         raise AssertionError(f"loss did not descend: {losses}")
+    # On the steps that replay CUDA graphs these counts are copied from the
+    # capture; tests/test_torch_step_graphs.py holds them against the
+    # device kernels in a profile of a replay.
     if launches != {"photo_pair": 4 * steps, "smooth": 4 * steps}:
         raise AssertionError(f"launches {launches}, want {4 * steps} each")
 

@@ -19,7 +19,11 @@ name (the hand-written kernels are groups of their own), and by the
 program's spans (``utils/tracing.SPANS``): each span's host ms and calls a
 step, the device ms and launches of the kernels each launched, and the
 idle ms a step by the innermost span and host operation open in the gap
-(``"geonet#backward / host idle"``).
+(``"geonet#backward / host idle"``), and what the launch and step counters
+(``utils/tracing.COUNTERS``) moved over every step it ran. The GeoNet
+step runs eagerly until a step has updated Adam (the first, when its loss
+is finite), then replays CUDA graphs of itself, captured at the next
+step: its work then shows under ``geonet#replay`` and ``geonet#adam``.
 
 Usage:
     python -m sndepth_tpu_torch.cli.profile_step --family flow --batch 32
@@ -215,6 +219,7 @@ def main(argv=None) -> dict:
         batch = args.batch or (32 if args.family == "flow" else 128)
         step = _train_step(args.family, batch, h, w, device)
     n = args.steps
+    counts0 = tracing.counts()
     for _ in range(3):
         step()
     untraced_ms = _timed_ms(step, n)
@@ -224,6 +229,8 @@ def main(argv=None) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         wall_ms = _timed_ms(step, n)
     spans = tracing.snapshot()
+    counts = {k: v - counts0[k] for k, v in tracing.counts().items()
+              if v != counts0[k]}
 
     by_group, by_name, launches = profiling.device_kernels(prof, n)
     kernel_ms = sum(by_group.values())
@@ -248,6 +255,7 @@ def main(argv=None) -> dict:
                   for name, (calls, s) in sorted(spans.items())},
         "device_by_span": profiling.by_span(events, n),
         "idle_ms_by_span": profiling.idle_by_span(events, n),
+        "steps_run": 3 + 2 * n, "counters": counts,
     }
     print(json.dumps(result), flush=True)
     return result

@@ -45,8 +45,11 @@ def euler2mat(z: torch.Tensor, y: torch.Tensor,
 
 
 def _bottom_row(b: int, like: torch.Tensor) -> torch.Tensor:
-    return like.new_tensor([0.0, 0.0, 0.0, 1.0])[None, None, :].expand(
-        b, 1, 4)
+    # Made on the device, with no copy from the host, which a CUDA graph
+    # could not capture.
+    row = like.new_zeros(1, 1, 4)
+    row[..., 3] = 1.0
+    return row.expand(b, 1, 4)
 
 
 def pose_vec2mat(vec: torch.Tensor) -> torch.Tensor:

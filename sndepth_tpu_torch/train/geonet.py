@@ -17,10 +17,15 @@ the other.
 
 Kernels are chosen by the device the tensors live on: CUDA tensors launch
 them, CPU tensors take their plain versions.
+
+On one process with the batch on a CUDA device, :func:`train_step` runs
+the step as replays of CUDA graphs (:class:`_StepGraphs`): the same
+kernels in the same order, issued by one call instead of ~3,500.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -287,10 +292,14 @@ def _full_flow_losses(flow_net: FlowNet, cfg: GeoNetConfig, tgt_tile_pyr,
 
 def make_optimizer(config: GeoNetConfig, params) -> torch.optim.Adam:
     """Adam(lr=2e-4, betas=(0.9, 0.999), eps=1e-8) - `baseline.py:1269`;
-    eps sits outside the square root, as in optax.adam."""
+    eps sits outside the square root, as in optax.adam. On CUDA
+    parameters its step count lives on the card (``capturable``), so that
+    a CUDA graph can replay the update: the same update."""
+    params = list(params)
     return torch.optim.Adam(params, lr=config.learning_rate,
                             betas=(config.adam_beta1, config.adam_beta2),
-                            eps=1e-8)
+                            eps=1e-8,
+                            capturable=all(p.is_cuda for p in params))
 
 
 @dataclasses.dataclass
@@ -303,6 +312,10 @@ class TrainState:
     flow_net: FlowNet | None = None
     step: int = 0
     notfinite_count: int = 0
+    # The step's CUDA graphs, made by train_step; not part of the state
+    # dict.
+    _graphs: _StepGraphs | None = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     def nets(self) -> dict[str, torch.nn.Module]:
         """The nets by checkpoint key, in parameter order."""
@@ -322,12 +335,22 @@ class TrainState:
                 "optimizer": self.optimizer.state_dict()}
 
     def load_state_dict(self, saved: dict) -> None:
+        # The optimizer's state tensors are replaced, and the update's
+        # graph reads the old ones.
+        self._graphs = None
         for key, net in self.nets().items():
             if key not in saved:
                 raise KeyError(f"the checkpoint holds no {key}: it was "
                                "saved by a run without that net")
             net.load_state_dict(saved[key])
-        self.optimizer.load_state_dict(saved["optimizer"])
+        # Whether Adam keeps its step count on the card is this state's
+        # choice, by the device of its parameters, not the saving run's:
+        # torch then moves the saved counts to match.
+        optim = saved["optimizer"]
+        optim = {**optim, "param_groups": [
+            {**g, "capturable": live["capturable"]} for g, live in zip(
+                optim["param_groups"], self.optimizer.param_groups)]}
+        self.optimizer.load_state_dict(optim)
         self.step = int(saved["step"])
         self.notfinite_count = int(saved["notfinite_count"])
 
@@ -361,11 +384,38 @@ def train_step(state: TrainState, batch: dict, config: GeoNetConfig,
     global batch's, the finite flag holds only when it holds on every rank
     (a rank's loss is its own, and FSDP's gradients are shards: each rank
     sees only its part), and the loss parts are the ranks' mean, the same
-    on every rank."""
+    on every rank.
+
+    Without either, on a batch of CUDA tensors with grad mode on, the step
+    replays CUDA graphs of itself (:class:`_StepGraphs`); every other step
+    is issued op by op."""
+    if nets is None and ranks is None and _graphable(batch):
+        return _graph_step(state, batch, config)
+    return _eager_step(state, batch, config, nets, ranks)
+
+
+def _graphable(batch: dict) -> bool:
+    return torch.is_grad_enabled() and all(
+        isinstance(v, torch.Tensor) and v.is_cuda for v in batch.values())
+
+
+def _eager_step(state: TrainState, batch: dict, config: GeoNetConfig,
+                nets: tuple | None = None, ranks=None) -> dict:
+    tracing.count("eager_steps")
+    state.optimizer.zero_grad(set_to_none=True)
+    finite, aux = _loss_and_grads(state, batch, config, nets, ranks)
+    _update_if_finite(state, finite, state.optimizer.step)
+    return {k: v.detach() for k, v in aux.items()}
+
+
+def _loss_and_grads(state: TrainState, batch: dict, config: GeoNetConfig,
+                    nets: tuple | None = None, ranks=None):
+    """The loss parts of a raw batch, the gradients in the parameters'
+    ``grad`` and the flag that the loss and every gradient are finite,
+    with nothing read on the host: (finite flag, loss parts)."""
     batch = preprocess_batch(batch)
     disp_net, pose_net, flow_net = nets or (state.disp_net, state.pose_net,
                                             state.flow_net)
-    state.optimizer.zero_grad(set_to_none=True)
     total, aux = geonet_loss(
         disp_net, pose_net, batch, config, flow_net,
         ranks.mean if ranks is not None else torch.mean)
@@ -377,11 +427,18 @@ def train_step(state: TrainState, batch: dict, config: GeoNetConfig,
     if ranks is not None:
         finite = ranks.all(finite)
         aux = ranks.average(aux)
+    return finite, aux
+
+
+def _update_if_finite(state: TrainState, finite: torch.Tensor,
+                      update) -> None:
+    """Wait for ``finite`` on the host; call ``update`` (Adam) when it
+    holds, else count the skip."""
     with tracing.span("geonet#finite_sync"):
         finite = bool(finite)
     if finite:
         with tracing.span("geonet#adam"):
-            state.optimizer.step()
+            update()
         state.notfinite_count = 0
     else:
         state.notfinite_count += 1
@@ -389,4 +446,106 @@ def train_step(state: TrainState, batch: dict, config: GeoNetConfig,
             raise FloatingPointError(
                 f"{state.notfinite_count} consecutive non-finite steps")
     state.step += 1
-    return {k: v.detach() for k, v in aux.items()}
+
+
+def _graph_step(state: TrainState, batch: dict,
+                config: GeoNetConfig) -> dict:
+    """The one-process step on CUDA tensors. A key is the config, the
+    optimizer and nets the state holds, and each batch tensor's shape and
+    dtype. Its first steps run eagerly on the graphs' side stream, as
+    their warm-up (cuDNN's choices, the allocator, K2's ticket for that
+    stream), until one of them has made Adam's state; the next captures
+    the graphs, and it and every later step replay them. A step of another
+    key drops them and starts the new key's warm-up."""
+    key = (config, state.optimizer, *state.nets().values(),
+           *((k, v.shape, v.dtype, v.device) for k, v in batch.items()))
+    graphs = state._graphs
+    if graphs is None or graphs.key != key:
+        state._graphs = graphs = _StepGraphs(key, batch["tgt"].device)
+    if graphs.step is None:
+        if not graphs.ready(state.optimizer):
+            graphs.warmups += 1
+            with graphs.side_stream():
+                return _eager_step(state, batch, config)
+        graphs.capture(state, batch, config)
+    with tracing.span("geonet#replay"):
+        graphs.replay(batch)
+    tracing.count("graph_replays")
+    _update_if_finite(state, graphs.finite, graphs.adam.replay)
+    parts = graphs.parts.clone()
+    return dict(zip(graphs.names, parts.unbind()))
+
+
+class _StepGraphs:
+    """The step of one key as two CUDA graphs, captured together on a side
+    stream and replayed on the current one: ``step`` takes the static
+    batch ``inputs`` through :func:`preprocess_batch`, the nets, the loss
+    and the backward to the parameters' gradients, the ``finite`` flag and
+    the stacked loss ``parts``; ``adam`` is the optimizer's update, which
+    reads those gradients. Capturing executes nothing: the replay that
+    follows it is the step, so a step's state is what the eager step
+    leaves. Adam's state must exist before the capture: a graph that made
+    it would zero the moments at every replay."""
+
+    def __init__(self, key, device: torch.device):
+        self.key = key
+        self.stream = torch.cuda.Stream(device)
+        self.warmups = 0
+        self.inputs = self.finite = self.parts = None
+        self.names = ()
+        self.step = self.adam = None
+        # The hand-written kernels' launches that the capture counted,
+        # which each replay adds: copied from the capture, not measured.
+        self.launches = {}
+
+    @contextlib.contextmanager
+    def side_stream(self):
+        """Run on the side stream, after the current stream's work; the
+        current stream then waits for it."""
+        current = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            yield
+        current.wait_stream(self.stream)
+
+    def ready(self, optimizer: torch.optim.Adam) -> bool:
+        """Warmed up, with Adam's state made for every parameter that has
+        a gradient."""
+        grads = [p for group in optimizer.param_groups
+                 for p in group["params"] if p.grad is not None]
+        return self.warmups > 0 and all(p in optimizer.state for p in grads)
+
+    def capture(self, state: TrainState, batch: dict,
+                config: GeoNetConfig) -> None:
+        self.inputs = {k: torch.empty_like(v) for k, v in batch.items()}
+        # Gradients set to None, so that the backward allocates them in
+        # the graph's memory, where every replay writes them anew.
+        state.optimizer.zero_grad(set_to_none=True)
+        before = tracing.counts()
+        step, adam = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with tracing.span("geonet#capture"):
+            with torch.cuda.graph(step, stream=self.stream):
+                self.finite, aux = _loss_and_grads(state, self.inputs,
+                                                   config)
+                self.names = tuple(aux)
+                self.parts = torch.stack([aux[k].detach()
+                                          for k in self.names])
+            with torch.cuda.graph(adam, pool=step.pool(),
+                                  stream=self.stream):
+                state.optimizer.step()
+        self.step, self.adam = step, adam
+        # The capture launched nothing: what the wrappers counted is taken
+        # back here, and added by each replay.
+        after = tracing.counts()
+        self.launches = {k: n - before[k] for k, n in after.items()
+                         if n != before[k]}
+        for k, n in self.launches.items():
+            tracing.count(k, -n)
+        tracing.count("graph_captures")
+
+    def replay(self, batch: dict) -> None:
+        for k, t in self.inputs.items():
+            t.copy_(batch[k])
+        self.step.replay()
+        for k, n in self.launches.items():
+            tracing.count(k, n)

@@ -20,7 +20,14 @@ gaps included, to the device's busy time.
 
 **Counters.** ``count("K5", n)`` adds the launches of a hand-written kernel
 where the CUDA launch happens; always on (one integer add). ``counts()``
-reads them. They only grow: a reader takes the difference of two readings.
+reads them. Between two calls of the port they only grow: a reader takes
+the difference of two readings.
+Three more count how ``train/geonet.train_step`` ran a step: captured as
+CUDA graphs (``graph_captures``), replayed from them (``graph_replays``) or
+issued op by op (``eager_steps``). A replay runs no Python: on a replayed
+step the kernels' counts are copied from the capture (which launched
+nothing, and takes back what it counted), not measured; a test on the card
+holds them against a profile of the replay's device kernels.
 """
 
 from __future__ import annotations
@@ -43,7 +50,11 @@ SPANS = {
                         "2 FlowNet and the full-flow losses",
     "geonet#backward": "total.backward()",
     "geonet#finite_sync": "bool(finite): the host waits for the card",
-    "geonet#adam": "optimizer.step()",
+    "geonet#adam": "optimizer.step(), or its graph's replay",
+    "geonet#capture": "the capture of the step's or Adam's graph: their "
+                      "Python runs and the card executes nothing",
+    "geonet#replay": "the batch's copy into the graph's inputs and the "
+                     "replay of the step's graph",
     "kernel#K1": "kernels/photo_loss.photo_pair_sums",
     "kernel#K2": "kernels/smooth_loss.smooth_sums",
     "kernel#K3": "kernels/photo_loss.photo_sums",
@@ -62,9 +73,10 @@ SPANS = {
 
 # The hand-written kernels' launch counters (K5's gather and K8 are the
 # operators ``sndepth::warp_gather`` and ``sndepth::gn_build``: a profile
-# names them already, so they are counted here and carry no span).
+# names them already, so they are counted here and carry no span), then
+# the GeoNet step's: graphs captured, steps replayed, steps run eagerly.
 COUNTERS = ("K1", "K2", "K3", "K4", "K5", "K5b", "K6", "K7", "K7b", "K8",
-            "K8b")
+            "K8b", "graph_captures", "graph_replays", "eager_steps")
 
 _table: dict[str, list] = {}
 _lock = threading.Lock()
@@ -140,11 +152,11 @@ def reset() -> None:
         _table.clear()
 
 
-def count(kernel: str, n: int = 1) -> None:
-    """Add ``n`` launches of ``kernel`` (a name in :data:`COUNTERS`)."""
-    _counts[kernel] += n
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` (in :data:`COUNTERS`)."""
+    _counts[name] += n
 
 
 def counts() -> dict:
-    """{kernel: launches since the process started}."""
+    """{counter: its count since the process started}."""
     return dict(_counts)

@@ -205,7 +205,7 @@ def _gn_inputs(device="cpu"):
 
 def _counts():
     counts = tracing.counts()
-    assert sorted(counts) == sorted(tracing.COUNTERS) and len(counts) == 11
+    assert sorted(counts) == sorted(tracing.COUNTERS) and len(counts) == 14
     return counts
 
 
